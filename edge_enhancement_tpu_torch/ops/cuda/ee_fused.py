@@ -1,0 +1,303 @@
+"""The fused edge-enhancement front-end: CUDA kernels K1 (forward) and K2
+(adjoint) with their plain PyTorch versions beside them.
+
+Replaces edge_enhancement_tpu/ops/pallas/ee_fused.py::_fwd_kernel (K1) and
+::_bwd_kernel (K2), the `_ee_fused` custom_vjp pair. One pass computes the
+whole front-end of the square / BPDA-3 models:
+
+    xs   = add_square(x)                   (n_queries = 1, draws made outside)
+    hfs  = HFS(xs)                         (per-axis operator sandwich)
+    edge = canny_step125(x)                (clean x)
+    out  = clip(hfs + w * edge, 0, 1)
+
+and K2 is its exact adjoint from the residuals (x, y = hfs + w * edge).
+Source and design notes: edge_enhancement_tpu_torch/csrc/ee_fused.cu.
+
+Tensors are (B, C, H, W) float32. On a CPU tensor the wrappers run the
+plain versions; on a CUDA tensor they launch the kernel or raise. The plain
+versions are also the oracle of the tests and of chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional
+
+import torch
+
+from ..canny import _blur_sobel_magnitude_nchw, _channel_sum, canny_step125_nchw
+from ..filters import gaussian_kernel, sobel_kernel
+from ..hfs import _hfs_axis_operators, hfs_nchw
+from ..square import clip01, square_forward_nchw
+from ..stencil import stencil_taps
+
+# Launches of each kernel since the last reset_launches(); the wrappers add
+# one where they launch and nowhere else.
+LAUNCHES = {"ee_fused_fwd": 0, "ee_fused_bwd": 0}
+# Largest dynamic shared memory a Hopper block may opt into (232,448 bytes).
+MAX_SMEM_BYTES = 232448
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedConsts:
+    """Static operands of the front-end (models/ee_frontend.EEConfig)."""
+    r: int
+    eps: float
+    w: float
+    alpha: float
+    high: float        # already scaled to [0, 1]
+    sigma: float
+    square: bool
+
+
+_OPERATORS: dict = {}
+
+
+def operators(h: int, w: int, r: int, sigma: float, device) -> tuple:
+    """(Ar, Ai, Br, Bi, gaussian taps (9,)) on `device`, built once per
+    (H, W, r, sigma, device) from the numpy constructors."""
+    key = (h, w, r, sigma, str(device))
+    if key not in _OPERATORS:
+        mats = [torch.from_numpy(m).to(device) for m in _hfs_axis_operators(h, w, r)]
+        taps = torch.from_numpy(gaussian_kernel(3, 0.0, sigma).reshape(9).copy())
+        _OPERATORS[key] = (*mats, taps.to(device))
+    return _OPERATORS[key]
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions
+# --------------------------------------------------------------------------
+
+def ee_fused_fwd_plain(x, stripes, sq_delta, k: FusedConsts):
+    """Transcription of `_fwd_kernel`: returns (out, y). Differentiable, with
+    JAX's gradient conventions (clip ties 0.5, the To_compare window), so
+    torch autograd of it is a second oracle of the adjoint."""
+    ar, ai, br, bi, _ = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
+    xs = square_forward_nchw(x, stripes, sq_delta, k.eps) if k.square else x
+    edge = canny_step125_nchw(x, k.high, sigma=k.sigma, alpha=k.alpha)
+    y = hfs_nchw(xs, ar, ai, br, bi) + k.w * edge
+    return clip01(y), y
+
+
+def _clip_mask(v):
+    """d clip(v, 0, 1)/dv: 1 inside, 0.5 at an exact bound, 0 outside."""
+    inside = ((v > 0.0) & (v < 1.0)).to(v.dtype)
+    edge = ((v == 0.0) | (v == 1.0)).to(v.dtype)
+    return inside + 0.5 * edge
+
+
+def _max_masks(a, b):
+    tie = (a == b).to(a.dtype)
+    return (a > b).to(a.dtype) + 0.5 * tie, (b > a).to(a.dtype) + 0.5 * tie
+
+
+def _min_masks(a, b):
+    tie = (a == b).to(a.dtype)
+    return (a < b).to(a.dtype) + 0.5 * tie, (b < a).to(a.dtype) + 0.5 * tie
+
+
+def _square_backward(u_xs, x, stripes, sq_delta, eps):
+    """Adjoint of square_forward_nchw w.r.t. x, through the perturbation
+    chain and the projection bounds x +- eps."""
+    t1 = x + eps * stripes
+    t3 = clip01(t1) + sq_delta
+    xl, xh = x - eps, x + eps
+    t4 = torch.maximum(t3, xl)
+    t5 = torch.minimum(t4, xh)
+    u_t5 = u_xs * _clip_mask(t5)
+    d_t4, d_xh = _min_masks(t4, xh)
+    u_t4 = u_t5 * d_t4
+    d_t3, d_xl = _max_masks(t3, xl)
+    u_t1 = u_t4 * d_t3 * _clip_mask(t1)
+    return u_t1 + u_t5 * d_xh + u_t4 * d_xl
+
+
+def _edge_shift_adjoint(u, dh: int, dw: int):
+    """Adjoint of the edge-replicated read x[clamp(h + dh), clamp(w + dw)]:
+    the interior shifts back with zero fill and the border row/column
+    absorbs the reads that the clamp folded onto it."""
+    def axis_adjoint(v, d, dim):
+        if d == 0:
+            return v
+        n = v.shape[dim]
+        out = torch.zeros_like(v)
+        if d > 0:
+            out.narrow(dim, d, n - d).copy_(v.narrow(dim, 0, n - d))
+            out.narrow(dim, n - 1, 1).add_(v.narrow(dim, n - d, d).sum(dim, keepdim=True))
+        else:
+            d = -d
+            out.narrow(dim, 0, n - d).copy_(v.narrow(dim, d, n - d))
+            out.narrow(dim, 0, 1).add_(v.narrow(dim, 0, d).sum(dim, keepdim=True))
+        return out
+
+    return axis_adjoint(axis_adjoint(u, dh, 2), dw, 3)
+
+
+def _apply_taps_adjoint(u, kernel):
+    out = None
+    for dh, dw, c in stencil_taps(kernel):
+        term = c * _edge_shift_adjoint(u, dh, dw)
+        out = term if out is None else out + term
+    return out
+
+
+def ee_fused_bwd_plain(u, x, stripes, sq_delta, y, k: FusedConsts):
+    """Transcription of `_bwd_kernel`: dx from the cotangent u of `out`."""
+    ar, ai, br, bi, _ = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
+    c = x.shape[1]
+    u_y = u * _clip_mask(y)
+    dxs = ar.T @ (u_y @ br) - ai.T @ (u_y @ bi)
+    dx_hfs = (_square_backward(dxs, x, stripes, sq_delta, k.eps)
+              if k.square else dxs)
+
+    # Canny branch: recompute the forward, then the adjoint of each step
+    gx, gy, mag = _blur_sobel_magnitude_nchw(x, k.sigma)
+    zero = torch.zeros_like(mag)
+    u_edge = k.w * _channel_sum(u_y)
+    mag_m = torch.where(mag < k.alpha, zero, mag)
+    keep = (mag_m > k.high) & (mag_m <= 1.001) & (mag >= k.alpha)
+    u_mag = torch.where(keep, u_edge, zero)
+    mag_zero = mag == 0.0
+    inv_mag = torch.where(mag_zero, zero,
+                          1.0 / torch.where(mag_zero, torch.ones_like(mag), mag))
+    sob = sobel_kernel(3)
+    u_summed = (_apply_taps_adjoint(u_mag * gx * inv_mag, sob)
+                + _apply_taps_adjoint(u_mag * gy * inv_mag, sob.T)) / c
+    # the blur's adjoint of the channel-broadcast u_summed is one plane
+    dx_canny = _apply_taps_adjoint(u_summed, gaussian_kernel(3, 0.0, k.sigma))
+    return dx_hfs + dx_canny
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """Build (at first use) and bind csrc/ee_fused.cu."""
+    from . import build
+    lib = build.load("ee_fused")
+    c = lib.lib
+    c.ee_fused_fwd.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I, _P]
+    c.ee_fused_fwd.restype = _I
+    c.ee_fused_bwd.argtypes = [_P] * 11 + [_I] * 4 + [_F] * 4 + [_I, _P]
+    c.ee_fused_bwd.restype = _I
+    c.ee_fused_smem_bytes.argtypes = [_I, _I, _I]
+    c.ee_fused_smem_bytes.restype = ctypes.c_size_t
+    c.ee_fused_error_string.argtypes = [_I]
+    c.ee_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x):
+    if x.device.type != "cuda":
+        raise ValueError(f"the fused front-end kernel takes CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (B, C, H, W) float32 tensor "
+                         f"(got {x.dtype}, shape {tuple(x.shape)})")
+    b, c, h, w = x.shape
+    if h % 4 or w % 4:
+        raise ValueError(f"H and W must be multiples of 4, got {h}x{w}")
+    # one block holds the image, the four operators and work planes in
+    # shared memory
+    need = _library().lib.ee_fused_smem_bytes(c, h, w)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{c}x{h}x{w} needs {need} bytes of shared memory per "
+                         f"block, above the {MAX_SMEM_BYTES} a block may use")
+    for t in same_as_x:
+        if (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError("u and y must match x in shape, dtype, device and "
+                             "contiguity")
+    if k.square:
+        for t, shape in ((stripes, (b, c, 1, w)), (sq_delta, (1, c, h, w))):
+            if (t is None or tuple(t.shape) != shape or t.dtype != x.dtype
+                    or t.device != x.device or not t.is_contiguous()):
+                raise ValueError(f"square draws must be contiguous float32 "
+                                 f"{shape} tensors on {x.device}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.lib.ee_fused_error_string(err).decode()}")
+
+
+def ee_fused_fwd(x, stripes, sq_delta, k: FusedConsts):
+    """K1: (out, y) of the front-end; plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return ee_fused_fwd_plain(x, stripes, sq_delta, k)
+    _check(x, stripes, sq_delta, k)
+    lib = _library()
+    ar, ai, br, bi, taps = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
+    out, y = torch.empty_like(x), torch.empty_like(x)
+    b, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        err = lib.lib.ee_fused_fwd(
+            _ptr(x), _ptr(stripes), _ptr(sq_delta), _ptr(ar), _ptr(ai),
+            _ptr(br), _ptr(bi), _ptr(taps), _ptr(out), _ptr(y), b, c, h, w,
+            k.eps, k.w, k.alpha, k.high, int(k.square),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "ee_fused_fwd")
+    LAUNCHES["ee_fused_fwd"] += 1
+    return out, y
+
+
+def ee_fused_bwd(u, x, stripes, sq_delta, y, k: FusedConsts):
+    """K2: dx from the cotangent u of `out`; plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return ee_fused_bwd_plain(u, x, stripes, sq_delta, y, k)
+    _check(x, stripes, sq_delta, k, u, y)
+    lib = _library()
+    ar, ai, br, bi, taps = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
+    dx = torch.empty_like(x)
+    b, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        err = lib.lib.ee_fused_bwd(
+            _ptr(u), _ptr(x), _ptr(stripes), _ptr(sq_delta), _ptr(y),
+            _ptr(ar), _ptr(ai), _ptr(br), _ptr(bi), _ptr(taps), _ptr(dx),
+            b, c, h, w, k.eps, k.w, k.alpha, k.high, int(k.square),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "ee_fused_bwd")
+    LAUNCHES["ee_fused_bwd"] += 1
+    return dx
+
+
+class EEFused(torch.autograd.Function):
+    """K1 in forward, K2 in backward; the draws get no gradient (they are
+    random constants w.r.t. the attack)."""
+
+    @staticmethod
+    def forward(ctx, x, stripes, sq_delta, k: FusedConsts):
+        out, y = ee_fused_fwd(x, stripes, sq_delta, k)
+        ctx.save_for_backward(x, stripes, sq_delta, y)
+        ctx.k = k
+        return out
+
+    @staticmethod
+    def backward(ctx, u):
+        x, stripes, sq_delta, y = ctx.saved_tensors
+        dx = ee_fused_bwd(u.contiguous(), x, stripes, sq_delta, y, ctx.k)
+        return dx, None, None, None
+
+
+def ee_fused(x, stripes, sq_delta, k: FusedConsts):
+    """Differentiable front-end of a (B, C, H, W) batch; `stripes` and
+    `sq_delta` are None when k.square is False."""
+    return EEFused.apply(x, stripes, sq_delta, k)

@@ -1,0 +1,46 @@
+"""Small fixed-kernel convolutions as shifted multiply-adds.
+
+Mirrors edge_enhancement_tpu/ops/stencil.py: the taps are applied in
+row-major order with zero taps skipped, each product and sum rounded on its
+own, so the result equals the JAX stencil bit for bit (the hard Canny
+threshold downstream flips on one-ulp differences).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def stencil_taps(kernel: np.ndarray) -> list[tuple[int, int, float]]:
+    """(dh, dw, coeff) of the nonzero entries, row-major."""
+    kernel = np.asarray(kernel)
+    kh, kw = kernel.shape
+    return [(i - kh // 2, j - kw // 2, float(kernel[i, j]))
+            for i in range(kh) for j in range(kw) if float(kernel[i, j]) != 0.0]
+
+
+def stencil2d_nchw(x: torch.Tensor, kernel: np.ndarray,
+                   pad_mode: str = "edge") -> torch.Tensor:
+    """Depthwise 'same' cross-correlation of a (B, C, H, W) tensor; 'edge'
+    replicates the border, 'zero' pads with zeros."""
+    kernel = np.asarray(kernel)
+    kh, kw = kernel.shape
+    ph, pw = kh // 2, kw // 2
+    mode = {"edge": "replicate", "zero": "constant"}[pad_mode]
+    xp = F.pad(x, (pw, pw, ph, ph), mode=mode)
+    h, w = x.shape[2], x.shape[3]
+    out = None
+    for dh, dw, coeff in stencil_taps(kernel):
+        i, j = dh + ph, dw + pw
+        term = coeff * xp[:, :, i:i + h, j:j + w]
+        out = term if out is None else out + term
+    return torch.zeros_like(x) if out is None else out
+
+
+def stencil2d(x: torch.Tensor, kernel: np.ndarray,
+              pad_mode: str = "edge") -> torch.Tensor:
+    """`stencil2d_nchw` on an NHWC tensor (the JAX layout)."""
+    return stencil2d_nchw(x.permute(0, 3, 1, 2), kernel,
+                          pad_mode).permute(0, 2, 3, 1)

@@ -1,0 +1,84 @@
+"""The port's training driver on the CPU at a tiny size, its refusals, the
+jax-free import rule of the port, and chip_smoke.py's refusal without CUDA."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(REPO, "edge_enhancement_tpu", "configs", "tiny_imagenet",
+                      "ee_at_bpda3_square.yml")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_driver_runs_on_cpu(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "edge_enhancement_tpu_torch.train", "--config", CONFIG,
+         "--data", "synthetic", "--synthetic-size", "8", "--batch-size", "4",
+         "--epochs", "1", "--limit-batches", "1", "--device", "cpu",
+         "--output", str(tmp_path)],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    run_dir = tmp_path / "tiny_imagenet" / "EE_BPDA3_AT_square" / "resnet18_EE_square-bs4-lr0.1-seed1"
+    log = (run_dir / "log" / "log.txt").read_text()
+    for line in ("Epoch: [0][0/2]", " * Clean Prec@1", " * Adv Prec@1",
+                 "=> done. best robust-eval Prec@1"):
+        assert line in log, log
+    ckpt = torch.load(run_dir / "ckpt" / "checkpoint.pth.tar")
+    assert ckpt["epoch"] == 1 and ckpt["arch"] == "resnet18_EE_square"
+    assert "layer4.1.bn2.running_var" in ckpt["state_dict"]
+    assert ckpt["optimizer"]["param_groups"][0]["momentum"] == 0.9
+    assert (run_dir / "ckpt" / "model_best.pth.tar").exists() or ckpt["best_prec1"] == 0.0
+
+
+@pytest.mark.parametrize("override,error", [
+    ({"device": "cuda"}, RuntimeError),
+    ({"method_name": "free_AT"}, NotImplementedError),
+    ({"method_name": "TRADES"}, NotImplementedError),
+    ({"awp_gamma": 0.01}, NotImplementedError),
+    ({"evaluate": True}, NotImplementedError),
+    ({"resume": "ckpt"}, NotImplementedError),
+])
+def test_driver_refuses(override, error):
+    from edge_enhancement_tpu.utils.config import load_config
+    from edge_enhancement_tpu_torch.train.driver import run
+    if override.get("device") == "cuda" and torch.cuda.is_available():
+        pytest.skip("CUDA is present")
+    cfg = load_config(CONFIG, {**dict(data="synthetic", synthetic_size=8,
+                                      batch_size=4, device="cpu"), **override})
+    with pytest.raises(error):
+        run(cfg)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import edge_enhancement_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "import edge_enhancement_tpu_torch.train.driver\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules if k.startswith(p.__name__)]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
