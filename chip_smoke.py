@@ -4,19 +4,34 @@
     python3 chip_smoke.py
 
 1. The device: name, power limit, torch and CUDA versions; TF32 off (the
-   slice is float32).
-2. The build: nvcc compiles csrc/ee_fused.cu (kernels K1, K2) for sm_90a.
-3. The kernels against their plain PyTorch versions at the slice's shape
-   (100 x 64 x 64 x 3 float32, with constant patches and saturated pixels),
-   errors against stated limits, and median times from CUDA events.
-4. The slice: the port's training driver on the flagship config
-   (resnet18_EE_square, Tiny-ImageNet 64 px, batch 100, 200 classes,
-   PGD-10 adversarial training), synthetic data, 3 train steps and 3
-   validation batches; the loss must be finite and the kernels' launch
-   counts exact.
-5. The reference: the trained weights on a small batch, the card's path
-   (kernels, cuDNN) against the same weights and draws on the CPU (the plain
-   versions, which the CPU tests hold against the JAX package).
+   slices are float32).
+2. The build: one nvcc for each source, started together: csrc/ee_fused.cu
+   (kernels K1, K2, K3a, K3b) and csrc/gemm_conv.cu (K4), for sm_90a.
+3. The kernels against their plain PyTorch versions at the shapes their
+   paths give them, errors against stated limits, median times from CUDA
+   events, and each kernel's bound (the least time the card could take for
+   its bytes and its operations); a kernel's time is its device time per
+   launch from a replayed CUDA graph of 20 launches, beside the eager
+   call's time: K1/K2 and K3a/K3b at 100 x 3 x 64 x 64
+   float32 (with constant patches and saturated pixels); K4 forward and
+   dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, beside
+   cuDNN's convolution.
+4. The slices, each with every launch count set to 0 before it and read
+   after it:
+   a. the port's training driver on the flagship config
+      (resnet18_EE_square, Tiny-ImageNet 64 px, batch 100, 200 classes,
+      PGD-10 adversarial training), synthetic data, 3 train steps and 3
+      validation batches; the loss must be finite and K1/K2's launch counts
+      exact, with no other kernel launched;
+   b. the same with the edge map smoothed (`gf: true`): exact K3a/K3b
+      counts, no K1/K2 launch;
+   c. the GEMM-conv op (forward and its autograd backward, float32 and
+      bfloat16) and the bench entry point tools/bench_gemm_conv over its
+      three shapes: exact K4 counts.
+5. The reference, for slices a and b: the trained weights on a small
+   batch, the card's path (kernels, cuDNN) against the same weights and
+   draws on the CPU (the plain versions, which the CPU tests hold against
+   the JAX package).
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Any failure raises: the exit
@@ -42,14 +57,40 @@ SLICE_ARGS = dict(data="synthetic", synthetic_size=600, epochs=1,
 # products sum 64 FP32 terms in another order than cuBLAS: ~1e-6 on values
 # of order 1. K2: the same sums, scaled by at most 1/|g| < 1/high = 3.4.
 FWD_TOL, BWD_TOL = 2e-5, 1e-4
+# K3a: the same operations in the same order as the plain version, so its
+# outputs agree exactly. K3b: stencil adjoints summed in another order,
+# scaled by at most 1/|g| < 3.4.
+CANNY_FWD_TOL, CANNY_BWD_TOL = 0.0, 1e-4
+# K4 vs its plain version (same operands, float32 sums of 9 * 64 = 576
+# products of order 0.1 in another order): float32 ~1e-5 on outputs of
+# order 3; bfloat16: both round a float32 sum once, so they differ by at
+# most one bf16 ulp (2^-7 relative) where the two sums straddle a rounding
+# boundary, plus the float32 difference near zero.
+CONV_F32_ATOL = 1e-4
+CONV_BF16_ATOL, CONV_BF16_RTOL = 1e-4, 2.0 ** -7
 # Logits of the small batch, card vs CPU, relative to the largest logit
 # (eval-mode logits after 3 steps can reach the thousands): the edge maps
 # agree bit for bit, the rest is two libraries' float32 convolutions.
 REF_TOL = 1e-3
+# H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
+# and dense bf16 tensor-core FLOP/s.
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# the K4 check's shape (ResNet-50 layer1), and the bench's repetitions
+CONV_SHAPE = (128, 56, 56, 64, 64)
+BENCH_REPS = 5
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+    """The least time for the work: bytes at the memory rate or operations
+    at the peak rate of their type, whichever is longer."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_us": 1e6 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def device_phase(torch):
@@ -69,16 +110,20 @@ def device_phase(torch):
 
 
 def build_phase():
-    from edge_enhancement_tpu_torch.ops.cuda import ee_fused
+    from edge_enhancement_tpu_torch.ops.cuda import build
     t0 = time.time()
-    lib = ee_fused._library()
-    print(f"[build] {os.path.relpath(lib.path, ROOT)}: nvcc "
-          f"{lib.build_seconds:.1f} s, load {time.time() - t0:.1f} s",
-          flush=True)
-    print(lib.log.strip(), flush=True)
+    libs = build.load_all()
+    print(f"[build] {len(libs)} sources in parallel, {time.time() - t0:.1f} s "
+          "wall", flush=True)
+    for name, lib in libs.items():
+        print(f"[build] {os.path.relpath(lib.path, ROOT)}: nvcc "
+              f"{lib.build_seconds:.1f} s", flush=True)
+        print(lib.log.strip(), flush=True)
 
 
 def _median_ms(torch, fn, reps: int = 30) -> float:
+    """Median of `reps` CUDA-event timed eager calls: what one call costs a
+    caller, host launch work included."""
     for _ in range(3):
         fn()
     times = []
@@ -94,21 +139,68 @@ def _median_ms(torch, fn, reps: int = 30) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call: `calls` calls captured in one CUDA graph and
+    replayed, so no host work sits between the launches; median of `reps`
+    replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(reps + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    times = sorted(times[1:])
+    return times[len(times) // 2]
+
+
+def _timings(torch, kernel, plain, library=None) -> dict:
+    """ms: the kernel's device time per launch; call_ms: one eager call of
+    its wrapper; plain_ms, library_ms: device time per call of the plain
+    version and of the one PyTorch call that computes the same function."""
+    with torch.no_grad():
+        return {"ms": _device_ms(torch, kernel), "call_ms": _median_ms(torch, kernel),
+                "plain_ms": _device_ms(torch, plain),
+                "library_ms": None if library is None else _device_ms(torch, library)}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _patched_input(torch, dev):
+    """The slice's shape, (100, 3, 64, 64) float32, with a constant patch
+    (|g| = 0 inside) and saturated pixels."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    x = rng.random((100, 3, 64, 64)).astype(np.float32)
+    x[:, :, 8:24, 8:24] = 0.5
+    x[::2, :, 40:56, 0:16] = 1.0
+    x[1::2, :, 40:56, 40:60] = 0.0
+    return torch.from_numpy(x).to(dev)
+
+
 def kernel_phase(torch):
     """K1 and K2 against their plain versions at the slice's shape."""
-    import numpy as np
-
     from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
     from edge_enhancement_tpu_torch.ops.square import (add_square_draws,
                                                        kernel_layout)
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    x = rng.random((100, 3, 64, 64)).astype(np.float32)
-    x[:, :, 8:24, 8:24] = 0.5          # constant patch: |g| = 0 inside
-    x[::2, :, 40:56, 0:16] = 1.0       # saturated pixels
-    x[1::2, :, 40:56, 40:60] = 0.0
-    x = torch.from_numpy(x).to(dev)
+    x = _patched_input(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     eps = 0.062745098039216
     st, sqd = kernel_layout(add_square_draws((100, 64, 64, 3), gen), eps)
@@ -140,43 +232,182 @@ def kernel_phase(torch):
     if not finite or fwd_err > FWD_TOL or bwd_err > BWD_TOL or auto_err > BWD_TOL:
         fail("a kernel disagrees with its plain version")
 
-    with torch.no_grad():
-        t = {"K1": _median_ms(torch, lambda: F.ee_fused_fwd(x, st, sqd, k)),
-             "K1_plain": _median_ms(torch, lambda: F.ee_fused_fwd_plain(x, st, sqd, k)),
-             "K2": _median_ms(torch, lambda: F.ee_fused_bwd(u, x, st, sqd, y_k, k)),
-             "K2_plain": _median_ms(
-                 torch, lambda: F.ee_fused_bwd_plain(u, x, st, sqd, y_k, k))}
-    print(f"[kernels] median ms at (100,3,64,64): K1 {t['K1']:.4f} vs plain "
-          f"{t['K1_plain']:.4f}; K2 {t['K2']:.4f} vs plain {t['K2_plain']:.4f}",
-          flush=True)
+    t1 = _timings(torch, lambda: F.ee_fused_fwd(x, st, sqd, k),
+                  lambda: F.ee_fused_fwd_plain(x, st, sqd, k))
+    t2 = _timings(torch, lambda: F.ee_fused_bwd(u, x, st, sqd, y_k, k),
+                  lambda: F.ee_fused_bwd_plain(u, x, st, sqd, y_k, k))
+    print(f"[kernels] at (100,3,64,64), ms per launch on the device (eager call "
+          f"in brackets): K1 {t1['ms']:.4f} ({t1['call_ms']:.4f}) vs plain "
+          f"{t1['plain_ms']:.4f}; K2 {t2['ms']:.4f} ({t2['call_ms']:.4f}) vs "
+          f"plain {t2['plain_ms']:.4f}", flush=True)
+    # bounds: the four HFS products per (image, channel) plane, two of
+    # 2 H^2 W and two of 2 H W^2 FLOPs, on the FP32 pipes (the stencils add
+    # < 1%); bytes: each operand read once and each output written once
+    b, c, h, w = x.shape
+    flops = b * c * (4 * h * h * w + 4 * h * w * w)
+    ops = F.operators(h, w, 8, 1.0, dev)
     src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
     return [
         {"name": "ee_fused_fwd", "route": "cuda", "source": src,
          "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:409",
-         "max_abs_err": fwd_err, "ms": t["K1"], "plain_ms": t["K1_plain"]},
+         "max_abs_err": fwd_err, **t1,
+         **bound(_nbytes(x, st, sqd, *ops, out_k, y_k), flops, PEAK_F32)},
         {"name": "ee_fused_bwd", "route": "cuda", "source": src,
          "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:427",
-         "max_abs_err": max(bwd_err, auto_err), "ms": t["K2"],
-         "plain_ms": t["K2_plain"]},
+         "max_abs_err": max(bwd_err, auto_err), **t2,
+         **bound(_nbytes(u, x, y_k, st, sqd, *ops, dx_k), flops, PEAK_F32)},
     ]
 
 
-def slice_phase(torch, kernels, device_line):
-    """The flagship config through the port's driver, at full width."""
+def canny_kernel_phase(torch):
+    """K3a and K3b against their plain versions at the gf slice's shape."""
     from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
-    from edge_enhancement_tpu_torch.train.driver import load_config, run
 
-    cfg = load_config(CONFIG, dict(SLICE_ARGS, output=os.path.join(
-        ROOT, "output", "chip_smoke")))
-    F.reset_launches()
+    dev = torch.device("cuda")
+    x = _patched_input(torch, dev)
+    high, sigma, alpha = 76.0 / 255.0, 1.0, 0.0
+    b, c, h, w = x.shape
+    u = torch.randn((b, 1, h, w), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    outs_k = F.canny_fused_fwd(x, high, sigma, alpha)
+    torch.cuda.synchronize()
+    outs_p = F.canny_fused_fwd_plain(x, high, sigma, alpha)
+    fwd_err = max((a - p).abs().max().item() for a, p in zip(outs_k, outs_p))
+    _, mag, gx, gy = outs_k
+    dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha)
+    torch.cuda.synchronize()
+    bwd_err = (dx_k - F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma,
+                                              alpha)).abs().max().item()
+    xa = x.clone().requires_grad_(True)
+    (g_auto,) = torch.autograd.grad(
+        (F.canny_fused_fwd_plain(xa, high, sigma, alpha)[0] * u).sum(), [xa])
+    auto_err = (dx_k - g_auto).abs().max().item()
+    edge_share = outs_k[0].mean().item()
+    print(f"[kernels] K3a vs plain (out, mag, gx, gy): max |err| {fwd_err:.3e} "
+          f"(limit {CANNY_FWD_TOL}), edge share {edge_share:.4f}; K3b vs plain "
+          f"adjoint {bwd_err:.3e}, vs autograd of plain forward {auto_err:.3e} "
+          f"(limit {CANNY_BWD_TOL}); max |dx| {dx_k.abs().max().item():.3f}",
+          flush=True)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*outs_k, dx_k))
+    if (not finite or fwd_err > CANNY_FWD_TOL or bwd_err > CANNY_BWD_TOL
+            or auto_err > CANNY_BWD_TOL or not 0.0 < edge_share < 1.0
+            or dx_k.abs().max().item() == 0.0):
+        fail("a Canny kernel disagrees with its plain version")
+    t3a = _timings(torch, lambda: F.canny_fused_fwd(x, high, sigma, alpha),
+                   lambda: F.canny_fused_fwd_plain(x, high, sigma, alpha))
+    t3b = _timings(torch, lambda: F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha),
+                   lambda: F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma, alpha))
+    print(f"[kernels] at (100,3,64,64), ms per launch on the device (eager call "
+          f"in brackets): K3a {t3a['ms']:.4f} ({t3a['call_ms']:.4f}) vs plain "
+          f"{t3a['plain_ms']:.4f}; K3b {t3b['ms']:.4f} ({t3b['call_ms']:.4f}) "
+          f"vs plain {t3b['plain_ms']:.4f}", flush=True)
+    # operations per pixel: K3a blurs C planes (17 each), sums them (C - 1),
+    # two Sobels (11 each), divides (2), magnitude (4) and two compares;
+    # K3b gates (6), scales (5), two Sobel adjoints (12 each), divides,
+    # the blur's adjoint (18) and its C stores are bytes
+    px = b * h * w
+    src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
+    return [
+        {"name": "canny_fused_fwd", "route": "cuda", "source": src,
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:149",
+         "max_abs_err": fwd_err, **t3a,
+         **bound(_nbytes(x, *outs_k), px * (18 * c + 29), PEAK_F32)},
+        {"name": "canny_fused_bwd", "route": "cuda", "source": src,
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:166",
+         "max_abs_err": max(bwd_err, auto_err), **t3b,
+         **bound(_nbytes(u, mag, gx, gy, dx_k), px * 54, PEAK_F32)},
+    ]
+
+
+def conv_kernel_phase(torch):
+    """K4 forward and dgrad against the plain version, float32 and
+    bfloat16, at CONV_SHAPE; times beside cuDNN's F.conv2d."""
+    import numpy as np
+
+    from edge_enhancement_tpu_torch.ops.cuda import gemm_conv as G
+    from edge_enhancement_tpu_torch.tools.bench_gemm_conv import cudnn_conv
+
+    dev = torch.device("cuda")
+    bsz, h, w, ci, co = CONV_SHAPE
+    rng = np.random.default_rng(0)
+    x32 = torch.from_numpy(rng.standard_normal((bsz, h, w, ci), np.float32)).to(dev)
+    w32 = torch.from_numpy(rng.standard_normal((3, 3, ci, co), np.float32) * 0.1).to(dev)
+    dy32 = torch.from_numpy(rng.standard_normal((bsz, h, w, co), np.float32)).to(dev)
+    kernels = []
+    for dtype, name, peak in ((torch.float32, "conv_cgemm_f32", PEAK_F32),
+                              (torch.bfloat16, "conv_cgemm_bf16", PEAK_BF16)):
+        x, wk, dy = x32.to(dtype), w32.to(dtype), dy32.to(dtype)
+        out_k = G.conv_cgemm_nhwc(x, wk)
+        xa = x.clone().requires_grad_(True)
+        (dx_k,) = torch.autograd.grad(G.conv3x3_cgemm(xa, wk), [xa], dy)
+        torch.cuda.synchronize()
+        out_p = G.conv_cgemm_nhwc_plain(x, wk)
+        dx_p = G.conv_cgemm_nhwc_plain(dy, G._dgrad_weights(wk))
+        errs, ok = [], True
+        for got, want in ((out_k, out_p), (dx_k, dx_p)):
+            d = (got.float() - want.float()).abs()
+            errs.append(d.max().item())
+            if dtype == torch.float32:
+                ok &= errs[-1] <= CONV_F32_ATOL
+            else:
+                ok &= bool((d <= CONV_BF16_ATOL + CONV_BF16_RTOL * want.float().abs()).all())
+            ok &= bool(torch.isfinite(got).all()) and got.dtype == dtype
+        lib = cudnn_conv(x, wk)
+        with torch.no_grad():
+            lib_err = (out_k.float() - lib().float()).abs().max().item()
+        t = _timings(torch, lambda: G.conv_cgemm_nhwc(x, wk),
+                     lambda: G.conv_cgemm_nhwc_plain(x, wk), lib)
+        tol = (f"{CONV_F32_ATOL}" if dtype == torch.float32 else
+               f"{CONV_BF16_ATOL} + 2^-7 |plain|")
+        print(f"[kernels] K4 {name} at {CONV_SHAPE}: forward max |err| "
+              f"{errs[0]:.3e}, dgrad {errs[1]:.3e} (limit {tol}); vs cuDNN "
+              f"{lib_err:.3e}; ms per launch on the device: K4 {t['ms']:.4f} "
+              f"(eager call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, "
+              f"cuDNN {t['library_ms']:.4f}", flush=True)
+        if not ok:
+            fail(f"K4 ({name}) disagrees with its plain version")
+        flops = 2 * bsz * h * w * co * 9 * ci
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "edge_enhancement_tpu_torch/csrc/gemm_conv.cu",
+             "replaces": "edge_enhancement_tpu/ops/pallas/gemm_conv.py:49",
+             "max_abs_err": max(errs), **t,
+             **bound(_nbytes(x, G.pack_weights(wk), out_k), flops, peak)})
+    return kernels
+
+
+def _reset_counts():
+    from edge_enhancement_tpu_torch.ops.cuda import ee_fused, gemm_conv
+    ee_fused.reset_launches()
+    gemm_conv.reset_launches()
+
+
+def _read_counts() -> dict:
+    from edge_enhancement_tpu_torch.ops.cuda import ee_fused, gemm_conv
+    return {**ee_fused.LAUNCHES, **gemm_conv.LAUNCHES}
+
+
+def slice_phase(torch, kernels, device_line, gf: bool):
+    """The flagship config through the port's driver, at full width; with
+    `gf` the edge map is smoothed and the front-end runs on K3a/K3b."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    tag = "gf" if gf else "flagship"
+    cfg = load_config(CONFIG, dict(SLICE_ARGS, gf=gf, output=os.path.join(
+        ROOT, "output", "chip_smoke", tag)))
+    _reset_counts()
     summary = run(cfg)
     torch.cuda.synchronize()
-    launches = dict(F.LAUNCHES)
+    launches = _read_counts()
     steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
     n_steps = int(cfg["num_steps_1"])
-    want = {"ee_fused_fwd": steps * (n_steps + 1) + evals * (n_steps + 2),
-            "ee_fused_bwd": (steps + evals) * n_steps}
-    print(f"[slice] {steps} train steps, {evals} eval batches; launches "
+    fwd, bwd = (("canny_fused_fwd", "canny_fused_bwd") if gf
+                else ("ee_fused_fwd", "ee_fused_bwd"))
+    want = {k: 0 for k in launches}
+    want.update({fwd: steps * (n_steps + 1) + evals * (n_steps + 2),
+                 bwd: (steps + evals) * n_steps})
+    print(f"[slice {tag}] {steps} train steps, {evals} eval batches; launches "
           f"{launches}, expected {want}; loss {summary['loss']:.4f}", flush=True)
     if steps != 3 or evals != 3:
         fail(f"expected 3 train steps and 3 eval batches, got {steps}, {evals}")
@@ -185,15 +416,51 @@ def slice_phase(torch, kernels, device_line):
     if not math.isfinite(summary["loss"]):
         fail(f"loss {summary['loss']} is not finite")
     for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
+        if kern["name"] in (fwd, bwd):
+            kern["launches"] = launches[kern["name"]]
     secs = summary["step_seconds"]
     steady = sorted(secs[1:]) or secs
     ms = 1000.0 * steady[len(steady) // 2]
     bs = int(cfg["batch_size"])
-    print(f"[slice] train step ms: {[round(1000 * s, 1) for s in secs]}; "
+    print(f"[slice {tag}] train step ms: {[round(1000 * s, 1) for s in secs]}; "
           f"median after the first {ms:.1f} ms/step = {bs / ms * 1000:.1f} img/s "
           f"(bs{bs}, f32, PGD-10) on {device_line}", flush=True)
     return cfg, summary["checkpoint"]
+
+
+def conv_path_phase(torch, kernels):
+    """The GEMM-conv op forward and backward in both types, then the bench
+    entry point over its three shapes: K4's counts must be exact."""
+    from edge_enhancement_tpu_torch.ops.cuda.gemm_conv import conv3x3_cgemm
+    from edge_enhancement_tpu_torch.tools import bench_gemm_conv
+
+    dev = torch.device("cuda")
+    bsz, h, w, ci, co = CONV_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    _reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((bsz, h, w, ci), generator=gen, device=dev).to(dtype)
+        wk = (0.1 * torch.randn((3, 3, ci, co), generator=gen, device=dev)).to(dtype)
+        x.requires_grad_(True)
+        wk.requires_grad_(True)
+        conv3x3_cgemm(x, wk).float().square().mean().backward()
+        if not (torch.isfinite(x.grad).all() and torch.isfinite(wk.grad).all()):
+            fail(f"the GEMM-conv op's gradients are not finite ({dtype})")
+    results = bench_gemm_conv.main(["--reps", str(BENCH_REPS)])
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {k: 0 for k in launches}
+    want.update({"conv_cgemm_f32": 2,
+                 "conv_cgemm_bf16": 2 + sum(r["calls"] for r in results)})
+    print(f"[slice conv] launches {launches}, expected {want}", flush=True)
+    if len(results) != 3 or launches != want:
+        fail("the GEMM-conv path's launch counts are not as expected")
+    for r in results:
+        if not (math.isfinite(r["max_diff"]) and r["max_diff"] < 0.5):
+            fail(f"K4 and cuDNN disagree at {r['label']}: {r['max_diff']}")
+    for kern in kernels:
+        if kern["name"] in want and kern["name"].startswith("conv_cgemm"):
+            kern["launches"] = launches[kern["name"]]
 
 
 def reference_phase(torch, cfg, checkpoint):
@@ -222,9 +489,10 @@ def reference_phase(torch, cfg, checkpoint):
             logits[dev] = model(x.to(dev)).cpu()
     scale = max(1.0, logits["cpu"].abs().max().item())
     err = (logits["cuda"] - logits["cpu"]).abs().max().item() / scale
-    print(f"[reference] logits {tuple(logits['cuda'].shape)} on 8x64x64x3, "
-          f"card vs CPU: max |err| / max(1, max |logit|) {err:.3e} (limit "
-          f"{REF_TOL}), max |logit| {scale:.3f}", flush=True)
+    print(f"[reference] gf={bool(cfg.get('gf'))}: logits "
+          f"{tuple(logits['cuda'].shape)} on 8x64x64x3, card vs CPU: max |err| / "
+          f"max(1, max |logit|) {err:.3e} (limit {REF_TOL}), max |logit| "
+          f"{scale:.3f}", flush=True)
     if (logits["cuda"].shape != (8, num_classes)
             or not bool(torch.isfinite(logits["cuda"]).all()) or err > REF_TOL):
         fail("the card's logits disagree with the CPU reference")
@@ -237,8 +505,14 @@ def main():
     sys.path.insert(0, ROOT)
     build_phase()
     kernels = kernel_phase(torch)
-    cfg, checkpoint = slice_phase(torch, kernels, smi)
-    reference_phase(torch, cfg, checkpoint)
+    kernels += canny_kernel_phase(torch)
+    kernels += conv_kernel_phase(torch)
+    for gf in (False, True):
+        cfg, checkpoint = slice_phase(torch, kernels, smi, gf)
+        reference_phase(torch, cfg, checkpoint)
+    conv_path_phase(torch, kernels)
+    if any("launches" not in k or k["launches"] < 1 for k in kernels):
+        fail("a kernel was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

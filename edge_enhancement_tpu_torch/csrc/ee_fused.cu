@@ -1,8 +1,8 @@
 // Fused edge-enhancement front-end for Hopper (sm_90a): forward K1 and its
-// exact adjoint K2.
+// exact adjoint K2, and the Canny-only pair K3a/K3b (at the end of the file).
 //
-// Replaces the Pallas TPU kernels edge_enhancement_tpu/ops/pallas/ee_fused.py
-// ::_fwd_kernel and ::_bwd_kernel. Per image (all C planes):
+// K1/K2 replace the Pallas TPU kernels edge_enhancement_tpu/ops/pallas/
+// ee_fused.py::_fwd_kernel and ::_bwd_kernel. Per image (all C planes):
 //
 //   xs   = add_square(x)               (n_queries=1; draws made outside)
 //   hfs  = Ar xs Br^T - Ai xs Bi^T     (per channel plane)
@@ -17,8 +17,9 @@
 //
 // Design: one block per image; the image's C planes, the four HFS
 // operators and per-plane work buffers live in dynamic shared memory
-// (176 KB at 64x64x3), so nothing but x, u, y and the outputs touches
-// device memory. The products are FP32 FMA loops over 4x4 register tiles.
+// (176 KB at 64x64x3; the entry points opt into it once per device), so
+// nothing but x, u, y and the outputs touches device memory. The products
+// are FP32 FMA loops over 4x4 register tiles.
 // What bounds it: the 4 (64x64x64) products per plane, FP32 FMA from shared
 // memory, with 100 blocks on 132 SMs (one block per SM by its footprint).
 // Tensor cores (wgmma) and bf16 are later work.
@@ -93,9 +94,13 @@ __device__ __forceinline__ int folded(int q, int d, int n, int* ps) {
   return m;
 }
 
-// Adjoint of the edge-replicated 3x3 stencil `k`, gathered at (qh, qw).
-__device__ float stencil3_adjoint(const float* u, const float* k, int H, int W,
-                                  int qh, int qw) {
+// Adjoint of the edge-replicated 3x3 stencil `k` on an (H, W) plane,
+// gathered at (qh, qw). u holds a window of the cotangent plane: global
+// (h, w) sits at u[(h - r0) * ld + (w - c0)], and the window covers the
+// rows and columns within 1 of (qh, qw) that lie in the plane.
+__device__ float stencil3_adjoint(const float* u, int ld, int r0, int c0,
+                                  const float* k, int H, int W, int qh,
+                                  int qw) {
   float acc = 0.f;
   for (int i = 0; i < 3; ++i) {
     int rows[2];
@@ -107,7 +112,7 @@ __device__ float stencil3_adjoint(const float* u, const float* k, int H, int W,
       const int nc = folded(qw, j - 1, W, cols);
       float s = 0.f;
       for (int a = 0; a < nr; ++a)
-        for (int b = 0; b < nc; ++b) s += u[rows[a] * W + cols[b]];
+        for (int b = 0; b < nc; ++b) s += u[(rows[a] - r0) * ld + cols[b] - c0];
       acc += c * s;
     }
   }
@@ -338,14 +343,14 @@ ee_fused_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
   __syncthreads();
   for (int q = threadIdx.x; q < HW; q += blockDim.x) {
     const int h = q / W, w = q % W;
-    sW2[q] = (stencil3_adjoint(sW0, kSobelX, H, W, h, w) +
-              stencil3_adjoint(sW1, kSobelY, H, W, h, w)) / (float)C;
+    sW2[q] = (stencil3_adjoint(sW0, W, 0, 0, kSobelX, H, W, h, w) +
+              stencil3_adjoint(sW1, W, 0, 0, kSobelY, H, W, h, w)) / (float)C;
   }
   __syncthreads();
   // the blur's adjoint of the channel-broadcast u_summed is the same plane
   // for every channel
   for (int q = threadIdx.x; q < HW; q += blockDim.x)
-    sS[q] = stencil3_adjoint(sW2, g, H, W, q / W, q % W);
+    sS[q] = stencil3_adjoint(sW2, W, 0, 0, g, H, W, q / W, q % W);
   __syncthreads();
 
   // ---- HFS branch per channel: A^T (U B), through the square chain --------
@@ -390,6 +395,132 @@ ee_fused_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
   }
 }
 
+// ---- K3a/K3b: the Canny-only pair ------------------------------------------
+//
+// Replaces ee_fused.py::_canny_fwd_kernel and ::_canny_bwd_kernel. A block
+// owns a kCannyH x kCannyW tile of one image. K3a stages the C planes of x
+// with a 2-pixel edge-replicated halo (the blur's and the Sobel's reach) and
+// the summed blur with a 1-pixel halo in shared memory; K3b stages the
+// Sobel-adjoint inputs with a 2-pixel halo and u_summed with a 1-pixel halo.
+// Halo entries hold the clamped reads, so the stencil helpers above run on
+// tile-local planes unchanged and K3a's edge map is K1's bit for bit. Any
+// H x W takes ceil(H/16) x ceil(W/32) tiles; only C is bounded (by shared
+// memory). What bounds both: bytes. K3a reads x and writes four (B, 1, H, W)
+// planes, K3b reads those four and writes dx; the stencils are a few dozen
+// FP32 operations a pixel.
+
+constexpr int kCannyH = 16, kCannyW = 32;
+constexpr int kXH = kCannyH + 4, kXW = kCannyW + 4;  // 2-pixel halo
+constexpr int kSH = kCannyH + 2, kSW = kCannyW + 2;  // 1-pixel halo
+
+__host__ __device__ inline size_t canny_fwd_smem_floats(int C) {
+  return (size_t)C * kXH * kXW + (size_t)kSH * kSW;
+}
+
+__global__ void __launch_bounds__(kThreads)
+canny_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gtaps,
+                 float* __restrict__ out, float* __restrict__ mag,
+                 float* __restrict__ gx, float* __restrict__ gy, Params p) {
+  extern __shared__ float smem[];
+  const int C = p.C, H = p.H, W = p.W;
+  const int b = blockIdx.z, h0 = blockIdx.y * kCannyH, w0 = blockIdx.x * kCannyW;
+  float* sX = smem;                 // x at (clamp(h0-2+r), clamp(w0-2+s))
+  float* sS = sX + C * kXH * kXW;   // summed blur at (clamp(h0-1+r), clamp(w0-1+s))
+  __shared__ float g[9];
+  if (threadIdx.x < 9) g[threadIdx.x] = gtaps[threadIdx.x];
+  const float* xb = x + (size_t)b * C * H * W;
+  for (int i = threadIdx.x; i < C * kXH * kXW; i += blockDim.x) {
+    const int c = i / (kXH * kXW), r = (i / kXW) % kXH, s = i % kXW;
+    sX[i] = xb[((size_t)c * H + clampi(h0 - 2 + r, 0, H - 1)) * W +
+               clampi(w0 - 2 + s, 0, W - 1)];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kSH * kSW; i += blockDim.x) {
+    const int h = clampi(h0 - 1 + i / kSW, 0, H - 1);
+    const int w = clampi(w0 - 1 + i % kSW, 0, W - 1);
+    sS[i] = blur_sum(sX, g, C, kXH, kXW, h - h0 + 2, w - w0 + 2);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kCannyH * kCannyW; i += blockDim.x) {
+    const int r = i / kCannyW, s = i % kCannyW, h = h0 + r, w = w0 + s;
+    if (h >= H || w >= W) continue;
+    const Grad gr = sobel_mag(sS, C, kSH, kSW, r + 1, s + 1);
+    const size_t q = ((size_t)b * H + h) * W + w;
+    out[q] = edge_of(gr.mag, p);
+    mag[q] = gr.mag;
+    gx[q] = gr.gx;
+    gy[q] = gr.gy;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
+                 const float* __restrict__ gx, const float* __restrict__ gy,
+                 const float* __restrict__ gtaps, float* __restrict__ dx,
+                 Params p) {
+  __shared__ float sG0[kXH * kXW];  // u_gx at (h0-2+r, w0-2+s), 0 off the plane
+  __shared__ float sG1[kXH * kXW];  // u_gy
+  __shared__ float sU[kSH * kSW];   // u_summed at (h0-1+r, w0-1+s)
+  __shared__ float g[9];
+  const int C = p.C, H = p.H, W = p.W;
+  const int b = blockIdx.z, h0 = blockIdx.y * kCannyH, w0 = blockIdx.x * kCannyW;
+  if (threadIdx.x < 9) g[threadIdx.x] = gtaps[threadIdx.x];
+  const size_t plane = (size_t)b * H * W;
+  for (int i = threadIdx.x; i < kXH * kXW; i += blockDim.x) {
+    const int h = h0 - 2 + i / kXW, w = w0 - 2 + i % kXW;
+    float v0 = 0.f, v1 = 0.f;
+    if (h >= 0 && h < H && w >= 0 && w < W) {
+      const size_t q = plane + (size_t)h * W + w;
+      const float m = mag[q];
+      const float mag_m = (m < p.alpha) ? 0.f : m;
+      const bool keep = mag_m > p.high && mag_m <= 1.001f && m >= p.alpha;
+      const float u_mag = keep ? u[q] : 0.f;
+      const float inv = (m == 0.f) ? 0.f : 1.f / m;
+      v0 = u_mag * gx[q] * inv;
+      v1 = u_mag * gy[q] * inv;
+    }
+    sG0[i] = v0;
+    sG1[i] = v1;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kSH * kSW; i += blockDim.x) {
+    const int h = h0 - 1 + i / kSW, w = w0 - 1 + i % kSW;
+    if (h < 0 || h >= H || w < 0 || w >= W) continue;
+    sU[i] = (stencil3_adjoint(sG0, kXW, h0 - 2, w0 - 2, kSobelX, H, W, h, w) +
+             stencil3_adjoint(sG1, kXW, h0 - 2, w0 - 2, kSobelY, H, W, h, w)) /
+            (float)C;
+  }
+  __syncthreads();
+  // the blur's adjoint of the channel-broadcast u_summed: one plane, written
+  // to every channel
+  for (int i = threadIdx.x; i < kCannyH * kCannyW; i += blockDim.x) {
+    const int h = h0 + i / kCannyW, w = w0 + i % kCannyW;
+    if (h >= H || w >= W) continue;
+    const float v = stencil3_adjoint(sU, kSW, h0 - 1, w0 - 1, g, H, W, h, w);
+    for (int c = 0; c < C; ++c) dx[(((size_t)b * C + c) * H + h) * W + w] = v;
+  }
+}
+
+constexpr int kMaxDevices = 64;
+size_t g_fwd_smem[kMaxDevices], g_bwd_smem[kMaxDevices], g_canny_smem[kMaxDevices];
+
+// Opt `kernel` into `bytes` of dynamic shared memory on the current device,
+// once per kernel, device and size: the attribute outlives the launch, and
+// setting it on every launch would put a host call inside CUDA graph
+// captures of the launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -406,9 +537,7 @@ int ee_fused_fwd(const float* x, const float* stripes, const float* sq_delta,
                  int B, int C, int H, int W, float eps, float w, float alpha,
                  float high, int square, void* stream) {
   const size_t bytes = ee_fused_smem_bytes(C, H, W);
-  cudaError_t err = cudaFuncSetAttribute(
-      ee_fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const cudaError_t err = allow_smem(ee_fused_fwd_kernel, bytes, g_fwd_smem);
   if (err != cudaSuccess) return (int)err;
   Params p{B, C, H, W, eps, w, alpha, high, square};
   ee_fused_fwd_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
@@ -423,13 +552,39 @@ int ee_fused_bwd(const float* u, const float* x, const float* stripes,
                  float eps, float w, float alpha, float high, int square,
                  void* stream) {
   const size_t bytes = ee_fused_smem_bytes(C, H, W);
-  cudaError_t err = cudaFuncSetAttribute(
-      ee_fused_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const cudaError_t err = allow_smem(ee_fused_bwd_kernel, bytes, g_bwd_smem);
   if (err != cudaSuccess) return (int)err;
   Params p{B, C, H, W, eps, w, alpha, high, square};
   ee_fused_bwd_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       u, x, stripes, sq_delta, y, ar, ai, br, bi, gtaps, dx, p);
+  return (int)cudaGetLastError();
+}
+
+size_t canny_fused_smem_bytes(int C) {
+  return canny_fwd_smem_floats(C) * sizeof(float);
+}
+
+int canny_fused_fwd(const float* x, const float* gtaps, float* out, float* mag,
+                    float* gx, float* gy, int B, int C, int H, int W,
+                    float alpha, float high, void* stream) {
+  const size_t bytes = canny_fused_smem_bytes(C);
+  const cudaError_t err = allow_smem(canny_fwd_kernel, bytes, g_canny_smem);
+  if (err != cudaSuccess) return (int)err;
+  Params p{B, C, H, W, 0.f, 0.f, alpha, high, 0};
+  const dim3 grid((W + kCannyW - 1) / kCannyW, (H + kCannyH - 1) / kCannyH, B);
+  canny_fwd_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      x, gtaps, out, mag, gx, gy, p);
+  return (int)cudaGetLastError();
+}
+
+int canny_fused_bwd(const float* u, const float* mag, const float* gx,
+                    const float* gy, const float* gtaps, float* dx, int B,
+                    int C, int H, int W, float alpha, float high,
+                    void* stream) {
+  Params p{B, C, H, W, 0.f, 0.f, alpha, high, 0};
+  const dim3 grid((W + kCannyW - 1) / kCannyW, (H + kCannyH - 1) / kCannyH, B);
+  canny_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      u, mag, gx, gy, gtaps, dx, p);
   return (int)cudaGetLastError();
 }
 

@@ -43,8 +43,9 @@ def _blur_sobel_magnitude_nchw(x: torch.Tensor, sigma: float):
     summed = _channel_sum(blurred)
     sob = sobel_kernel(3)
     # divide by a tensor: CUDA turns division by a Python scalar into a
-    # multiplication by its reciprocal, which can differ by one ulp
-    cdiv = summed.new_tensor(float(c))
+    # multiplication by its reciprocal, which can differ by one ulp (made on
+    # the device, so a CUDA graph can capture it)
+    cdiv = torch.full((), float(c), dtype=summed.dtype, device=summed.device)
     grad_x = stencil2d_nchw(summed, sob, "edge") / cdiv
     grad_y = stencil2d_nchw(summed, sob.T, "edge") / cdiv
     return grad_x, grad_y, _safe_magnitude(grad_x, grad_y)

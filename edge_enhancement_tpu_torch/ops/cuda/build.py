@@ -1,10 +1,12 @@
-"""Build a CUDA source of this package into a shared library and load it.
+"""Build the CUDA sources of this package into shared libraries and load
+them.
 
 The sources in edge_enhancement_tpu_torch/csrc/ export a plain C interface;
-nvcc compiles one into a shared library for Hopper (sm_90a) at first use,
+nvcc compiles each into a shared library for Hopper (sm_90a) at first use,
 into edge_enhancement_tpu_torch/_build/ (listed in .gitignore), keyed by a
-hash of the source and the flags, and ctypes loads it. A missing nvcc or a
-failed compile raises: there is no fallback for a CUDA tensor.
+hash of the source and the flags, and ctypes loads it. `load_all` starts one
+nvcc for each source that is not built yet, all at once. A missing nvcc or
+a failed compile raises: there is no fallback for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("ee_fused", "gemm_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,32 +39,50 @@ class Library:
     """One compiled source: the ctypes handle, the build's seconds (0.0 when
     it was already built) and the compiler's output."""
 
-    def __init__(self, name: str):
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-        self.build_seconds, self.log = 0.0, ""
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.time()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            self.build_seconds = time.time() - t0
-            self.log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{self.log}")
-            os.replace(tmp, so)
-        self.path = so
-        self.lib = ctypes.CDLL(so)
+    def __init__(self, path: str, build_seconds: float, log: str):
+        self.path, self.build_seconds, self.log = path, build_seconds, log
+        self.lib = ctypes.CDLL(path)
+
+
+def _target(name: str) -> tuple[str, str]:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 _LIBS: dict[str, Library] = {}
 
 
+def load_all(names=SOURCES) -> dict[str, Library]:
+    """Build (once per source revision, the missing ones in parallel) and
+    load csrc/<name>.cu for each name."""
+    todo = [n for n in names if n not in _LIBS]
+    started = []
+    for name in todo:
+        src, so = _target(name)
+        if os.path.exists(so):
+            _LIBS[name] = Library(so, 0.0, "")
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started.append((name, src, so, tmp, proc, time.time()))
+    failed = []
+    for name, src, so, tmp, proc, t0 in started:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{log}")
+            continue
+        os.replace(tmp, so)
+        _LIBS[name] = Library(so, time.time() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {n: _LIBS[n] for n in names}
+
+
 def load(name: str) -> Library:
     """Build (once per source revision) and load csrc/<name>.cu."""
-    if name not in _LIBS:
-        _LIBS[name] = Library(name)
-    return _LIBS[name]
+    return load_all((name,))[name]

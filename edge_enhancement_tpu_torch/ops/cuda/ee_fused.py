@@ -1,9 +1,10 @@
 """The fused edge-enhancement front-end: CUDA kernels K1 (forward) and K2
-(adjoint) with their plain PyTorch versions beside them.
+(adjoint), and the Canny-only pair K3a/K3b, with their plain PyTorch
+versions beside them.
 
-Replaces edge_enhancement_tpu/ops/pallas/ee_fused.py::_fwd_kernel (K1) and
-::_bwd_kernel (K2), the `_ee_fused` custom_vjp pair. One pass computes the
-whole front-end of the square / BPDA-3 models:
+K1/K2 replace edge_enhancement_tpu/ops/pallas/ee_fused.py::_fwd_kernel and
+::_bwd_kernel, the `_ee_fused` custom_vjp pair. One pass computes the whole
+front-end of the square / BPDA-3 models:
 
     xs   = add_square(x)                   (n_queries = 1, draws made outside)
     hfs  = HFS(xs)                         (per-axis operator sandwich)
@@ -11,6 +12,11 @@ whole front-end of the square / BPDA-3 models:
     out  = clip(hfs + w * edge, 0, 1)
 
 and K2 is its exact adjoint from the residuals (x, y = hfs + w * edge).
+
+K3a/K3b replace ::_canny_fwd_kernel and ::_canny_bwd_kernel, the
+`canny_step125_fused` pair: K3a is the edge map alone, with the residuals
+mag, gx, gy; K3b its adjoint from them. The front-end runs them where K1
+does not apply (the edge map smoothed by a Gaussian, `with_gf`).
 Source and design notes: edge_enhancement_tpu_torch/csrc/ee_fused.cu.
 
 Tensors are (B, C, H, W) float32. On a CPU tensor the wrappers run the
@@ -32,10 +38,12 @@ from ..filters import gaussian_kernel, sobel_kernel
 from ..hfs import _hfs_axis_operators, hfs_nchw
 from ..square import clip01, square_forward_nchw
 from ..stencil import stencil_taps
+from ..ste import to_compare
 
 # Launches of each kernel since the last reset_launches(); the wrappers add
 # one where they launch and nowhere else.
-LAUNCHES = {"ee_fused_fwd": 0, "ee_fused_bwd": 0}
+LAUNCHES = {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
+            "canny_fused_fwd": 0, "canny_fused_bwd": 0}
 # Largest dynamic shared memory a Hopper block may opt into (232,448 bytes).
 MAX_SMEM_BYTES = 232448
 
@@ -58,6 +66,16 @@ class FusedConsts:
 
 
 _OPERATORS: dict = {}
+_TAPS: dict = {}
+
+
+def gaussian_taps(sigma: float, device) -> torch.Tensor:
+    """The 3x3 Gaussian's taps (9,) on `device`, built once per key."""
+    key = (sigma, str(device))
+    if key not in _TAPS:
+        taps = gaussian_kernel(3, 0.0, sigma).reshape(9).copy()
+        _TAPS[key] = torch.from_numpy(taps).to(device)
+    return _TAPS[key]
 
 
 def operators(h: int, w: int, r: int, sigma: float, device) -> tuple:
@@ -66,8 +84,7 @@ def operators(h: int, w: int, r: int, sigma: float, device) -> tuple:
     key = (h, w, r, sigma, str(device))
     if key not in _OPERATORS:
         mats = [torch.from_numpy(m).to(device) for m in _hfs_axis_operators(h, w, r)]
-        taps = torch.from_numpy(gaussian_kernel(3, 0.0, sigma).reshape(9).copy())
-        _OPERATORS[key] = (*mats, taps.to(device))
+        _OPERATORS[key] = (*mats, gaussian_taps(sigma, device))
     return _OPERATORS[key]
 
 
@@ -157,22 +174,39 @@ def ee_fused_bwd_plain(u, x, stripes, sq_delta, y, k: FusedConsts):
     dx_hfs = (_square_backward(dxs, x, stripes, sq_delta, k.eps)
               if k.square else dxs)
 
-    # Canny branch: recompute the forward, then the adjoint of each step
+    # Canny branch: recompute the forward, then the Canny pair's adjoint
     gx, gy, mag = _blur_sobel_magnitude_nchw(x, k.sigma)
+    return dx_hfs + canny_fused_bwd_plain(k.w * _channel_sum(u_y), mag, gx, gy,
+                                          c, k.high, k.sigma, k.alpha)
+
+
+def canny_fused_fwd_plain(x, high: float, sigma: float, alpha: float):
+    """Transcription of `_canny_fwd_kernel`: (out, mag, gx, gy), each
+    (B, 1, H, W). `out` carries the To_compare gradient, so torch autograd
+    of it is a second oracle of the adjoint."""
+    gx, gy, mag = _blur_sobel_magnitude_nchw(x, sigma)
+    out = to_compare(torch.where(mag < alpha, torch.zeros_like(mag), mag), high)
+    return out, mag, gx, gy
+
+
+def canny_fused_bwd_plain(u, mag, gx, gy, channels: int, high: float,
+                          sigma: float, alpha: float):
+    """Transcription of `_canny_bwd_kernel`: dx (B, C, H, W) from the
+    cotangent u (B, 1, H, W) of `out` and the residuals."""
     zero = torch.zeros_like(mag)
-    u_edge = k.w * _channel_sum(u_y)
-    mag_m = torch.where(mag < k.alpha, zero, mag)
-    keep = (mag_m > k.high) & (mag_m <= 1.001) & (mag >= k.alpha)
-    u_mag = torch.where(keep, u_edge, zero)
+    mag_m = torch.where(mag < alpha, zero, mag)
+    keep = (mag_m > high) & (mag_m <= 1.001) & (mag >= alpha)
+    u_mag = torch.where(keep, u, zero)
     mag_zero = mag == 0.0
     inv_mag = torch.where(mag_zero, zero,
                           1.0 / torch.where(mag_zero, torch.ones_like(mag), mag))
     sob = sobel_kernel(3)
     u_summed = (_apply_taps_adjoint(u_mag * gx * inv_mag, sob)
-                + _apply_taps_adjoint(u_mag * gy * inv_mag, sob.T)) / c
-    # the blur's adjoint of the channel-broadcast u_summed is one plane
-    dx_canny = _apply_taps_adjoint(u_summed, gaussian_kernel(3, 0.0, k.sigma))
-    return dx_hfs + dx_canny
+                + _apply_taps_adjoint(u_mag * gy * inv_mag, sob.T)) / channels
+    # every channel gets the blur's adjoint of the same plane
+    plane = _apply_taps_adjoint(u_summed, gaussian_kernel(3, 0.0, sigma))
+    b, _, h, w = plane.shape
+    return plane.expand(b, channels, h, w).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -196,6 +230,12 @@ def _library():
     c.ee_fused_bwd.restype = _I
     c.ee_fused_smem_bytes.argtypes = [_I, _I, _I]
     c.ee_fused_smem_bytes.restype = ctypes.c_size_t
+    c.canny_fused_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]
+    c.canny_fused_fwd.restype = _I
+    c.canny_fused_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]
+    c.canny_fused_bwd.restype = _I
+    c.canny_fused_smem_bytes.argtypes = [_I]
+    c.canny_fused_smem_bytes.restype = ctypes.c_size_t
     c.ee_fused_error_string.argtypes = [_I]
     c.ee_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -301,3 +341,92 @@ def ee_fused(x, stripes, sq_delta, k: FusedConsts):
     """Differentiable front-end of a (B, C, H, W) batch; `stripes` and
     `sq_delta` are None when k.square is False."""
     return EEFused.apply(x, stripes, sq_delta, k)
+
+
+# --------------------------------------------------------------------------
+# K3a/K3b: the Canny-only pair
+# --------------------------------------------------------------------------
+
+def _check_canny(x, *planes):
+    """x: the (B, C, H, W) image of K3a, or the dx that K3b writes; planes:
+    (B, 1, H, W) each."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the Canny kernels take CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x and dx must be contiguous (B, C, H, W) float32 "
+                         f"tensors (got {x.dtype}, shape {tuple(x.shape)})")
+    need = _library().lib.canny_fused_smem_bytes(x.shape[1])
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{x.shape[1]} channels need {need} bytes of shared "
+                         f"memory per block, above {MAX_SMEM_BYTES}")
+    b, _, h, w = x.shape
+    for t in planes:
+        if (tuple(t.shape) != (b, 1, h, w) or t.dtype != x.dtype
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"u, mag, gx and gy must be contiguous float32 "
+                             f"{(b, 1, h, w)} tensors on {x.device}")
+
+
+def canny_fused_fwd(x, high: float, sigma: float, alpha: float):
+    """K3a: (out, mag, gx, gy) of a (B, C, H, W) batch; plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return canny_fused_fwd_plain(x, high, sigma, alpha)
+    _check_canny(x)
+    lib = _library()
+    b, c, h, w = x.shape
+    out, mag, gx, gy = (x.new_empty((b, 1, h, w)) for _ in range(4))
+    with torch.cuda.device(x.device):
+        err = lib.lib.canny_fused_fwd(
+            _ptr(x), _ptr(gaussian_taps(sigma, x.device)), _ptr(out), _ptr(mag),
+            _ptr(gx), _ptr(gy), b, c, h, w, alpha, high,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "canny_fused_fwd")
+    LAUNCHES["canny_fused_fwd"] += 1
+    return out, mag, gx, gy
+
+
+def canny_fused_bwd(u, mag, gx, gy, channels: int, high: float, sigma: float,
+                    alpha: float):
+    """K3b: dx (B, channels, H, W) from the cotangent u (B, 1, H, W) of
+    `out`; plain version on a CPU tensor."""
+    if mag.device.type == "cpu":
+        return canny_fused_bwd_plain(u, mag, gx, gy, channels, high, sigma, alpha)
+    b, _, h, w = mag.shape
+    dx = mag.new_empty((b, channels, h, w))
+    _check_canny(dx, u, mag, gx, gy)
+    lib = _library()
+    with torch.cuda.device(mag.device):
+        err = lib.lib.canny_fused_bwd(
+            _ptr(u), _ptr(mag), _ptr(gx), _ptr(gy),
+            _ptr(gaussian_taps(sigma, mag.device)), _ptr(dx), b, channels, h, w,
+            alpha, high, torch.cuda.current_stream(mag.device).cuda_stream)
+    _raise_on(err, lib, "canny_fused_bwd")
+    LAUNCHES["canny_fused_bwd"] += 1
+    return dx
+
+
+class CannyFused(torch.autograd.Function):
+    """K3a in forward, K3b in backward, on (B, C, H, W) -> (B, 1, H, W)."""
+
+    @staticmethod
+    def forward(ctx, x, high: float, sigma: float, alpha: float):
+        out, mag, gx, gy = canny_fused_fwd(x, high, sigma, alpha)
+        ctx.save_for_backward(mag, gx, gy)
+        ctx.consts = (x.shape[1], high, sigma, alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, u):
+        mag, gx, gy = ctx.saved_tensors
+        return canny_fused_bwd(u.contiguous(), mag, gx, gy, *ctx.consts), None, None, None
+
+
+def canny_step125_fused(img, high_threshold: float, sigma: float = 1.0,
+                        alpha: float = 0.0):
+    """The step125 edge map of an NHWC batch, (B, H, W, 1), on the K3 pair:
+    the signature of the JAX `canny_step125_fused` without its TPU
+    `batch_tile`."""
+    x = img.permute(0, 3, 1, 2).contiguous()
+    out = CannyFused.apply(x, float(high_threshold), float(sigma), float(alpha))
+    return out.permute(0, 2, 3, 1)

@@ -6,7 +6,7 @@ for the generic AT epoch loop:
         --data synthetic --epochs 1 --limit-batches 3 --device cuda
 
 Per epoch: the config's LR schedule, the train steps, the clean + PGD
-validation, reference-format log lines (edge_enhancement_tpu/utils/meters.py)
+validation, reference-format log lines (utils/meters.py)
 and a torch.save checkpoint in the reference's dict format. Free-AT,
 fast-AT, AWP, --evaluate and --resume are not ported and raise.
 """
@@ -21,15 +21,13 @@ import time
 
 import torch
 
-from edge_enhancement_tpu.data.datasets import get_dataset
-from edge_enhancement_tpu.train import schedules
-from edge_enhancement_tpu.utils.config import base_parser, load_config
-from edge_enhancement_tpu.utils.meters import (AverageMeter, adv_summary,
-                                               clean_summary, train_line)
-
+from ..data.datasets import get_dataset
 from ..models.registry import build_model
 from ..objectives.methods import MethodConfig
 from ..ops.square import add_square_draws
+from ..utils.config import base_parser, load_config
+from ..utils.meters import AverageMeter, adv_summary, clean_summary, train_line
+from . import schedules
 from .modelops import ModelOps
 from .trainer import (EvalAttackConfig, OptimConfig, build_eval_step,
                       build_train_step, create_train_state)

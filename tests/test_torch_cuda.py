@@ -1,6 +1,7 @@
-"""The CUDA kernels K1/K2 of the fused front-end (csrc/ee_fused.cu) against
-their plain PyTorch versions on the same card. Imports no jax; on a machine
-with a CUDA device and nvcc:
+"""The CUDA kernels against their plain PyTorch versions on the same card:
+K1/K2 and K3a/K3b of the front-end (csrc/ee_fused.cu), K4 of the
+GEMM-conv (csrc/gemm_conv.cu). Imports no jax; on a machine with a CUDA
+device and nvcc:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
+from edge_enhancement_tpu_torch.ops.cuda import gemm_conv as G
 from edge_enhancement_tpu_torch.ops.square import add_square_draws, kernel_layout
 
 pytestmark = pytest.mark.cuda
@@ -79,7 +81,8 @@ def test_autograd_function_launches_each_kernel_once(cuda):
     F.reset_launches()
     xa = x.clone().requires_grad_()
     (g,) = torch.autograd.grad((F.ee_fused(xa, st, sqd, k) * u).sum(), [xa])
-    assert F.LAUNCHES == {"ee_fused_fwd": 1, "ee_fused_bwd": 1}
+    assert F.LAUNCHES == {"ee_fused_fwd": 1, "ee_fused_bwd": 1,
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
     _, y = F.ee_fused_fwd(x, st, sqd, k)
     torch.testing.assert_close(g, F.ee_fused_bwd(u, x, st, sqd, y, k), atol=0, rtol=0)
 
@@ -97,4 +100,114 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x = torch.zeros(1, 3, 32, 32, device=cuda)
     with pytest.raises(ValueError):                                # missing draws
         F.ee_fused_fwd(x, None, None, _consts(True))
-    assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0}
+    assert all(v == 0 for v in F.LAUNCHES.values())
+
+
+# K3a: the same operations in the same order as the plain version; K3b:
+# stencil adjoints summed in another order, scaled by at most 1/|g|
+CANNY_BWD_TOL = 1e-4
+
+
+# tiles are 16 x 32: whole tiles, ragged tiles, one channel, 224 px
+@pytest.mark.parametrize("shape,alpha", [((4, 3, 32, 64), 0.0),
+                                         ((3, 3, 37, 45), 0.1),
+                                         ((2, 1, 28, 28), 0.3),
+                                         ((1, 3, 224, 224), 0.0)])
+def test_canny_kernels_match_plain(cuda, shape, alpha):
+    x, _, _, _ = _operands(shape, False, cuda)
+    b, c, h, w = shape
+    u = torch.randn((b, 1, h, w), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    high = 76 / 255
+    outs_k = F.canny_fused_fwd(x, high, 1.0, alpha)
+    outs_p = F.canny_fused_fwd_plain(x, high, 1.0, alpha)
+    for got, want in zip(outs_k, outs_p):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert 0 < outs_k[0].mean() < 1
+    _, mag, gx, gy = outs_k
+    dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, 1.0, alpha)
+    torch.testing.assert_close(
+        dx_k, F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, 1.0, alpha),
+        atol=CANNY_BWD_TOL, rtol=0)
+    xa = x.clone().requires_grad_()
+    (g_auto,) = torch.autograd.grad(
+        (F.canny_fused_fwd_plain(xa, high, 1.0, alpha)[0] * u).sum(), [xa])
+    torch.testing.assert_close(dx_k, g_auto, atol=CANNY_BWD_TOL, rtol=0)
+    assert dx_k.abs().max() > 0.1
+
+
+def test_canny_edge_map_equals_k1s(cuda):
+    """K3a's edge map is K1's: with w = 1 and no square, y - hfs = edge."""
+    x, _, _, _ = _operands((4, 3, 32, 32), False, cuda, seed=2)
+    k = _consts(False)
+    _, y = F.ee_fused_fwd(x, None, None, k)
+    ar, ai, br, bi, _ = F.operators(32, 32, 8, 1.0, cuda)
+    from edge_enhancement_tpu_torch.ops.hfs import hfs_nchw
+    edge = F.canny_fused_fwd(x, k.high, 1.0, 0.0)[0]
+    torch.testing.assert_close((y - hfs_nchw(x, ar, ai, br, bi)).round(),
+                               edge.expand_as(y), atol=0, rtol=0)
+
+
+def test_gf_frontend_launches_only_k3(cuda):
+    from edge_enhancement_tpu_torch.models import ee_frontend as tee
+    x, _, _, _ = _operands((2, 3, 32, 32), False, cuda, seed=4)
+    cfg = tee.EEConfig(r=8, w=1.0, high=76.0, type_canny="CannyFilter_step125_1",
+                       with_gf=True, square=True, epsilon=EPS, n_queries=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    draws = add_square_draws((2, 32, 32, 3), gen)
+    xa = x.permute(0, 2, 3, 1).contiguous().requires_grad_()
+    F.reset_launches()
+    out = tee.ee_frontend(xa, cfg, lambda shape: draws)
+    out.sum().backward()
+    assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
+                          "canny_fused_fwd": 1, "canny_fused_bwd": 1}
+    xc = x.permute(0, 2, 3, 1).cpu().requires_grad_()
+    out_c = tee.ee_frontend(xc, cfg, lambda shape: tuple(d.cpu() for d in draws))
+    out_c.sum().backward()
+    torch.testing.assert_close(out.cpu(), out_c, atol=1e-5, rtol=0)
+    torch.testing.assert_close(xa.grad.cpu(), xc.grad, atol=1e-4, rtol=0)
+
+
+# K4 vs its plain version on the same operands: float32 sums in another
+# order (~1e-5 on outputs of order 3); bfloat16 both round a float32 sum
+# once, so one bf16 ulp (2^-7 relative) apart at most
+@pytest.mark.parametrize("shape", [(4, 16, 16, 64, 64), (2, 8, 8, 32, 64),
+                                   (3, 16, 16, 64, 128), (2, 7, 9, 16, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel_matches_plain(cuda, shape, dtype):
+    b, h, w, ci, co = shape
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((b, h, w, ci), generator=gen, device=cuda).to(dtype)
+    wk = (0.1 * torch.randn((3, 3, ci, co), generator=gen, device=cuda)).to(dtype)
+    G.reset_launches()
+    got = G.conv_cgemm_nhwc(x, wk)
+    want = G.conv_cgemm_nhwc_plain(x, wk)
+    assert got.dtype == dtype and got.shape == (b, h, w, co)
+    tol = dict(atol=1e-4, rtol=0) if dtype == torch.float32 else dict(atol=1e-4, rtol=2 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    xa = x.clone().requires_grad_()
+    wa = wk.clone().requires_grad_()
+    dy = torch.randn((b, h, w, co), generator=gen, device=cuda).to(dtype)
+    dx, dw = torch.autograd.grad(G.conv3x3_cgemm(xa, wa), [xa, wa], dy)
+    torch.testing.assert_close(
+        dx.float(), G.conv_cgemm_nhwc_plain(dy, G._dgrad_weights(wk)).float(), **tol)
+    key = "conv_cgemm_f32" if dtype == torch.float32 else "conv_cgemm_bf16"
+    assert G.LAUNCHES[key] == 3          # the check above, forward, dgrad
+    if dtype == torch.float32:
+        xr = x.clone().requires_grad_()
+        wr = wk.clone().requires_grad_()
+        ref = torch.nn.functional.conv2d(xr.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1),
+                                         padding=1).permute(0, 2, 3, 1)
+        dx_r, dw_r = torch.autograd.grad(ref, [xr, wr], dy)
+        torch.testing.assert_close(dw, dw_r, atol=1e-3, rtol=1e-4)
+
+
+def test_conv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    G.reset_launches()
+    w = torch.zeros(3, 3, 8, 8, device=cuda)
+    for x in (torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.float64),
+              torch.zeros(1, 4, 8, 8, device=cuda)[:, :, ::2],
+              torch.zeros(1, 4, 4, 6, device=cuda)):
+        with pytest.raises(ValueError):
+            G.conv_cgemm_nhwc(x, w)
+    assert all(v == 0 for v in G.LAUNCHES.values())

@@ -2,9 +2,11 @@
 jax-free import rule of the port, and chip_smoke.py's refusal without CUDA."""
 
 import os
+import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,6 +41,21 @@ def test_driver_runs_on_cpu(tmp_path):
     assert (run_dir / "ckpt" / "model_best.pth.tar").exists() or ckpt["best_prec1"] == 0.0
 
 
+def test_driver_runs_gf_on_cpu(tmp_path):
+    """The flagship config with the edge map smoothed (`gf: true`, the K3
+    path) through the driver's run()."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, dict(data="synthetic", synthetic_size=8,
+                                   batch_size=4, epochs=1, limit_batches=1,
+                                   device="cpu", gf=True, output=str(tmp_path)))
+    summary = run(cfg)
+    assert summary["train_steps"] == [1] and summary["eval_batches"] == [1]
+    assert np.isfinite(summary["loss"])
+    state = torch.load(summary["checkpoint"])["state_dict"]
+    assert all(bool(torch.isfinite(v).all()) for v in state.values())
+
+
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
     ({"method_name": "free_AT"}, NotImplementedError),
@@ -48,8 +65,8 @@ def test_driver_runs_on_cpu(tmp_path):
     ({"resume": "ckpt"}, NotImplementedError),
 ])
 def test_driver_refuses(override, error):
-    from edge_enhancement_tpu.utils.config import load_config
     from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
     if override.get("device") == "cuda" and torch.cuda.is_available():
         pytest.skip("CUDA is present")
     cfg = load_config(CONFIG, {**dict(data="synthetic", synthetic_size=8,
@@ -59,20 +76,43 @@ def test_driver_refuses(override, error):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, its entry points and chip_smoke.py import
+    with jax, jaxlib, flax and the JAX package blocked."""
     code = (
         "import pkgutil, sys, importlib\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'edge_enhancement_tpu'):\n"
+        "    sys.modules[name] = None\n"
         "import edge_enhancement_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import edge_enhancement_tpu_torch.train.driver\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "import edge_enhancement_tpu_torch.tools.bench_gemm_conv\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None and\n"
+        "             k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'edge_enhancement_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith(p.__name__)]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 20
+    assert int(proc.stdout.split()[-1]) >= 25
+
+
+def test_port_sources_name_no_jax_package():
+    """A scan of the port's sources and chip_smoke.py: no import of the JAX
+    package, jax or flax in any form."""
+    pattern = re.compile(r"^\s*(from|import)\s+(edge_enhancement_tpu|jax|jaxlib|flax)\b",
+                         re.MULTILINE)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(REPO, "edge_enhancement_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 30
+    hits = []
+    for path in files:
+        with open(path) as f:
+            hits += [(path, m.group(0)) for m in pattern.finditer(f.read())]
+    assert not hits, hits
 
 
 def test_chip_smoke_fails_without_cuda():

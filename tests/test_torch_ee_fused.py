@@ -127,7 +127,7 @@ def test_frontend_matches_jax_unfused(square):
 
 def test_unported_variants_raise():
     for cfg in (tee.EEConfig(type_canny="CannyFilter"),
-                tee.EEConfig(type_canny="CannyFilter_step125_1", with_gf=True),
+                tee.EEConfig(type_canny="CannyFilter_BPDA", with_gf=True),
                 tee.EEConfig(type_canny="CannyFilter_step125_1", square=True,
                              n_queries=5)):
         with pytest.raises(NotImplementedError):
@@ -141,4 +141,4 @@ def test_wrapper_refuses_non_cpu_non_cuda_tensors():
     tfused.reset_launches()
     with pytest.raises(ValueError):
         tfused.ee_fused_fwd(x, None, None, _consts(False))
-    assert tfused.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0}
+    assert tfused.LAUNCHES["ee_fused_fwd"] == tfused.LAUNCHES["ee_fused_bwd"] == 0
