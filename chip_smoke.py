@@ -6,7 +6,9 @@
 1. The device: name, power limit, torch and CUDA versions; TF32 off (the
    slices are float32).
 2. The build: one nvcc for each source, started together: csrc/ee_fused.cu
-   (kernels K1, K2, K3a, K3b) and csrc/gemm_conv.cu (K4), for sm_90a.
+   (kernels K1, K2, K3a, K3b) and csrc/gemm_conv.cu (K4), for sm_90a; the
+   compiler's register and spill report; the gemm_conv library's SASS must
+   hold HGMMA (wgmma) instructions, the bf16 K4's tensor-core datapath.
 3. The kernels against their plain PyTorch versions at the shapes their
    paths give them, errors against stated limits, median times from CUDA
    events, and each kernel's bound (the least time the card could take for
@@ -14,8 +16,8 @@
    launch from a replayed CUDA graph of 20 launches, beside the eager
    call's time: K1/K2 and K3a/K3b at 100 x 3 x 64 x 64
    float32 (with constant patches and saturated pixels); K4 forward and
-   dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, beside
-   cuDNN's convolution.
+   dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, timed on
+   weights packed once and with the packing, beside cuDNN's convolution.
 4. The slices, each with every launch count set to 0 before it and read
    after it:
    a. the port's training driver on the flagship config
@@ -27,7 +29,8 @@
       counts, no K1/K2 launch;
    c. the GEMM-conv op (forward and its autograd backward, float32 and
       bfloat16) and the bench entry point tools/bench_gemm_conv over its
-      three shapes: exact K4 counts.
+      three shapes: exact K4 counts; K4 bf16's and cuDNN's device times at
+      each shape beside the bound.
 5. The reference, for slices a and b: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -44,6 +47,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -119,62 +123,24 @@ def build_phase():
         print(f"[build] {os.path.relpath(lib.path, ROOT)}: nvcc "
               f"{lib.build_seconds:.1f} s", flush=True)
         print(lib.log.strip(), flush=True)
-
-
-def _median_ms(torch, fn, reps: int = 30) -> float:
-    """Median of `reps` CUDA-event timed eager calls: what one call costs a
-    caller, host launch work included."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def _device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
-    """Device time per call: `calls` calls captured in one CUDA graph and
-    replayed, so no host work sits between the launches; median of `reps`
-    replays."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    times = []
-    for _ in range(reps + 1):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    del graph
-    times = sorted(times[1:])
-    return times[len(times) // 2]
+    # the bf16 K4 must run on the tensor cores: its library holds wgmma
+    # (HGMMA in SASS), or a build that fell back to FP32 FMAs would pass
+    hgmma = re.findall(r"HGMMA[.\w]*", build.sass(libs["gemm_conv"].path))
+    print(f"[build] gemm_conv SASS: {len(hgmma)} HGMMA instructions "
+          f"({', '.join(sorted(set(hgmma)))})", flush=True)
+    if not hgmma:
+        fail("the gemm_conv library has no HGMMA instruction")
 
 
 def _timings(torch, kernel, plain, library=None) -> dict:
     """ms: the kernel's device time per launch; call_ms: one eager call of
     its wrapper; plain_ms, library_ms: device time per call of the plain
     version and of the one PyTorch call that computes the same function."""
+    from edge_enhancement_tpu_torch.utils.cuda_timing import device_ms, median_ms
     with torch.no_grad():
-        return {"ms": _device_ms(torch, kernel), "call_ms": _median_ms(torch, kernel),
-                "plain_ms": _device_ms(torch, plain),
-                "library_ms": None if library is None else _device_ms(torch, library)}
+        return {"ms": device_ms(kernel), "call_ms": median_ms(kernel),
+                "plain_ms": device_ms(plain),
+                "library_ms": None if library is None else device_ms(library)}
 
 
 def _nbytes(*tensors) -> int:
@@ -326,6 +292,7 @@ def conv_kernel_phase(torch):
 
     from edge_enhancement_tpu_torch.ops.cuda import gemm_conv as G
     from edge_enhancement_tpu_torch.tools.bench_gemm_conv import cudnn_conv
+    from edge_enhancement_tpu_torch.utils.cuda_timing import device_ms
 
     dev = torch.device("cuda")
     bsz, h, w, ci, co = CONV_SHAPE
@@ -355,24 +322,29 @@ def conv_kernel_phase(torch):
         lib = cudnn_conv(x, wk)
         with torch.no_grad():
             lib_err = (out_k.float() - lib().float()).abs().max().item()
-        t = _timings(torch, lambda: G.conv_cgemm_nhwc(x, wk),
+        # ms: the kernel alone, on weights packed once (as cuDNN's are);
+        # op_ms: the op, packing included
+        xk, wp = G.pack_operands(x, wk)
+        t = _timings(torch, lambda: G.conv_cgemm_packed(xk, wp),
                      lambda: G.conv_cgemm_nhwc_plain(x, wk), lib)
+        t["op_ms"] = device_ms(lambda: G.conv_cgemm_nhwc(x, wk))
+        b = bound(_nbytes(x, wp, out_k), 2 * bsz * h * w * co * 9 * ci, peak)
         tol = (f"{CONV_F32_ATOL}" if dtype == torch.float32 else
                f"{CONV_BF16_ATOL} + 2^-7 |plain|")
         print(f"[kernels] K4 {name} at {CONV_SHAPE}: forward max |err| "
               f"{errs[0]:.3e}, dgrad {errs[1]:.3e} (limit {tol}); vs cuDNN "
               f"{lib_err:.3e}; ms per launch on the device: K4 {t['ms']:.4f} "
-              f"(eager call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, "
-              f"cuDNN {t['library_ms']:.4f}", flush=True)
+              f"(with packing {t['op_ms']:.4f}, eager call {t['call_ms']:.4f}), "
+              f"plain {t['plain_ms']:.4f}, cuDNN {t['library_ms']:.4f}; bound "
+              f"{b['bound_us']:.1f} us ({b['bound_by']}), "
+              f"{100 * b['bound_ms'] / t['ms']:.1f}% of it", flush=True)
         if not ok:
             fail(f"K4 ({name}) disagrees with its plain version")
-        flops = 2 * bsz * h * w * co * 9 * ci
         kernels.append(
             {"name": name, "route": "cuda",
              "source": "edge_enhancement_tpu_torch/csrc/gemm_conv.cu",
              "replaces": "edge_enhancement_tpu/ops/pallas/gemm_conv.py:49",
-             "max_abs_err": max(errs), **t,
-             **bound(_nbytes(x, G.pack_weights(wk), out_k), flops, peak)})
+             "max_abs_err": max(errs), **t, **b})
     return kernels
 
 
@@ -455,12 +427,24 @@ def conv_path_phase(torch, kernels):
     print(f"[slice conv] launches {launches}, expected {want}", flush=True)
     if len(results) != 3 or launches != want:
         fail("the GEMM-conv path's launch counts are not as expected")
+    bench = []
     for r in results:
         if not (math.isfinite(r["max_diff"]) and r["max_diff"] < 0.5):
             fail(f"K4 and cuDNN disagree at {r['label']}: {r['max_diff']}")
+        b = bound(r["nbytes"], r["flop"], PEAK_BF16)
+        print(f"[slice conv] {r['label']} bf16: device ms K4 {r['ms']:.4f} "
+              f"(with packing {r['op_ms']:.4f}), cuDNN {r['cudnn_ms']:.4f}; bound "
+              f"{b['bound_us']:.1f} us ({b['bound_by']}): K4 at "
+              f"{100 * b['bound_ms'] / r['ms']:.1f}%, cuDNN at "
+              f"{100 * b['bound_ms'] / r['cudnn_ms']:.1f}%", flush=True)
+        bench.append({"shape": r["label"], "ms": r["ms"], "op_ms": r["op_ms"],
+                      "library_ms": r["cudnn_ms"], "bound_ms": b["bound_ms"],
+                      "bound_by": b["bound_by"]})
     for kern in kernels:
         if kern["name"] in want and kern["name"].startswith("conv_cgemm"):
             kern["launches"] = launches[kern["name"]]
+        if kern["name"] == "conv_cgemm_bf16":
+            kern["bench"] = bench
 
 
 def reference_phase(torch, cfg, checkpoint):

@@ -26,13 +26,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+def _cuda_tool(name: str = "nvcc") -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", name),
+                 os.path.join("/usr/local/cuda/bin", name), shutil.which(name) or ""):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels of "
-                       "edge_enhancement_tpu_torch are built with it")
+    raise RuntimeError(f"{name} not found (set CUDA_HOME); the CUDA kernels of "
+                       "edge_enhancement_tpu_torch are built with the CUDA toolkit")
 
 
 class Library:
@@ -66,7 +66,7 @@ def load_all(names=SOURCES) -> dict[str, Library]:
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.Popen([_cuda_tool(), *NVCC_FLAGS, "-o", tmp, src],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         started.append((name, src, so, tmp, proc, time.time()))
@@ -86,3 +86,9 @@ def load_all(names=SOURCES) -> dict[str, Library]:
 def load(name: str) -> Library:
     """Build (once per source revision) and load csrc/<name>.cu."""
     return load_all((name,))[name]
+
+
+def sass(path: str) -> str:
+    """The SASS of a built library, as cuobjdump --dump-sass prints it."""
+    return subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", path],
+                          capture_output=True, text=True, check=True).stdout

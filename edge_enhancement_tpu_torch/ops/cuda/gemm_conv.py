@@ -12,9 +12,12 @@ package); its entry point is tools/bench_gemm_conv.py.
 
 Source and design notes: edge_enhancement_tpu_torch/csrc/gemm_conv.cu.
 Activations and weights are float32 or bfloat16 (one type for both; the
-weights are cast to the activations' type, as in JAX). On a CPU tensor the
-wrappers run the plain version; on a CUDA tensor they launch the kernel or
-raise.
+weights are cast to the activations' type, as in JAX). float32 runs on an
+FP32-datapath kernel, bfloat16 on a tensor-core (wgmma) kernel that loads
+16-byte chunks of 8 channels: for it `conv_cgemm_nhwc` zero-pads C_in to a
+multiple of 8 (`pad_channels`), and x and the packed weights must be
+16-byte aligned. On a CPU tensor the wrappers run the plain version; on a
+CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -78,34 +81,84 @@ def _library():
     return lib
 
 
-def conv_cgemm_nhwc(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
-    """SAME 3x3 stride-1 conv, NHWC x HWIO -> NHWC: K4 on a CUDA tensor, the
-    plain version on a CPU tensor."""
+def pad_channels(x: torch.Tensor, w_hwio: torch.Tensor):
+    """Zero-pad the input channels of x (B, H, W, C_in) and w (3, 3, C_in,
+    C_out) up to the next multiple of 8, the bf16 kernel's 16-byte chunk;
+    the zero channels add nothing to any sum. Returns (x, w) unchanged when
+    C_in % 8 == 0."""
+    pad = -x.shape[-1] % 8
+    if pad == 0:
+        return x, w_hwio
+    return F.pad(x, (0, pad)), F.pad(w_hwio, (0, 0, 0, pad))
+
+
+def conv_cgemm_packed_plain(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """The plain version on packed (C_out, 9 * C_in) weights."""
+    cout, cin = w_packed.shape[0], x.shape[-1]
+    return conv_cgemm_nhwc_plain(x, w_packed.reshape(cout, 3, 3, cin).permute(1, 2, 3, 0))
+
+
+def conv_cgemm_packed(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """K4 on NHWC x and weights packed once by `pack_weights` (in x's type;
+    for bfloat16, C_in % 8 == 0 and both 16-byte aligned): the kernel
+    alone, one launch. The plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return conv_cgemm_nhwc_plain(x, w_hwio)
+        return conv_cgemm_packed_plain(x, w_packed)
     if x.device.type != "cuda":
-        raise ValueError(f"conv_cgemm_nhwc takes CUDA tensors, got {x.device}")
+        raise ValueError(f"conv_cgemm_packed takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPES or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, H, W, C) float32 or "
                          f"bfloat16 tensor (got {x.dtype}, shape {tuple(x.shape)})")
     b, h, w, cin = x.shape
-    if tuple(w_hwio.shape[:3]) != (3, 3, cin) or w_hwio.device != x.device:
-        raise ValueError(f"weights must be (3, 3, {cin}, C_out) on {x.device}, "
-                         f"got {tuple(w_hwio.shape)} on {w_hwio.device}")
-    cout = w_hwio.shape[3]
-    wp = pack_weights(w_hwio).to(x.dtype).contiguous()
+    if (w_packed.dim() != 2 or w_packed.shape[1] != 9 * cin
+            or w_packed.dtype != x.dtype or w_packed.device != x.device
+            or not w_packed.is_contiguous()):
+        raise ValueError(f"packed weights must be a contiguous (C_out, {9 * cin}) "
+                         f"{x.dtype} tensor on {x.device}, got {tuple(w_packed.shape)} "
+                         f"{w_packed.dtype} on {w_packed.device}")
+    if x.dtype == torch.bfloat16:
+        if cin % 8:
+            raise ValueError(f"the bfloat16 kernel takes C_in % 8 == 0, got {cin} "
+                             "(pad_channels pads it)")
+        if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
+            raise ValueError("the bfloat16 kernel loads 16-byte chunks: x and the "
+                             "packed weights must be 16-byte aligned")
+    cout = w_packed.shape[0]
     out = x.new_empty((b, h, w, cout))
     code, name = _DTYPES[x.dtype]
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.lib.conv3x3_cgemm(
-            x.data_ptr(), wp.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+            x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
             code, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_cgemm launch failed: "
                            f"{lib.lib.gemm_conv_error_string(err).decode()}")
     LAUNCHES[name] += 1
     return out
+
+
+def pack_operands(x: torch.Tensor, w_hwio: torch.Tensor):
+    """(x, packed weights) as K4 takes them: the weights cast to x's type
+    and packed by `pack_weights`; for bfloat16, C_in zero-padded to a
+    multiple of 8 (`pad_channels`)."""
+    cin = x.shape[-1]
+    if tuple(w_hwio.shape[:3]) != (3, 3, cin) or w_hwio.device != x.device:
+        raise ValueError(f"weights must be (3, 3, {cin}, C_out) on {x.device}, "
+                         f"got {tuple(w_hwio.shape)} on {w_hwio.device}")
+    w_hwio = w_hwio.to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        x, w_hwio = pad_channels(x, w_hwio)
+    return x, pack_weights(w_hwio).contiguous()
+
+
+def conv_cgemm_nhwc(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 stride-1 conv, NHWC x HWIO -> NHWC: K4 on a CUDA tensor
+    (operands prepared by `pack_operands` on each call), the plain version
+    on a CPU tensor."""
+    if x.device.type == "cpu":
+        return conv_cgemm_nhwc_plain(x, w_hwio)
+    return conv_cgemm_packed(*pack_operands(x, w_hwio))
 
 
 class Conv3x3CGemm(torch.autograd.Function):

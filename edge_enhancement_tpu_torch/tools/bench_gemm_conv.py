@@ -5,10 +5,13 @@ tools/bench_gemm_conv.py, on one CUDA device:
     python -m edge_enhancement_tpu_torch.tools.bench_gemm_conv \\
         [--dtype bfloat16|float32] [--shape r50] [--reps 20]
 
-Both sides get the same NHWC data: K4 through `conv_cgemm_nhwc` (weight
-packing included), cuDNN through `F.conv2d` on channels-last views, with
-TF32 off. Times are medians of CUDA-event timed launches. Prints one line
-per shape: ms, GFLOP/s, and the largest difference between the two.
+Both sides get the same NHWC data: K4 through `conv_cgemm_packed` on
+weights packed once (the kernel alone) and through `conv_cgemm_nhwc`
+(packing included), cuDNN through `F.conv2d` on channels-last views, with
+TF32 off. Times are device times per call in a replayed CUDA graph
+(utils/cuda_timing.device_ms), with the median eager call beside them.
+Prints one line per shape: ms, TFLOP/s, and the largest difference between
+the two.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.gemm_conv import conv_cgemm_nhwc
+from ..ops.cuda.gemm_conv import conv_cgemm_nhwc, conv_cgemm_packed, pack_operands
+from ..utils.cuda_timing import device_ms, median_ms
 
 # (label, B, H, W, C_in, C_out)
 SHAPES = [
@@ -28,22 +32,7 @@ SHAPES = [
     ("r50_l1 bs128 56x56 64->64", 128, 56, 56, 64, 64),
 ]
 WARMUP = 3
-
-
-def median_ms(fn, reps: int) -> float:
-    """Median of `reps` CUDA-event timed calls after WARMUP untimed ones."""
-    for _ in range(WARMUP):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
+GRAPH_CALLS = 20
 
 
 def cudnn_conv(x: torch.Tensor, w_hwio: torch.Tensor):
@@ -55,8 +44,11 @@ def cudnn_conv(x: torch.Tensor, w_hwio: torch.Tensor):
 
 def run(dtype: torch.dtype = torch.bfloat16, reps: int = 20,
         shape_filter: str | None = None) -> list[dict]:
-    """Time K4 and cuDNN at each selected shape; `calls` counts K4's
-    launches."""
+    """Time K4 and cuDNN at each selected shape. `calls` counts K4's
+    launches through its wrapper: the check against cuDNN, the eager
+    calls, and two device timings (kernel alone, op) of 1 + GRAPH_CALLS
+    each (graph replays launch no wrapper). `nbytes` counts x, the packed
+    weights and out once each; `flop` the products' 2 M N K."""
     if not torch.cuda.is_available():
         raise SystemExit("bench_gemm_conv: needs a CUDA device")
     dev = torch.device("cuda")
@@ -71,17 +63,27 @@ def run(dtype: torch.dtype = torch.bfloat16, reps: int = 20,
             x = torch.from_numpy(rng.standard_normal((b, h, w, ci), np.float32))
             wk = torch.from_numpy(rng.standard_normal((3, 3, ci, co), np.float32) * 0.1)
             x, wk = x.to(dev, dtype), wk.to(dev, dtype)
+            xk, wp = pack_operands(x, wk)
             lib = cudnn_conv(x, wk)
-            diff = (conv_cgemm_nhwc(x, wk).float() - lib().float()).abs().max().item()
-            ms = median_ms(lambda: conv_cgemm_nhwc(x, wk), reps)
-            lib_ms = median_ms(lib, reps)
-            gflop = 2 * b * h * w * ci * co * 9 / 1e9
-            results.append(dict(label=label, ms=ms, cudnn_ms=lib_ms, gflop=gflop,
-                                max_diff=diff, calls=1 + WARMUP + reps))
-            print(f"{label} {str(dtype).split('.')[-1]}: K4 {ms:.4f} ms "
-                  f"({gflop / ms * 1e3:.0f} GFLOP/s) | cuDNN {lib_ms:.4f} ms "
-                  f"({gflop / lib_ms * 1e3:.0f} GFLOP/s, {lib_ms / ms:.3f}x) "
-                  f"| max diff {diff:.3e}", flush=True)
+            out = conv_cgemm_nhwc(x, wk)
+            diff = (out.float() - lib().float()).abs().max().item()
+            with torch.no_grad():
+                r = dict(ms=device_ms(lambda: conv_cgemm_packed(xk, wp), GRAPH_CALLS),
+                         op_ms=device_ms(lambda: conv_cgemm_nhwc(x, wk), GRAPH_CALLS),
+                         call_ms=median_ms(lambda: conv_cgemm_nhwc(x, wk), reps, WARMUP),
+                         cudnn_ms=device_ms(lib, GRAPH_CALLS),
+                         cudnn_call_ms=median_ms(lib, reps, WARMUP))
+            flop = 2 * b * h * w * ci * co * 9
+            nbytes = sum(t.numel() * t.element_size() for t in (x, wp, out))
+            results.append(dict(label=label, **r, flop=flop, nbytes=nbytes,
+                                max_diff=diff,
+                                calls=1 + WARMUP + reps + 2 * (1 + GRAPH_CALLS)))
+            print(f"{label} {str(dtype).split('.')[-1]}: device ms K4 {r['ms']:.4f} "
+                  f"({flop / r['ms'] / 1e9:.1f} TFLOP/s), with packing "
+                  f"{r['op_ms']:.4f} | cuDNN {r['cudnn_ms']:.4f} "
+                  f"({flop / r['cudnn_ms'] / 1e9:.1f} TFLOP/s, K4 / cuDNN "
+                  f"{r['ms'] / r['cudnn_ms']:.3f}) | eager call K4 {r['call_ms']:.4f}, "
+                  f"cuDNN {r['cudnn_call_ms']:.4f} | max diff {diff:.3e}", flush=True)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return results

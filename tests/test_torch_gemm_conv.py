@@ -80,3 +80,46 @@ def test_wrapper_refuses_non_cpu_non_cuda_tensors():
         tgc.conv_cgemm_nhwc(torch.zeros(1, 4, 4, 8, device="meta"),
                             torch.zeros(3, 3, 8, 8, device="meta"))
     assert tgc.LAUNCHES == {"conv_cgemm_f32": 0, "conv_cgemm_bf16": 0}
+
+
+@pytest.mark.parametrize("cin", [5, 13, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pad_channels_leaves_the_plain_result_bit_for_bit(cin, dtype):
+    """The bf16 kernel's channel padding to a multiple of 8 adds zero
+    products only: the plain result is unchanged to the bit."""
+    x, wk = _operands((2, 7, 9, cin, 16), 4)
+    xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(wk).to(dtype)
+    xp, wp = tgc.pad_channels(xt, wt)
+    assert xp.shape[-1] % 8 == 0 and xp.shape[-1] - cin < 8
+    assert wp.shape == (3, 3, xp.shape[-1], 16)
+    if cin % 8 == 0:
+        assert xp is xt and wp is wt
+    got = tgc.conv_cgemm_nhwc(xp, wp)
+    want = tgc.conv_cgemm_nhwc(xt, wt)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_padded_packed_layout_is_jax_pack_weights_rearranged():
+    """What the bf16 kernel reads for C_in = 5: the (C_out, 9 * 8) tap-major
+    packing of the padded weights, whose first 5 channels of each tap are
+    JAX's pack_weights and the rest zero."""
+    _, wk = _operands((1, 4, 4, 5, 7), 5)
+    _, wp = tgc.pad_channels(torch.zeros(1, 4, 4, 5), torch.from_numpy(wk))
+    packed = tgc.pack_weights(wp).numpy().reshape(7, 9, 8)
+    want = np.asarray(jgc.pack_weights(jnp.asarray(wk))).reshape(7, 9, 5)
+    np.testing.assert_array_equal(packed[:, :, :5], want)
+    assert not packed[:, :, 5:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_entry_matches_the_op_and_jax(dtype):
+    """conv_cgemm_packed (weights packed once) is the op bit for bit on the
+    CPU, and the JAX conv within the op's tolerance."""
+    x, wk = _operands((2, 8, 8, 16, 24), 6)
+    xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(wk).to(dtype)
+    got = tgc.conv_cgemm_packed(xt, tgc.pack_weights(wt).contiguous())
+    assert torch.equal(got, tgc.conv_cgemm_nhwc(xt, wt))
+    if dtype == torch.float32:
+        want = np.asarray(jgc.conv_cgemm_nhwc(jnp.asarray(x), jnp.asarray(wk)))
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
