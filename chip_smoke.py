@@ -8,7 +8,9 @@
 2. The build: one nvcc for each source, started together: csrc/ee_fused.cu
    (kernels K1, K2, K3a, K3b) and csrc/gemm_conv.cu (K4), for sm_90a; the
    compiler's register and spill report; the gemm_conv library's SASS must
-   hold HGMMA (wgmma) instructions, the bf16 K4's tensor-core datapath.
+   hold both HGMMA (wgmma) forms, BF16 for the bf16 K4 and TF32 for the
+   float32 K4 (three TF32 products, 3xTF32): a library whose K4 fell back
+   to FP32 FMAs fails.
 3. The kernels against their plain PyTorch versions at the shapes their
    paths give them, errors against stated limits, median times from CUDA
    events, and each kernel's bound (the least time the card could take for
@@ -17,7 +19,8 @@
    call's time: K1/K2 and K3a/K3b at 100 x 3 x 64 x 64
    float32 (with constant patches and saturated pixels); K4 forward and
    dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, timed on
-   weights packed once and with the packing, beside cuDNN's convolution.
+   weights packed once and with the packing, beside cuDNN's convolution
+   (float32 with TF32 off, so both sides compute at float32 accuracy).
 4. The slices, each with every launch count set to 0 before it and read
    after it:
    a. the port's training driver on the flagship config
@@ -29,8 +32,8 @@
       counts, no K1/K2 launch;
    c. the GEMM-conv op (forward and its autograd backward, float32 and
       bfloat16) and the bench entry point tools/bench_gemm_conv over its
-      three shapes: exact K4 counts; K4 bf16's and cuDNN's device times at
-      each shape beside the bound.
+      three shapes, in bfloat16 and in float32: exact K4 counts; K4's and
+      cuDNN's device times at each shape beside the bound.
 5. The reference, for slices a and b: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -66,19 +69,25 @@ FWD_TOL, BWD_TOL = 2e-5, 1e-4
 # scaled by at most 1/|g| < 3.4.
 CANNY_FWD_TOL, CANNY_BWD_TOL = 0.0, 1e-4
 # K4 vs its plain version (same operands, float32 sums of 9 * 64 = 576
-# products of order 0.1 in another order): float32 ~1e-5 on outputs of
-# order 3; bfloat16: both round a float32 sum once, so they differ by at
-# most one bf16 ulp (2^-7 relative) where the two sums straddle a rounding
-# boundary, plus the float32 difference near zero.
+# products of order 0.1 in another order): float32, as three TF32 products
+# (3xTF32) whose sums are added up in float32 a ring step at a time, ~6e-6
+# on outputs of order 10 (one TF32 product would be ~3e-3); bfloat16: both
+# round a float32 sum once, so they differ by at most one bf16 ulp (2^-7
+# relative) where the two sums straddle a rounding boundary, plus the
+# float32 difference near zero.
 CONV_F32_ATOL = 1e-4
 CONV_BF16_ATOL, CONV_BF16_RTOL = 1e-4, 2.0 ** -7
 # Logits of the small batch, card vs CPU, relative to the largest logit
 # (eval-mode logits after 3 steps can reach the thousands): the edge maps
 # agree bit for bit, the rest is two libraries' float32 convolutions.
 REF_TOL = 1e-3
-# H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
-# and dense bf16 tensor-core FLOP/s.
-PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor),
+# dense bf16 and dense TF32 tensor-core FLOP/s.
+PEAK_BYTES, PEAK_F32, PEAK_BF16, PEAK_TF32 = 3.35e12, 67e12, 989e12, 494.7e12
+# K4 against cuDNN in the bench: bf16 within a few bf16 ulps of outputs of
+# order 10; float32 within 1e-3, not K4's 1e-4, because cuDNN may pick a
+# Winograd or FFT algorithm that carries its own ~1e-4 error.
+BENCH_BF16_DIFF, BENCH_F32_DIFF = 0.5, 1e-3
 # the K4 check's shape (ResNet-50 layer1), and the bench's repetitions
 CONV_SHAPE = (128, 56, 56, 64, 64)
 BENCH_REPS = 5
@@ -123,13 +132,15 @@ def build_phase():
         print(f"[build] {os.path.relpath(lib.path, ROOT)}: nvcc "
               f"{lib.build_seconds:.1f} s", flush=True)
         print(lib.log.strip(), flush=True)
-    # the bf16 K4 must run on the tensor cores: its library holds wgmma
-    # (HGMMA in SASS), or a build that fell back to FP32 FMAs would pass
+    # both K4 kernels must run on the tensor cores: the library holds wgmma
+    # (HGMMA in SASS) of both forms, or a build that fell back to FP32 FMAs
+    # would pass
     hgmma = re.findall(r"HGMMA[.\w]*", build.sass(libs["gemm_conv"].path))
+    forms = {t: sum(h.endswith(f".F32.{t}") for h in hgmma) for t in ("BF16", "TF32")}
     print(f"[build] gemm_conv SASS: {len(hgmma)} HGMMA instructions "
-          f"({', '.join(sorted(set(hgmma)))})", flush=True)
-    if not hgmma:
-        fail("the gemm_conv library has no HGMMA instruction")
+          f"({', '.join(sorted(set(hgmma)))}); by form {forms}", flush=True)
+    if not all(forms.values()):
+        fail(f"the gemm_conv library lacks an HGMMA form: {forms}")
 
 
 def _timings(torch, kernel, plain, library=None) -> dict:
@@ -301,8 +312,8 @@ def conv_kernel_phase(torch):
     w32 = torch.from_numpy(rng.standard_normal((3, 3, ci, co), np.float32) * 0.1).to(dev)
     dy32 = torch.from_numpy(rng.standard_normal((bsz, h, w, co), np.float32)).to(dev)
     kernels = []
-    for dtype, name, peak in ((torch.float32, "conv_cgemm_f32", PEAK_F32),
-                              (torch.bfloat16, "conv_cgemm_bf16", PEAK_BF16)):
+    for dtype, name in ((torch.float32, "conv_cgemm_f32"),
+                        (torch.bfloat16, "conv_cgemm_bf16")):
         x, wk, dy = x32.to(dtype), w32.to(dtype), dy32.to(dtype)
         out_k = G.conv_cgemm_nhwc(x, wk)
         xa = x.clone().requires_grad_(True)
@@ -328,16 +339,16 @@ def conv_kernel_phase(torch):
         t = _timings(torch, lambda: G.conv_cgemm_packed(xk, wp),
                      lambda: G.conv_cgemm_nhwc_plain(x, wk), lib)
         t["op_ms"] = device_ms(lambda: G.conv_cgemm_nhwc(x, wk))
-        b = bound(_nbytes(x, wp, out_k), 2 * bsz * h * w * co * 9 * ci, peak)
+        b = conv_bound(dtype, _nbytes(x, wp, out_k), 2 * bsz * h * w * co * 9 * ci)
         tol = (f"{CONV_F32_ATOL}" if dtype == torch.float32 else
                f"{CONV_BF16_ATOL} + 2^-7 |plain|")
         print(f"[kernels] K4 {name} at {CONV_SHAPE}: forward max |err| "
               f"{errs[0]:.3e}, dgrad {errs[1]:.3e} (limit {tol}); vs cuDNN "
               f"{lib_err:.3e}; ms per launch on the device: K4 {t['ms']:.4f} "
               f"(with packing {t['op_ms']:.4f}, eager call {t['call_ms']:.4f}), "
-              f"plain {t['plain_ms']:.4f}, cuDNN {t['library_ms']:.4f}; bound "
-              f"{b['bound_us']:.1f} us ({b['bound_by']}), "
-              f"{100 * b['bound_ms'] / t['ms']:.1f}% of it", flush=True)
+              f"plain {t['plain_ms']:.4f}, cuDNN {t['library_ms']:.4f} (K4 / cuDNN "
+              f"{t['ms'] / t['library_ms']:.3f}); bound {b['bound_us']:.1f} us "
+              f"({b['bound_by']}), {100 * b['bound_ms'] / t['ms']:.1f}% of it", flush=True)
         if not ok:
             fail(f"K4 ({name}) disagrees with its plain version")
         kernels.append(
@@ -346,6 +357,15 @@ def conv_kernel_phase(torch):
              "replaces": "edge_enhancement_tpu/ops/pallas/gemm_conv.py:49",
              "max_abs_err": max(errs), **t, **b})
     return kernels
+
+
+def conv_bound(dtype, nbytes: float, flop: float) -> dict:
+    """K4's bound for a torch dtype or its name: bfloat16 one product on the
+    bf16 tensor cores, float32 three TF32 products (3xTF32) on the TF32
+    tensor cores."""
+    if str(dtype).split(".")[-1] == "float32":
+        return bound(nbytes, 3 * flop, PEAK_TF32)
+    return bound(nbytes, flop, PEAK_BF16)
 
 
 def _reset_counts():
@@ -418,33 +438,40 @@ def conv_path_phase(torch, kernels):
         conv3x3_cgemm(x, wk).float().square().mean().backward()
         if not (torch.isfinite(x.grad).all() and torch.isfinite(wk.grad).all()):
             fail(f"the GEMM-conv op's gradients are not finite ({dtype})")
-    results = bench_gemm_conv.main(["--reps", str(BENCH_REPS)])
+    results = {dtype: bench_gemm_conv.main(["--dtype", dtype, "--reps", str(BENCH_REPS)])
+               for dtype in ("bfloat16", "float32")}
     torch.cuda.synchronize()
     launches = _read_counts()
     want = {k: 0 for k in launches}
-    want.update({"conv_cgemm_f32": 2,
-                 "conv_cgemm_bf16": 2 + sum(r["calls"] for r in results)})
+    want.update({"conv_cgemm_f32": 2 + sum(r["calls"] for r in results["float32"]),
+                 "conv_cgemm_bf16": 2 + sum(r["calls"] for r in results["bfloat16"])})
     print(f"[slice conv] launches {launches}, expected {want}", flush=True)
-    if len(results) != 3 or launches != want:
+    if any(len(r) != 3 for r in results.values()) or launches != want:
         fail("the GEMM-conv path's launch counts are not as expected")
-    bench = []
-    for r in results:
-        if not (math.isfinite(r["max_diff"]) and r["max_diff"] < 0.5):
-            fail(f"K4 and cuDNN disagree at {r['label']}: {r['max_diff']}")
-        b = bound(r["nbytes"], r["flop"], PEAK_BF16)
-        print(f"[slice conv] {r['label']} bf16: device ms K4 {r['ms']:.4f} "
-              f"(with packing {r['op_ms']:.4f}), cuDNN {r['cudnn_ms']:.4f}; bound "
-              f"{b['bound_us']:.1f} us ({b['bound_by']}): K4 at "
-              f"{100 * b['bound_ms'] / r['ms']:.1f}%, cuDNN at "
-              f"{100 * b['bound_ms'] / r['cudnn_ms']:.1f}%", flush=True)
-        bench.append({"shape": r["label"], "ms": r["ms"], "op_ms": r["op_ms"],
-                      "library_ms": r["cudnn_ms"], "bound_ms": b["bound_ms"],
-                      "bound_by": b["bound_by"]})
+    benches = {}
+    for dtype, limit, short in (("bfloat16", BENCH_BF16_DIFF, "bf16"),
+                                ("float32", BENCH_F32_DIFF, "f32")):
+        bench = benches[dtype] = []
+        for r in results[dtype]:
+            if not (math.isfinite(r["max_diff"]) and r["max_diff"] < limit):
+                fail(f"K4 and cuDNN disagree at {r['label']} {dtype}: "
+                     f"{r['max_diff']} (limit {limit})")
+            b = conv_bound(dtype, r["nbytes"], r["flop"])
+            print(f"[slice conv] {r['label']} {short}: device ms K4 {r['ms']:.4f} "
+                  f"(with packing {r['op_ms']:.4f}), cuDNN {r['cudnn_ms']:.4f} "
+                  f"(K4 / cuDNN {r['ms'] / r['cudnn_ms']:.3f}); bound "
+                  f"{b['bound_us']:.1f} us ({b['bound_by']}): K4 at "
+                  f"{100 * b['bound_ms'] / r['ms']:.1f}%, cuDNN at "
+                  f"{100 * b['bound_ms'] / r['cudnn_ms']:.1f}%; max diff "
+                  f"{r['max_diff']:.3e} (limit {limit})", flush=True)
+            bench.append({"shape": r["label"], "ms": r["ms"], "op_ms": r["op_ms"],
+                          "library_ms": r["cudnn_ms"], "bound_ms": b["bound_ms"],
+                          "bound_by": b["bound_by"], "max_diff": r["max_diff"]})
     for kern in kernels:
         if kern["name"] in want and kern["name"].startswith("conv_cgemm"):
             kern["launches"] = launches[kern["name"]]
-        if kern["name"] == "conv_cgemm_bf16":
-            kern["bench"] = bench
+            kern["bench"] = benches["float32" if kern["name"].endswith("f32")
+                                    else "bfloat16"]
 
 
 def reference_phase(torch, cfg, checkpoint):

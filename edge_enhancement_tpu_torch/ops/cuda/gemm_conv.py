@@ -12,11 +12,14 @@ package); its entry point is tools/bench_gemm_conv.py.
 
 Source and design notes: edge_enhancement_tpu_torch/csrc/gemm_conv.cu.
 Activations and weights are float32 or bfloat16 (one type for both; the
-weights are cast to the activations' type, as in JAX). float32 runs on an
-FP32-datapath kernel, bfloat16 on a tensor-core (wgmma) kernel that loads
-16-byte chunks of 8 channels: for it `conv_cgemm_nhwc` zero-pads C_in to a
-multiple of 8 (`pad_channels`), and x and the packed weights must be
-16-byte aligned. On a CPU tensor the wrappers run the plain version; on a
+weights are cast to the activations' type, as in JAX). Both types run on
+tensor-core (wgmma) kernels that load 16-byte chunks: bfloat16 as one bf16
+product, float32 as three TF32 products (3xTF32: each operand split into a
+TF32 high and low part by `split_tf32`, the weights once at pack time, the
+activations in the kernel), which keeps float32 accuracy. For both,
+`conv_cgemm_nhwc` zero-pads C_in to a multiple of 8 (`pad_channels`), and
+x and the packed weights must be 16-byte aligned. On a CPU tensor the
+wrappers run the plain version (float32 sums, not emulated TF32); on a
 CUDA tensor they launch the kernel or raise.
 """
 
@@ -83,25 +86,47 @@ def _library():
 
 def pad_channels(x: torch.Tensor, w_hwio: torch.Tensor):
     """Zero-pad the input channels of x (B, H, W, C_in) and w (3, 3, C_in,
-    C_out) up to the next multiple of 8, the bf16 kernel's 16-byte chunk;
-    the zero channels add nothing to any sum. Returns (x, w) unchanged when
-    C_in % 8 == 0."""
+    C_out) up to the next multiple of 8, whole 16-byte chunks for both
+    kernels; the zero channels add nothing to any sum. Returns (x, w)
+    unchanged when C_in % 8 == 0."""
     pad = -x.shape[-1] % 8
     if pad == 0:
         return x, w_hwio
     return F.pad(x, (0, pad)), F.pad(w_hwio, (0, 0, 0, pad))
 
 
+def _round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as cvt.rna.tf32.f32 rounds: add half a TF32 ulp to the magnitude
+    bits and clear the 13 low bits. Infinities and NaNs pass through."""
+    bits = v.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(v), rounded, v)
+
+
+def split_tf32(v: torch.Tensor):
+    """float32 v -> (hi, lo), both TF32: hi = tf32(v), lo = tf32(v - hi),
+    so hi + lo is v to 2^-22 relative; lo = 0 where hi is not finite. The
+    float32 kernel splits the activations the same way."""
+    hi = _round_tf32(v)
+    lo = torch.where(torch.isfinite(hi), _round_tf32(v - hi), torch.zeros_like(v))
+    return hi, lo
+
+
 def conv_cgemm_packed_plain(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
-    """The plain version on packed (C_out, 9 * C_in) weights."""
+    """The plain version on packed weights: (C_out, 9 * C_in), or for
+    float32 the (2, C_out, 9 * C_in) TF32 pair, which stands for hi + lo."""
+    if w_packed.dim() == 3:
+        w_packed = w_packed[0] + w_packed[1]
     cout, cin = w_packed.shape[0], x.shape[-1]
     return conv_cgemm_nhwc_plain(x, w_packed.reshape(cout, 3, 3, cin).permute(1, 2, 3, 0))
 
 
 def conv_cgemm_packed(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
-    """K4 on NHWC x and weights packed once by `pack_weights` (in x's type;
-    for bfloat16, C_in % 8 == 0 and both 16-byte aligned): the kernel
-    alone, one launch. The plain version on a CPU tensor."""
+    """K4 on NHWC x and weights packed once by `pack_operands` (C_in % 8 ==
+    0, both 16-byte aligned; float32 weights as their (2, C_out, 9 * C_in)
+    TF32 pair): the kernel alone, one launch. The plain version on a CPU
+    tensor."""
     if x.device.type == "cpu":
         return conv_cgemm_packed_plain(x, w_packed)
     if x.device.type != "cuda":
@@ -110,20 +135,20 @@ def conv_cgemm_packed(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
         raise ValueError("x must be a contiguous (B, H, W, C) float32 or "
                          f"bfloat16 tensor (got {x.dtype}, shape {tuple(x.shape)})")
     b, h, w, cin = x.shape
-    if (w_packed.dim() != 2 or w_packed.shape[1] != 9 * cin
-            or w_packed.dtype != x.dtype or w_packed.device != x.device
-            or not w_packed.is_contiguous()):
-        raise ValueError(f"packed weights must be a contiguous (C_out, {9 * cin}) "
+    lead = (2,) if x.dtype == torch.float32 else ()
+    if (tuple(w_packed.shape[:-2]) != lead or w_packed.dim() != len(lead) + 2
+            or w_packed.shape[-1] != 9 * cin or w_packed.dtype != x.dtype
+            or w_packed.device != x.device or not w_packed.is_contiguous()):
+        raise ValueError(f"packed weights must be a contiguous {lead + ('C_out', 9 * cin)} "
                          f"{x.dtype} tensor on {x.device}, got {tuple(w_packed.shape)} "
                          f"{w_packed.dtype} on {w_packed.device}")
-    if x.dtype == torch.bfloat16:
-        if cin % 8:
-            raise ValueError(f"the bfloat16 kernel takes C_in % 8 == 0, got {cin} "
-                             "(pad_channels pads it)")
-        if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
-            raise ValueError("the bfloat16 kernel loads 16-byte chunks: x and the "
-                             "packed weights must be 16-byte aligned")
-    cout = w_packed.shape[0]
+    if cin % 8:
+        raise ValueError(f"the kernels take C_in % 8 == 0, got {cin} "
+                         "(pad_channels pads it)")
+    if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
+        raise ValueError("the kernels load 16-byte chunks: x and the packed "
+                         "weights must be 16-byte aligned")
+    cout = w_packed.shape[-2]
     out = x.new_empty((b, h, w, cout))
     code, name = _DTYPES[x.dtype]
     lib = _library()
@@ -139,17 +164,19 @@ def conv_cgemm_packed(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
 
 
 def pack_operands(x: torch.Tensor, w_hwio: torch.Tensor):
-    """(x, packed weights) as K4 takes them: the weights cast to x's type
-    and packed by `pack_weights`; for bfloat16, C_in zero-padded to a
-    multiple of 8 (`pad_channels`)."""
+    """(x, packed weights) as K4 takes them: C_in zero-padded to a multiple
+    of 8 (`pad_channels`), the weights cast to x's type and packed by
+    `pack_weights`; for float32, split into their (2, C_out, 9 * C_in) TF32
+    high and low parts (`split_tf32`)."""
     cin = x.shape[-1]
     if tuple(w_hwio.shape[:3]) != (3, 3, cin) or w_hwio.device != x.device:
         raise ValueError(f"weights must be (3, 3, {cin}, C_out) on {x.device}, "
                          f"got {tuple(w_hwio.shape)} on {w_hwio.device}")
-    w_hwio = w_hwio.to(x.dtype)
-    if x.dtype == torch.bfloat16:
-        x, w_hwio = pad_channels(x, w_hwio)
-    return x, pack_weights(w_hwio).contiguous()
+    x, w_hwio = pad_channels(x, w_hwio.to(x.dtype))
+    w_packed = pack_weights(w_hwio)
+    if x.dtype == torch.float32:
+        w_packed = torch.stack(split_tf32(w_packed))
+    return x, w_packed.contiguous()
 
 
 def conv_cgemm_nhwc(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:

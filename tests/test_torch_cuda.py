@@ -168,13 +168,14 @@ def test_gf_frontend_launches_only_k3(cuda):
     torch.testing.assert_close(xa.grad.cpu(), xc.grad, atol=1e-4, rtol=0)
 
 
-# K4 vs its plain version on the same operands: float32 sums in another
-# order (~1e-5 on outputs of order 3); bfloat16 both round a float32 sum
-# once, so one bf16 ulp (2^-7 relative) apart at most. Beyond the JAX
-# tests' shapes, those that reach every masked path of the bf16 kernel: M
-# not a multiple of its 128-row tile, C_out ragged (96) and two N tiles
-# (192), a ragged 64-channel chunk (C_in 24), two chunks a tap (128), and
-# C_in 5 (padded to 8 by the wrapper)
+# K4 vs its plain version on the same operands: float32 runs three TF32
+# products (3xTF32, ~6e-6 on outputs of order 10, the plain version's
+# float32 sums in another order included); bfloat16 both round a float32
+# sum once, so one bf16 ulp (2^-7 relative) apart at most. Beyond the JAX
+# tests' shapes, those that reach every masked path of the kernels: M not
+# a multiple of the 128-row tile, C_out ragged (96) and two N tiles (192),
+# a ragged channel chunk (C_in 24), several chunks a tap (128), and C_in 5
+# (padded to 8 by the wrapper)
 @pytest.mark.parametrize("shape", [(4, 16, 16, 64, 64), (2, 8, 8, 32, 64),
                                    (3, 16, 16, 64, 128), (2, 7, 9, 16, 32),
                                    (3, 7, 9, 64, 64), (2, 8, 8, 64, 96),
@@ -220,31 +221,46 @@ def test_conv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert all(v == 0 for v in G.LAUNCHES.values())
 
 
-def test_conv_packed_launches_the_kernel_alone(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_packed_launches_the_kernel_alone(cuda, dtype):
     """conv_cgemm_packed on weights packed once equals the op, one launch."""
     gen = torch.Generator(device=cuda).manual_seed(6)
-    x = torch.randn((2, 8, 8, 64), generator=gen, device=cuda).bfloat16()
-    wk = (0.1 * torch.randn((3, 3, 64, 64), generator=gen, device=cuda)).bfloat16()
-    wp = G.pack_weights(wk).contiguous()
+    x = torch.randn((2, 8, 8, 64), generator=gen, device=cuda).to(dtype)
+    wk = (0.1 * torch.randn((3, 3, 64, 64), generator=gen, device=cuda)).to(dtype)
+    _, wp = G.pack_operands(x, wk)
+    key = "conv_cgemm_f32" if dtype == torch.float32 else "conv_cgemm_bf16"
     G.reset_launches()
     got = G.conv_cgemm_packed(x, wp)
-    assert G.LAUNCHES == {"conv_cgemm_f32": 0, "conv_cgemm_bf16": 1}
+    assert G.LAUNCHES == {"conv_cgemm_f32": 0, "conv_cgemm_bf16": 0, key: 1}
     torch.testing.assert_close(got, G.conv_cgemm_nhwc(x, wk), atol=0, rtol=0)
 
 
-def test_conv_bf16_refuses_misaligned_views(cuda):
-    """The bf16 kernel loads 16-byte chunks: a view 2 bytes off raises."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bf16_refuses_misaligned_views(cuda, dtype):
+    """Both kernels load 16-byte chunks: a view one element off raises, and
+    so does an unpadded C_in."""
     G.reset_launches()
-    w = torch.zeros(3, 3, 8, 8, device=cuda, dtype=torch.bfloat16)
-    x = torch.zeros(1 * 4 * 4 * 8 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    lead = (2,) if dtype == torch.float32 else ()
+    w = torch.zeros(3, 3, 8, 8, device=cuda, dtype=dtype)
+    x = torch.zeros(1 * 4 * 4 * 8 + 1, device=cuda, dtype=dtype)[1:]
     x = x.view(1, 4, 4, 8)
     assert x.is_contiguous() and x.data_ptr() % 16
     with pytest.raises(ValueError):
         G.conv_cgemm_nhwc(x, w)
-    wp = torch.zeros(8 * 72 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(8, 72)
+    n = 8 * 72 * (2 if lead else 1)
+    wp = torch.zeros(n + 1, device=cuda, dtype=dtype)[1:].view(*lead, 8, 72)
     with pytest.raises(ValueError):
-        G.conv_cgemm_packed(torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.bfloat16), wp)
+        G.conv_cgemm_packed(torch.zeros(1, 4, 4, 8, device=cuda, dtype=dtype), wp)
     with pytest.raises(ValueError):                      # C_in % 8 != 0, unpadded
-        G.conv_cgemm_packed(torch.zeros(1, 4, 4, 5, device=cuda, dtype=torch.bfloat16),
-                            torch.zeros(8, 45, device=cuda, dtype=torch.bfloat16))
+        G.conv_cgemm_packed(torch.zeros(1, 4, 4, 5, device=cuda, dtype=dtype),
+                            torch.zeros(*lead, 8, 45, device=cuda, dtype=dtype))
+    assert all(v == 0 for v in G.LAUNCHES.values())
+
+
+def test_conv_f32_refuses_unsplit_weights(cuda):
+    """The float32 kernel takes the (2, C_out, 9 C_in) TF32 pair only."""
+    G.reset_launches()
+    x = torch.zeros(1, 4, 4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        G.conv_cgemm_packed(x, G.pack_weights(torch.zeros(3, 3, 8, 8, device=cuda)))
     assert all(v == 0 for v in G.LAUNCHES.values())

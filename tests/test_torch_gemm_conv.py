@@ -1,7 +1,9 @@
 """The port's GEMM-conv (ops/cuda/gemm_conv.py, kernel K4; plain version on
 the CPU) against the JAX `conv_cgemm_nhwc` / `conv3x3_cgemm` (Pallas in
 interpret mode), on the shapes of tests/test_gemm_conv.py, and the plain
-version against torch's own convolution."""
+version against torch's own convolution. The float32 kernel computes three
+TF32 products (3xTF32): `split_tf32` is held bit for bit against a numpy
+rounding, and a CPU emulation of the three products against JAX."""
 
 import numpy as np
 import pytest
@@ -114,12 +116,113 @@ def test_padded_packed_layout_is_jax_pack_weights_rearranged():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_entry_matches_the_op_and_jax(dtype):
-    """conv_cgemm_packed (weights packed once) is the op bit for bit on the
-    CPU, and the JAX conv within the op's tolerance."""
+    """conv_cgemm_packed (weights packed once by pack_operands) is the op
+    bit for bit on the CPU, on the weights the packing stands for (float32:
+    the TF32 pair hi + lo), and the JAX conv within the op's tolerance."""
     x, wk = _operands((2, 8, 8, 16, 24), 6)
     xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(wk).to(dtype)
-    got = tgc.conv_cgemm_packed(xt, tgc.pack_weights(wt).contiguous())
-    assert torch.equal(got, tgc.conv_cgemm_nhwc(xt, wt))
+    xp, wp = tgc.pack_operands(xt, wt)
+    assert xp is xt
+    got = tgc.conv_cgemm_packed(xp, wp)
+    w_op = wt
+    if dtype == torch.float32:
+        assert wp.shape == (2, 24, 9 * 16)
+        w_op = (wp[0] + wp[1]).reshape(24, 3, 3, 16).permute(1, 2, 3, 0)
+        torch.testing.assert_close(w_op, wt, atol=0, rtol=2.0 ** -22)
+    else:
+        assert torch.equal(wp, tgc.pack_weights(wt))
+    assert torch.equal(got, tgc.conv_cgemm_nhwc(xt, w_op))
     if dtype == torch.float32:
         want = np.asarray(jgc.conv_cgemm_nhwc(jnp.asarray(x), jnp.asarray(wk)))
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
+
+
+def _rna_tf32_reference(v: np.ndarray) -> np.ndarray:
+    """float32 -> TF32 (11 significant bits) rounded to nearest, ties away
+    from zero, in float64 arithmetic: the quantum of a normal |v| in
+    [2^(e-1), 2^e) is 2^(e-11), of a subnormal 2^-136."""
+    v64 = v.astype(np.float64)
+    _, e = np.frexp(v64)
+    q = np.ldexp(1.0, np.maximum(e - 11, -136))
+    with np.errstate(over="ignore"):
+        r = np.copysign(np.floor(np.abs(v64) / q + 0.5) * q, v64).astype(np.float32)
+    return np.where(np.isfinite(v), r, v)
+
+
+def _split_cases(case: str) -> np.ndarray:
+    rng = np.random.default_rng(7)
+    if case == "random":       # normal values over 2^-100 .. 2^100, both signs
+        v = (rng.standard_normal(4096) * np.exp2(rng.integers(-100, 100, 4096))).astype(np.float32)
+    elif case == "ties":       # the 13 dropped bits exactly half a TF32 ulp
+        bits = rng.integers(0, 2 ** 31, 4096, dtype=np.uint32)
+        bits = (bits & ~np.uint32(0x1FFF)) | np.uint32(0x1000)
+        bits[bits >> 23 == 0xFF] &= ~np.uint32(1 << 23)      # no inf/NaN
+        v = bits.view(np.float32)
+        v[::2] = -v[::2]
+    elif case == "zeros":
+        v = np.array([0.0, -0.0, 2.0 ** -149, -(2.0 ** -149)], np.float32)
+    elif case == "subnormals":
+        bits = rng.integers(1, 1 << 23, 4096, dtype=np.uint32)
+        v = bits.view(np.float32)
+        v[::2] = -v[::2]
+    else:                      # infinities, and the largest finite values
+        v = np.array([np.inf, -np.inf, np.finfo(np.float32).max,
+                      -np.finfo(np.float32).max, 3.4e38, 1.0], np.float32)
+    return v
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "zeros", "subnormals", "infinities"])
+def test_split_tf32_is_round_to_nearest_away_bit_for_bit(case):
+    """hi = tf32(v), lo = tf32(v - hi) (0 where hi is not finite), as
+    cvt.rna.tf32.f32 rounds, against a float64 rounding in numpy."""
+    v = _split_cases(case)
+    hi, lo = tgc.split_tf32(torch.from_numpy(v))
+    want_hi = _rna_tf32_reference(v)
+    with np.errstate(invalid="ignore", over="ignore"):
+        want_lo = np.where(np.isfinite(want_hi), _rna_tf32_reference(v - want_hi),
+                           np.float32(0.0))
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32), want_hi.view(np.uint32))
+    np.testing.assert_array_equal(lo.numpy().view(np.uint32), want_lo.view(np.uint32))
+    assert not (hi.numpy().view(np.uint32) & 0x1FFF).any()
+    assert not (lo.numpy().view(np.uint32) & 0x1FFF).any()
+
+
+def test_split_tf32_pair_recovers_float32_to_2_pow_minus_22():
+    """hi + lo is v to 2^-22 relative; hi alone only to 2^-11 relative."""
+    v = _split_cases("random")
+    hi, lo = (t.numpy().astype(np.float64) for t in tgc.split_tf32(torch.from_numpy(v)))
+    rel = np.abs(hi + lo - v) / np.abs(v)
+    assert rel.max() <= 2.0 ** -22
+    assert np.abs(hi - v).max() > 0 and (np.abs(hi - v) / np.abs(v)).max() <= 2.0 ** -11
+
+
+def _conv_tf32_emulated(x: np.ndarray, wk: np.ndarray, products: int) -> np.ndarray:
+    """The float32 kernel's arithmetic on the CPU: split_tf32 of both
+    operands, then float32 convolutions of the TF32 parts (each product of
+    two TF32 values is exact in float32): A_lo W_hi + A_hi W_lo + A_hi W_hi
+    for three products, A_hi W_hi for one."""
+    xh, xl = tgc.split_tf32(torch.from_numpy(x))
+    wh, wl = tgc.split_tf32(torch.from_numpy(wk))
+    conv = tgc.conv_cgemm_nhwc_plain
+    if products == 1:
+        return conv(xh, wh).numpy()
+    return (conv(xl, wh) + conv(xh, wl) + conv(xh, wh)).numpy()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_3xtf32_emulation_holds_the_float32_limit(shape):
+    """Three TF32 products stay within the float32 limit (1e-4, CONV_F32_ATOL
+    in chip_smoke.py) of the JAX conv."""
+    x, wk = _operands(shape, 8)
+    want = np.asarray(jgc.conv_cgemm_nhwc(jnp.asarray(x), jnp.asarray(wk)))
+    got = _conv_tf32_emulated(x, wk, 3)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_1xtf32_emulation_misses_the_float32_limit():
+    """One TF32 product does not hold 1e-4 (why the kernel computes three)."""
+    x, wk = _operands((2, 16, 16, 64, 64), 8)
+    want = np.asarray(jgc.conv_cgemm_nhwc(jnp.asarray(x), jnp.asarray(wk)))
+    err = np.abs(_conv_tf32_emulated(x, wk, 1) - want).max()
+    assert err > 1e-4
+    assert np.abs(_conv_tf32_emulated(x, wk, 3) - want).max() < err / 100
