@@ -17,7 +17,10 @@
    its bytes and its operations); a kernel's time is its device time per
    launch from a replayed CUDA graph of 20 launches, beside the eager
    call's time: K1/K2 and K3a/K3b at 100 x 3 x 64 x 64
-   float32 (with constant patches and saturated pixels); K4 forward and
+   float32 (with constant patches and saturated pixels), K1/K2 also at
+   ImageNet's 224 px (square on) with 8 images (56 blocks, under half the
+   SMs) and with ImageNet's batch of 128 (896 blocks), each beside its
+   bound and its plain version's time; K4 forward and
    dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, timed on
    weights packed once and with the packing, beside cuDNN's convolution
    (float32 with TF32 off, so both sides compute at float32 accuracy).
@@ -91,6 +94,9 @@ BENCH_BF16_DIFF, BENCH_F32_DIFF = 0.5, 1e-3
 # the K4 check's shape (ResNet-50 layer1), and the bench's repetitions
 CONV_SHAPE = (128, 56, 56, 64, 64)
 BENCH_REPS = 5
+# K1/K2's further checks: ImageNet's 224 px, which the row-band kernels
+# take, on a few images and at the batch that fills the card
+LARGE_SHAPES = ((8, 3, 224, 224), (128, 3, 224, 224))
 
 
 def fail(msg: str) -> None:
@@ -158,29 +164,34 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _patched_input(torch, dev):
-    """The slice's shape, (100, 3, 64, 64) float32, with a constant patch
-    (|g| = 0 inside) and saturated pixels."""
+def _patched_input(torch, dev, shape=(100, 3, 64, 64)):
+    """float32 noise of `shape` (the slice's by default) with a constant
+    patch (|g| = 0 inside) and saturated pixels, placed as at 64 x 64."""
     import numpy as np
     rng = np.random.default_rng(0)
-    x = rng.random((100, 3, 64, 64)).astype(np.float32)
-    x[:, :, 8:24, 8:24] = 0.5
-    x[::2, :, 40:56, 0:16] = 1.0
-    x[1::2, :, 40:56, 40:60] = 0.0
+    x = rng.random(shape).astype(np.float32)
+    at = lambda v: v * shape[2] // 64
+    x[:, :, at(8):at(24), at(8):at(24)] = 0.5
+    x[::2, :, at(40):at(56), 0:at(16)] = 1.0
+    x[1::2, :, at(40):at(56), at(40):at(60)] = 0.0
     return torch.from_numpy(x).to(dev)
 
 
-def kernel_phase(torch):
-    """K1 and K2 against their plain versions at the slice's shape."""
+def _front_end_case(torch, shape):
+    """K1 and K2 against their plain versions at `shape`, the square on:
+    the errors, the times and the bounds. K2 is held against the plain
+    adjoint and against autograd of the plain forward (given the plain
+    forward's y, so both sides see the same clip mask)."""
     from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
     from edge_enhancement_tpu_torch.ops.square import (add_square_draws,
                                                        kernel_layout)
 
     dev = torch.device("cuda")
-    x = _patched_input(torch, dev)
+    x = _patched_input(torch, dev, shape)
+    b, c, h, w = shape
     gen = torch.Generator(device=dev).manual_seed(0)
     eps = 0.062745098039216
-    st, sqd = kernel_layout(add_square_draws((100, 64, 64, 3), gen), eps)
+    st, sqd = kernel_layout(add_square_draws((b, h, w, c), gen), eps)
     k = F.FusedConsts(r=8, eps=eps, w=1.0, alpha=0.0, high=76.0 / 255.0,
                       sigma=1.0, square=True)
     u = torch.randn(x.shape, generator=gen, device=dev)
@@ -193,8 +204,6 @@ def kernel_phase(torch):
     dx_k = F.ee_fused_bwd(u, x, st, sqd, y_k, k)
     torch.cuda.synchronize()
     bwd_err = (dx_k - F.ee_fused_bwd_plain(u, x, st, sqd, y_k, k)).abs().max().item()
-    # autograd of the plain forward; K2 gets the plain forward's y so both
-    # sides see the same clip mask
     xa = x.clone().requires_grad_(True)
     out_a, y_a = F.ee_fused_fwd_plain(xa, st, sqd, k)
     (g_auto,) = torch.autograd.grad((out_a * u).sum(), [xa])
@@ -202,37 +211,53 @@ def kernel_phase(torch):
     torch.cuda.synchronize()
     auto_err = (dx_ka - g_auto).abs().max().item()
     finite = all(bool(torch.isfinite(t).all()) for t in (out_k, y_k, dx_k))
-    print(f"[kernels] K1 vs plain: max |err| {fwd_err:.3e} (limit {FWD_TOL}); "
-          f"K2 vs plain adjoint: {bwd_err:.3e}, vs autograd of plain forward: "
-          f"{auto_err:.3e} (limit {BWD_TOL}); max |dx| "
+    tag = "x".join(map(str, shape))
+    print(f"[kernels] at ({tag}): K1 vs plain: max |err| {fwd_err:.3e} (limit "
+          f"{FWD_TOL}); K2 vs plain adjoint: {bwd_err:.3e}, vs autograd of plain "
+          f"forward: {auto_err:.3e} (limit {BWD_TOL}); max |dx| "
           f"{dx_k.abs().max().item():.3f}", flush=True)
     if not finite or fwd_err > FWD_TOL or bwd_err > BWD_TOL or auto_err > BWD_TOL:
-        fail("a kernel disagrees with its plain version")
+        fail(f"a kernel disagrees with its plain version at {tag}")
 
     t1 = _timings(torch, lambda: F.ee_fused_fwd(x, st, sqd, k),
                   lambda: F.ee_fused_fwd_plain(x, st, sqd, k))
     t2 = _timings(torch, lambda: F.ee_fused_bwd(u, x, st, sqd, y_k, k),
                   lambda: F.ee_fused_bwd_plain(u, x, st, sqd, y_k, k))
-    print(f"[kernels] at (100,3,64,64), ms per launch on the device (eager call "
-          f"in brackets): K1 {t1['ms']:.4f} ({t1['call_ms']:.4f}) vs plain "
-          f"{t1['plain_ms']:.4f}; K2 {t2['ms']:.4f} ({t2['call_ms']:.4f}) vs "
-          f"plain {t2['plain_ms']:.4f}", flush=True)
     # bounds: the four HFS products per (image, channel) plane, two of
     # 2 H^2 W and two of 2 H W^2 FLOPs, on the FP32 pipes (the stencils add
     # < 1%); bytes: each operand read once and each output written once
-    b, c, h, w = x.shape
     flops = b * c * (4 * h * h * w + 4 * h * w * w)
     ops = F.operators(h, w, 8, 1.0, dev)
+    b1 = bound(_nbytes(x, st, sqd, *ops, out_k, y_k), flops, PEAK_F32)
+    b2 = bound(_nbytes(u, x, y_k, st, sqd, *ops, dx_k), flops, PEAK_F32)
+    print(f"[kernels] at ({tag}), ms per launch on the device (eager call in "
+          f"brackets): K1 {t1['ms']:.4f} ({t1['call_ms']:.4f}) vs plain "
+          f"{t1['plain_ms']:.4f}, bound {b1['bound_us']:.2f} us ({b1['bound_by']}), "
+          f"{100 * b1['bound_ms'] / t1['ms']:.1f}% of it; K2 {t2['ms']:.4f} "
+          f"({t2['call_ms']:.4f}) vs plain {t2['plain_ms']:.4f}, bound "
+          f"{b2['bound_us']:.2f} us ({b2['bound_by']}), "
+          f"{100 * b2['bound_ms'] / t2['ms']:.1f}% of it", flush=True)
+    return ({"max_abs_err": fwd_err, **t1, **b1},
+            {"max_abs_err": max(bwd_err, auto_err), **t2, **b2})
+
+
+def kernel_phase(torch):
+    """K1 and K2 at the slice's shape, and at ImageNet's 224 px."""
+    k1, k2 = _front_end_case(torch, (100, 3, 64, 64))
+    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    for shape in LARGE_SHAPES:
+        l1, l2 = _front_end_case(torch, shape)
+        at = "at_" + "x".join(map(str, shape))
+        k1[at] = {k: l1[k] for k in keys}
+        k2[at] = {k: l2[k] for k in keys}
     src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
     return [
         {"name": "ee_fused_fwd", "route": "cuda", "source": src,
          "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:409",
-         "max_abs_err": fwd_err, **t1,
-         **bound(_nbytes(x, st, sqd, *ops, out_k, y_k), flops, PEAK_F32)},
+         **k1},
         {"name": "ee_fused_bwd", "route": "cuda", "source": src,
          "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:427",
-         "max_abs_err": max(bwd_err, auto_err), **t2,
-         **bound(_nbytes(u, x, y_k, st, sqd, *ops, dx_k), flops, PEAK_F32)},
+         **k2},
     ]
 
 

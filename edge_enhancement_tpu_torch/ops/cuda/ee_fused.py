@@ -46,6 +46,75 @@ LAUNCHES = {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
             "canny_fused_fwd": 0, "canny_fused_bwd": 0}
 # Largest dynamic shared memory a Hopper block may opt into (232,448 bytes).
 MAX_SMEM_BYTES = 232448
+# K1/K2's block geometry. This module owns the layout of a block and passes
+# it to the launch; the four constants are csrc/ee_fused.cu's kBandRows,
+# kBandThreads, kChunk and kStripW, which the kernels are compiled with (a
+# CPU test holds the two files to the same values): a block owns BAND_ROWS
+# image rows of one image; the HFS products stream CHUNK-deep chunks; the
+# Canny branch runs in strips of STRIP_W columns.
+BAND_ROWS, BAND_THREADS, CHUNK, STRIP_W = 32, 256, 16, 64
+# columns of one product panel: 4 columns a thread, BAND_ROWS / 2 row groups
+PANEL = 4 * BAND_THREADS // (BAND_ROWS // 2)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class BandGeometry:
+    """Where K1/K2 put a (C, H, W) problem: `bands` blocks per image, band i
+    owning rows [i * BAND_ROWS, (i + 1) * BAND_ROWS) of [0, H); the block's
+    shared-memory layout in floats (csrc/ee_fused.cu's BandLayout: the
+    band's Canny plane of BAND_ROWS x wq at 0, T = [Lr; Li] P of
+    2 BAND_ROWS x ld_t at t, of which wt columns are computed, and at s the
+    region the Canny strips, then the HFS stages and the exchange share);
+    the padded operators' inner sizes hk (L) and wk (R); and the bytes."""
+    bands: int
+    wq: int
+    wt: int
+    ld_t: int
+    hk: int
+    wk: int
+    t: int
+    s: int
+    smem_bytes: int
+
+    @property
+    def layout(self) -> tuple:
+        """BandLayout's fields, in the order the launch takes them."""
+        return (self.wq, self.wt, self.ld_t, self.hk, self.wk, self.t, self.s)
+
+    @property
+    def l_shape(self) -> tuple:
+        """Shape of the padded Lr, Li (K1: Ar, Ai; K2: their transposes)."""
+        return (self.bands * BAND_ROWS, self.hk)
+
+    @property
+    def r_shape(self) -> tuple:
+        """Shape of the padded Rr, Ri (K1: Br^T, Bi^T; K2: Br, Bi)."""
+        return (self.wk, self.wt)
+
+
+@functools.lru_cache(maxsize=None)
+def band_geometry(c: int, h: int, w: int, backward: bool) -> BandGeometry:
+    """K1's (backward=False) or K2's block geometry for C channels of H x W."""
+    bh, sw = BAND_ROWS, STRIP_W
+    wq, wt = _round_up(w, 4), _round_up(w, PANEL)
+    ld_t = wt + 4              # 4 more than a multiple of 64: T's rows on distinct banks
+    if backward:
+        canny = (c * (bh + 8) * (sw + 8) + (bh + 6) * (sw + 6)
+                 + 2 * (bh + 4) * (sw + 4) + (bh + 2) * (sw + 2))
+    else:
+        canny = c * (bh + 4) * (sw + 4) + (bh + 2) * (sw + 2)
+    chunk_plane, chunk_ops = CHUNK * PANEL, 2 * bh * (CHUNK + 4)
+    stage = max(chunk_ops + chunk_plane, 2 * chunk_plane)
+    hfs = 2 * stage + bh * PANEL
+    t = bh * wq
+    s = t + 2 * bh * ld_t
+    return BandGeometry(bands=-(-h // bh), wq=wq, wt=wt, ld_t=ld_t,
+                        hk=_round_up(h, CHUNK), wk=_round_up(w, CHUNK), t=t, s=s,
+                        smem_bytes=4 * (s + max(canny, hfs)))
 
 
 def reset_launches() -> None:
@@ -85,6 +154,25 @@ def operators(h: int, w: int, r: int, sigma: float, device) -> tuple:
     if key not in _OPERATORS:
         mats = [torch.from_numpy(m).to(device) for m in _hfs_axis_operators(h, w, r)]
         _OPERATORS[key] = (*mats, gaussian_taps(sigma, device))
+    return _OPERATORS[key]
+
+
+def band_operators(h: int, w: int, r: int, backward: bool, device) -> tuple:
+    """K1's (Ar, Ai, Br^T, Bi^T) or K2's (Ar^T, Ai^T, Br, Bi), contiguous and
+    zero-padded to band_geometry's shapes, built once per key on `device`."""
+    key = ("band", h, w, r, backward, str(device))
+    if key not in _OPERATORS:
+        geo = band_geometry(1, h, w, backward)
+        ar, ai, br, bi = (torch.from_numpy(m).to(device) for m in _hfs_axis_operators(h, w, r))
+        mats = (ar.T, ai.T, br, bi) if backward else (ar, ai, br.T, bi.T)
+
+        def padded(m, shape):
+            out = m.new_zeros(shape)
+            out[:m.shape[0], :m.shape[1]] = m
+            return out
+
+        _OPERATORS[key] = (*(padded(m, geo.l_shape) for m in mats[:2]),
+                           *(padded(m, geo.r_shape) for m in mats[2:]))
     return _OPERATORS[key]
 
 
@@ -224,12 +312,11 @@ def _library():
     from . import build
     lib = build.load("ee_fused")
     c = lib.lib
-    c.ee_fused_fwd.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I, _P]
+    band = [ctypes.POINTER(_I), _I, ctypes.c_size_t, _P]   # layout, bands, bytes, stream
+    c.ee_fused_fwd.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I] + band
     c.ee_fused_fwd.restype = _I
-    c.ee_fused_bwd.argtypes = [_P] * 11 + [_I] * 4 + [_F] * 4 + [_I, _P]
+    c.ee_fused_bwd.argtypes = [_P] * 11 + [_I] * 4 + [_F] * 4 + [_I] + band
     c.ee_fused_bwd.restype = _I
-    c.ee_fused_smem_bytes.argtypes = [_I, _I, _I]
-    c.ee_fused_smem_bytes.restype = ctypes.c_size_t
     c.canny_fused_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]
     c.canny_fused_fwd.restype = _I
     c.canny_fused_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]
@@ -241,21 +328,22 @@ def _library():
     return lib
 
 
-def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x):
+def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x) -> BandGeometry:
+    """Raise on what K1 (K2 with u and y given) does not take; return the
+    block geometry."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused front-end kernel takes CUDA tensors, got {x.device}")
     if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, C, H, W) float32 tensor "
                          f"(got {x.dtype}, shape {tuple(x.shape)})")
     b, c, h, w = x.shape
-    if h % 4 or w % 4:
-        raise ValueError(f"H and W must be multiples of 4, got {h}x{w}")
-    # one block holds the image, the four operators and work planes in
-    # shared memory
-    need = _library().lib.ee_fused_smem_bytes(c, h, w)
+    # a block holds its band's planes and C channels of the Canny halo tile;
+    # K1 refuses what K2 could not take, so no step fails in its backward
+    need = max(band_geometry(c, h, w, bwd).smem_bytes for bwd in (False, True))
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{c}x{h}x{w} needs {need} bytes of shared memory per "
-                         f"block, above the {MAX_SMEM_BYTES} a block may use")
+        raise ValueError(f"{c} channels at {h}x{w} need {need} bytes of shared "
+                         f"memory per block, above the {MAX_SMEM_BYTES} a block "
+                         "may use")
     for t in same_as_x:
         if (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device
                 or not t.is_contiguous()):
@@ -267,10 +355,16 @@ def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x):
                     or t.device != x.device or not t.is_contiguous()):
                 raise ValueError(f"square draws must be contiguous float32 "
                                  f"{shape} tensors on {x.device}")
+    return band_geometry(c, h, w, backward=bool(same_as_x))
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _band_args(geo: BandGeometry) -> tuple:
+    """(layout, bands, bytes) as K1/K2's entry points take them."""
+    return (_I * len(geo.layout))(*geo.layout), geo.bands, geo.smem_bytes
 
 
 def _raise_on(err: int, lib, what: str):
@@ -283,16 +377,17 @@ def ee_fused_fwd(x, stripes, sq_delta, k: FusedConsts):
     """K1: (out, y) of the front-end; plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return ee_fused_fwd_plain(x, stripes, sq_delta, k)
-    _check(x, stripes, sq_delta, k)
+    geo = _check(x, stripes, sq_delta, k)
     lib = _library()
-    ar, ai, br, bi, taps = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
-    out, y = torch.empty_like(x), torch.empty_like(x)
     b, c, h, w = x.shape
+    lr, li, rr, ri = band_operators(h, w, k.r, False, x.device)
+    taps = gaussian_taps(k.sigma, x.device)
+    out, y = torch.empty_like(x), torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.lib.ee_fused_fwd(
-            _ptr(x), _ptr(stripes), _ptr(sq_delta), _ptr(ar), _ptr(ai),
-            _ptr(br), _ptr(bi), _ptr(taps), _ptr(out), _ptr(y), b, c, h, w,
-            k.eps, k.w, k.alpha, k.high, int(k.square),
+            _ptr(x), _ptr(stripes), _ptr(sq_delta), _ptr(lr), _ptr(li),
+            _ptr(rr), _ptr(ri), _ptr(taps), _ptr(out), _ptr(y), b, c, h, w,
+            k.eps, k.w, k.alpha, k.high, int(k.square), *_band_args(geo),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "ee_fused_fwd")
     LAUNCHES["ee_fused_fwd"] += 1
@@ -303,17 +398,18 @@ def ee_fused_bwd(u, x, stripes, sq_delta, y, k: FusedConsts):
     """K2: dx from the cotangent u of `out`; plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return ee_fused_bwd_plain(u, x, stripes, sq_delta, y, k)
-    _check(x, stripes, sq_delta, k, u, y)
+    geo = _check(x, stripes, sq_delta, k, u, y)
     lib = _library()
-    ar, ai, br, bi, taps = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
-    dx = torch.empty_like(x)
     b, c, h, w = x.shape
+    lr, li, rr, ri = band_operators(h, w, k.r, True, x.device)
+    taps = gaussian_taps(k.sigma, x.device)
+    dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.lib.ee_fused_bwd(
             _ptr(u), _ptr(x), _ptr(stripes), _ptr(sq_delta), _ptr(y),
-            _ptr(ar), _ptr(ai), _ptr(br), _ptr(bi), _ptr(taps), _ptr(dx),
+            _ptr(lr), _ptr(li), _ptr(rr), _ptr(ri), _ptr(taps), _ptr(dx),
             b, c, h, w, k.eps, k.w, k.alpha, k.high, int(k.square),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            *_band_args(geo), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "ee_fused_bwd")
     LAUNCHES["ee_fused_bwd"] += 1
     return dx

@@ -54,10 +54,21 @@ def _operands(shape, square, dev, seed=0):
     return x, st, sqd, u
 
 
-# the square perturbation assumes square images, as the reference does
+# the square perturbation assumes square images, as the reference does.
+# Row bands of 32: one whole band, one ragged band (30 and 28: neither a
+# multiple of 4 nor of the band; MNIST's one channel), several bands with a
+# ragged last one (72: 3 bands, the last of 8 rows; 100: 4 bands, the last
+# of 4 rows and columns past a 64-column panel), and the ImageNet sizes
+# 224 and 288 (7 and 9 whole bands)
 @pytest.mark.parametrize("shape,square", [((4, 3, 32, 32), True),
                                           ((4, 3, 32, 32), False),
-                                          ((2, 3, 24, 40), False)])
+                                          ((2, 3, 24, 40), False),
+                                          ((1, 3, 224, 224), True),
+                                          ((1, 3, 288, 288), False),
+                                          ((2, 1, 28, 28), False),
+                                          ((2, 3, 30, 30), True),
+                                          ((2, 3, 72, 72), True),
+                                          ((1, 3, 100, 100), False)])
 def test_kernels_match_plain(cuda, shape, square):
     x, st, sqd, u = _operands(shape, square, cuda)
     k = _consts(square)
@@ -92,8 +103,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     F.reset_launches()
     bad = [torch.zeros(1, 3, 32, 32, device=cuda, dtype=torch.float64),
            torch.zeros(1, 3, 32, 64, device=cuda)[..., ::2],     # not contiguous
-           torch.zeros(1, 3, 30, 32, device=cuda),               # H % 4 != 0
-           torch.zeros(1, 3, 224, 224, device=cuda)]             # above shared memory
+           torch.zeros(1, 80, 32, 32, device=cuda),              # halo tile above shared memory
+           torch.zeros(1, 15, 64, 64, device=cuda)]              # fits K1, not K2
     for x in bad:
         with pytest.raises(ValueError):
             F.ee_fused_fwd(x, None, None, k)

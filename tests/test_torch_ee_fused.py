@@ -20,23 +20,23 @@ EPS = 0.062745098039216
 B, H, W, C = 2, 32, 32, 3
 
 
-def _inputs(seed):
+def _inputs(seed, h=H, w=W):
     """x with a constant patch (|g| = 0 there) and exact 0 / 1 pixels."""
     rng = np.random.default_rng(seed)
-    x = rng.random((B, H, W, C)).astype(np.float32)
+    x = rng.random((B, h, w, C)).astype(np.float32)
     x[:, 4:12, 4:12, :] = 0.5
     x[0, 20:28, 2:10, :] = 1.0
     x[1, 0:6, 20:30, :] = 0.0
-    u = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    u = rng.standard_normal((B, h, w, C)).astype(np.float32)
     return x, u
 
 
-def _draws(square):
+def _draws(square, h=H, w=W):
     """Kernel-layout draws: stripes (B, C, 1, W), sq_delta (1, C, H, W)."""
     if not square:
         return None, None
     stripes4, mask, sign = (np.asarray(d) for d in add_square_draws(
-        jax.random.PRNGKey(7), (B, H, W, C), epsilon=EPS))
+        jax.random.PRNGKey(7), (B, h, w, C), epsilon=EPS))
     st = np.ascontiguousarray(stripes4.transpose(0, 3, 1, 2))
     sqd = np.ascontiguousarray(
         (2.0 * EPS * sign.transpose(0, 3, 1, 2) * mask[None, None]).astype(np.float32))
@@ -56,10 +56,10 @@ def _consts(square):
                               sigma=1.0, square=square)
 
 
-def _jax_operands(square, st, sqd):
+def _jax_operands(square, st, sqd, h=H, w=W):
     if square:
         return jnp.asarray(st), jnp.asarray(sqd)
-    return jnp.zeros((1, 1, 1, 1)), jnp.zeros((1, C, H, W))
+    return jnp.zeros((1, 1, 1, 1)), jnp.zeros((1, C, h, w))
 
 
 @pytest.mark.parametrize("square", [True, False])
@@ -102,6 +102,36 @@ def test_adjoint_matches_jax_grad_and_autograd(square):
     (g_fn,) = torch.autograd.grad(
         (tfused.ee_fused(xf, t(st), t(sqd), k) * ut).sum(), [xf])
     np.testing.assert_array_equal(g_fn.numpy(), explicit)
+
+
+# 30 x 30: a size that is not a multiple of 4 or of the CUDA kernels' band
+# rows, the oracle the card compares K1/K2 with there
+RAGGED = 30
+
+
+@pytest.mark.parametrize("square", [True, False])
+def test_plain_pair_matches_jax_kernel_at_a_ragged_size(square):
+    n = RAGGED
+    x, u = _inputs(3, n, n)
+    x[1, 11:19, 25:30, :] = 1.0                  # saturated at the ragged edge
+    st, sqd = _draws(square, n, n)
+    ops = _jax_operands(square, st, sqd, n, n)
+    out_j, (_, _, _, y_j) = jfused._ee_fused_fwd_impl(jnp.asarray(x), *ops,
+                                                      *_jax_args(square))
+    g_j = jax.grad(lambda v: jnp.sum(jfused._ee_fused(v, *ops, *_jax_args(square)) * u))(
+        jnp.asarray(x))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    k = _consts(square)
+    xt, ut = _nchw(x), _nchw(u)
+    out, y = tfused.ee_fused_fwd_plain(xt, t(st), t(sqd), k)
+    # as at 32 x 32: exact edge maps, HFS products in another order
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j).transpose(0, 3, 1, 2),
+                               atol=1e-6)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=1e-6)
+    dx = tfused.ee_fused_bwd_plain(ut, xt, t(st), t(sqd), y, k).numpy()
+    g_j = np.asarray(g_j).transpose(0, 3, 1, 2)
+    assert np.abs(g_j).max() > 0.1
+    np.testing.assert_allclose(dx, g_j, atol=1e-5)
 
 
 @pytest.mark.parametrize("square", [True, False])
