@@ -19,8 +19,9 @@
    call's time: K1/K2 and K3a/K3b at 100 x 3 x 64 x 64
    float32 (with constant patches and saturated pixels), K1/K2 also at
    ImageNet's 224 px (square on) with 8 images (56 blocks, under half the
-   SMs) and with ImageNet's batch of 128 (896 blocks), each beside its
-   bound and its plain version's time; K4 forward and
+   SMs) and with ImageNet's batch of 128 (896 blocks), K3a/K3b also with
+   ImageNet's batch of 128 at 224 px, each beside its bound and its plain
+   version's time; K4 forward and
    dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, timed on
    weights packed once and with the packing, beside cuDNN's convolution
    (float32 with TF32 off, so both sides compute at float32 accuracy).
@@ -97,6 +98,8 @@ BENCH_REPS = 5
 # K1/K2's further checks: ImageNet's 224 px, which the row-band kernels
 # take, on a few images and at the batch that fills the card
 LARGE_SHAPES = ((8, 3, 224, 224), (128, 3, 224, 224))
+# K3a/K3b's further check: ImageNet's batch at 224 px, 180 MB a launch
+CANNY_LARGE_SHAPES = ((128, 3, 224, 224),)
 
 
 def fail(msg: str) -> None:
@@ -261,12 +264,14 @@ def kernel_phase(torch):
     ]
 
 
-def canny_kernel_phase(torch):
-    """K3a and K3b against their plain versions at the gf slice's shape."""
+def _canny_case(torch, shape):
+    """K3a and K3b against their plain versions at `shape`: the errors, the
+    times and the bounds. K3b is held against the plain adjoint and against
+    autograd of the plain forward."""
     from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
 
     dev = torch.device("cuda")
-    x = _patched_input(torch, dev)
+    x = _patched_input(torch, dev, shape)
     high, sigma, alpha = 76.0 / 255.0, 1.0, 0.0
     b, c, h, w = x.shape
     u = torch.randn((b, 1, h, w), generator=torch.Generator(device=dev).manual_seed(1),
@@ -285,39 +290,55 @@ def canny_kernel_phase(torch):
         (F.canny_fused_fwd_plain(xa, high, sigma, alpha)[0] * u).sum(), [xa])
     auto_err = (dx_k - g_auto).abs().max().item()
     edge_share = outs_k[0].mean().item()
-    print(f"[kernels] K3a vs plain (out, mag, gx, gy): max |err| {fwd_err:.3e} "
-          f"(limit {CANNY_FWD_TOL}), edge share {edge_share:.4f}; K3b vs plain "
-          f"adjoint {bwd_err:.3e}, vs autograd of plain forward {auto_err:.3e} "
-          f"(limit {CANNY_BWD_TOL}); max |dx| {dx_k.abs().max().item():.3f}",
-          flush=True)
+    tag = "x".join(map(str, shape))
+    print(f"[kernels] at ({tag}): K3a vs plain (out, mag, gx, gy): max |err| "
+          f"{fwd_err:.3e} (limit {CANNY_FWD_TOL}), edge share {edge_share:.4f}; K3b vs "
+          f"plain adjoint {bwd_err:.3e}, vs autograd of plain forward {auto_err:.3e} "
+          f"(limit {CANNY_BWD_TOL}); max |dx| {dx_k.abs().max().item():.3f}", flush=True)
     finite = all(bool(torch.isfinite(t).all()) for t in (*outs_k, dx_k))
     if (not finite or fwd_err > CANNY_FWD_TOL or bwd_err > CANNY_BWD_TOL
             or auto_err > CANNY_BWD_TOL or not 0.0 < edge_share < 1.0
             or dx_k.abs().max().item() == 0.0):
-        fail("a Canny kernel disagrees with its plain version")
+        fail(f"a Canny kernel disagrees with its plain version at {tag}")
     t3a = _timings(torch, lambda: F.canny_fused_fwd(x, high, sigma, alpha),
                    lambda: F.canny_fused_fwd_plain(x, high, sigma, alpha))
     t3b = _timings(torch, lambda: F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha),
                    lambda: F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma, alpha))
-    print(f"[kernels] at (100,3,64,64), ms per launch on the device (eager call "
-          f"in brackets): K3a {t3a['ms']:.4f} ({t3a['call_ms']:.4f}) vs plain "
-          f"{t3a['plain_ms']:.4f}; K3b {t3b['ms']:.4f} ({t3b['call_ms']:.4f}) "
-          f"vs plain {t3b['plain_ms']:.4f}", flush=True)
     # operations per pixel: K3a blurs C planes (17 each), sums them (C - 1),
     # two Sobels (11 each), divides (2), magnitude (4) and two compares;
     # K3b gates (6), scales (5), two Sobel adjoints (12 each), divides,
     # the blur's adjoint (18) and its C stores are bytes
     px = b * h * w
+    b3a = bound(_nbytes(x, *outs_k), px * (18 * c + 29), PEAK_F32)
+    b3b = bound(_nbytes(u, mag, gx, gy, dx_k), px * 54, PEAK_F32)
+    geo = F.canny_geometry(c, h, w)
+    print(f"[kernels] at ({tag}), {geo.tiles_h * geo.tiles_w * b} blocks of "
+          f"{F.CANNY_ROWS}x{F.CANNY_COLS} px, ms per launch on the device (eager call in "
+          f"brackets): K3a {t3a['ms']:.4f} ({t3a['call_ms']:.4f}) vs plain "
+          f"{t3a['plain_ms']:.4f}, bound {b3a['bound_us']:.2f} us ({b3a['bound_by']}), "
+          f"{100 * b3a['bound_ms'] / t3a['ms']:.1f}% of it; K3b {t3b['ms']:.4f} "
+          f"({t3b['call_ms']:.4f}) vs plain {t3b['plain_ms']:.4f}, bound "
+          f"{b3b['bound_us']:.2f} us ({b3b['bound_by']}), "
+          f"{100 * b3b['bound_ms'] / t3b['ms']:.1f}% of it", flush=True)
+    return ({"max_abs_err": fwd_err, **t3a, **b3a},
+            {"max_abs_err": max(bwd_err, auto_err), **t3b, **b3b})
+
+
+def canny_kernel_phase(torch):
+    """K3a and K3b at the gf slice's shape, and at ImageNet's 224 px."""
+    k3a, k3b = _canny_case(torch, (100, 3, 64, 64))
+    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    for shape in CANNY_LARGE_SHAPES:
+        l3a, l3b = _canny_case(torch, shape)
+        at = "at_" + "x".join(map(str, shape))
+        k3a[at] = {k: l3a[k] for k in keys}
+        k3b[at] = {k: l3b[k] for k in keys}
     src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
     return [
         {"name": "canny_fused_fwd", "route": "cuda", "source": src,
-         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:149",
-         "max_abs_err": fwd_err, **t3a,
-         **bound(_nbytes(x, *outs_k), px * (18 * c + 29), PEAK_F32)},
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:149", **k3a},
         {"name": "canny_fused_bwd", "route": "cuda", "source": src,
-         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:166",
-         "max_abs_err": max(bwd_err, auto_err), **t3b,
-         **bound(_nbytes(u, mag, gx, gy, dx_k), px * 54, PEAK_F32)},
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:166", **k3b},
     ]
 
 

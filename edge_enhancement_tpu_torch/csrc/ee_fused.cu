@@ -1,5 +1,6 @@
 // Fused edge-enhancement front-end for Hopper (sm_90a): forward K1 and its
-// exact adjoint K2, and the Canny-only pair K3a/K3b (at the end of the file).
+// exact adjoint K2, and the Canny-only pair K3a/K3b, all four on one set of
+// halo-tile Canny functions.
 //
 // K1/K2 replace the Pallas TPU kernels edge_enhancement_tpu/ops/pallas/
 // ee_fused.py::_fwd_kernel and ::_bwd_kernel. Per image (all C planes):
@@ -25,13 +26,10 @@
 // once), so shared memory depends on the band, W and C, not on H^2: any
 // H x W runs, with ragged bands and columns masked. Per block:
 //   1. the band's Canny branch, once for all channels, in strips of
-//      kStripW columns with edge-replicated halos. K1: the edge map from a
-//      2-pixel x halo, with the arithmetic of K3a's blur_sum, sobel_mag and
-//      edge_of in the same order, so the edge maps are K3a's bit for bit.
-//      K2: mag, gx, gy recomputed on the band plus 2 rows from a 4-pixel x
-//      halo, u_edge = w sum_c U, then the Sobel and blur adjoints as
-//      zero-padded stencils plus the rows and columns the clamp folds onto
-//      the border: one plane, added to every channel's dx.
+//      kStripW columns (the Canny tile functions below). K1: canny_tile,
+//      the edge map. K2: mag, gx, gy recomputed on the band plus 2 rows from
+//      a 4-pixel x halo, u_edge = w sum_c U, the gate, then
+//      canny_adjoint_tail: one plane, added to every channel's dx.
 //   2. per channel, T = [Lr; Li]_band P (2 kBandRows x W, contracting over
 //      H), then Tr Rr - Ti Ri (contracting over W), then the epilogue. P is
 //      the plane, built as it is staged (K1: the square chain of x; K2: U).
@@ -52,22 +50,27 @@
 // block's work is short, so load latency, barriers and the 2-or-1 blocks an
 // SM (200 blocks on 132 SMs) weigh as much as the FP32 pipes.
 //
-// The Canny branch rounds every product and sum on its own (__fmul_rn,
-// __fadd_rn: no FMA contraction) and keeps the tap order of the PyTorch
-// composition (row-major, zero taps skipped), so the edge maps of kernel and
-// plain version agree exactly: `mag > high` flips on one-ulp differences.
-// The square chain does the same, since its clips decide gradient ties.
-// The HFS products stay on the FP32 pipes; 3xTF32 on wgmma is later work.
+// K3a/K3b replace ::_canny_fwd_kernel and ::_canny_bwd_kernel: the edge map
+// alone with the residuals mag, gx, gy, and its adjoint from them. A block
+// owns a kCannyRows x kCannyCols tile of one image. Bytes bound them (3.42 us
+// each at 100 x 3 x 64 x 64): the stencils are a few dozen FP32 operations a
+// pixel.
+//
+// All four run one copy of the Canny code, on tiles that hold a plane and
+// its halo in shared memory: staged by cp.async, 16 bytes at a time where the
+// row allows, the halo holding the edge's reads (x) or zeros (cotangents), so
+// no tap clamps; the last stage on quads, 4 pixels a thread, read and
+// written 16 bytes at a time. The forward rounds every product and sum on
+// its own (__fmul_rn, __fadd_rn: no FMA contraction) in the tap order of the
+// PyTorch composition (row-major), so the edge maps of K1, K3a and the plain
+// version agree exactly: `mag > high` flips on one-ulp differences. The
+// square chain does the same, since its clips decide gradient ties. The HFS products stay on the FP32 pipes.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
-
-constexpr int kThreads = 256;  // K3a/K3b
-
-// Sobel-x and Sobel-y taps (edge_enhancement_tpu/ops/filters.py), row-major.
-__constant__ float kSobelX[9] = {-0.5f, 0.f, 0.5f, -1.f, 0.f, 1.f, -0.5f, 0.f, 0.5f};
-__constant__ float kSobelY[9] = {-0.5f, -1.f, -0.5f, 0.f, 0.f, 0.f, 0.5f, 1.f, 0.5f};
 
 struct Params {
   int B, C, H, W;
@@ -90,88 +93,9 @@ __device__ __forceinline__ float clip_mask(float v) {
   return 0.f;
 }
 
-// Edge-replicated 3x3 stencil of one (H, W) plane at (h, w), taps row-major,
-// zero taps skipped, every product and sum rounded on its own.
-__device__ __forceinline__ float stencil3(const float* p, const float* k,
-                                          int H, int W, int h, int w) {
-  float acc = 0.f;
-  bool first = true;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float c = k[i * 3 + j];
-      if (c == 0.f) continue;
-      const float t = __fmul_rn(c, p[clampi(h + i - 1, 0, H - 1) * W +
-                                     clampi(w + j - 1, 0, W - 1)]);
-      acc = first ? t : __fadd_rn(acc, t);
-      first = false;
-    }
-  }
-  return acc;
-}
-
-// Indices p in [0, n) with clamp(p + d, 0, n - 1) == q, for |d| <= 1: the
-// reads that an edge-replicated stencil tap folded onto q.
-__device__ __forceinline__ int folded(int q, int d, int n, int* ps) {
-  int m = 0;
-  const int p = q - d;
-  if (p >= 0 && p < n) ps[m++] = p;
-  if (d > 0 && q == n - 1) ps[m++] = n - 1;
-  if (d < 0 && q == 0) ps[m++] = 0;
-  return m;
-}
-
-// Adjoint of the edge-replicated 3x3 stencil `k` on an (H, W) plane,
-// gathered at (qh, qw). u holds a window of the cotangent plane: global
-// (h, w) sits at u[(h - r0) * ld + (w - c0)], and the window covers the
-// rows and columns within 1 of (qh, qw) that lie in the plane.
-__device__ float stencil3_adjoint(const float* u, int ld, int r0, int c0,
-                                  const float* k, int H, int W, int qh,
-                                  int qw) {
-  float acc = 0.f;
-  for (int i = 0; i < 3; ++i) {
-    int rows[2];
-    const int nr = folded(qh, i - 1, H, rows);
-    for (int j = 0; j < 3; ++j) {
-      const float c = k[i * 3 + j];
-      if (c == 0.f) continue;
-      int cols[2];
-      const int nc = folded(qw, j - 1, W, cols);
-      float s = 0.f;
-      for (int a = 0; a < nr; ++a)
-        for (int b = 0; b < nc; ++b) s += u[(rows[a] - r0) * ld + cols[b] - c0];
-      acc += c * s;
-    }
-  }
-  return acc;
-}
-
-// Blur each channel, sum the channels in order (the summed image the Sobel
-// reads), at (h, w).
-__device__ __forceinline__ float blur_sum(const float* X, const float* g,
-                                          int C, int H, int W, int h, int w) {
-  float s = stencil3(X, g, H, W, h, w);
-  for (int c = 1; c < C; ++c)
-    s = __fadd_rn(s, stencil3(X + c * H * W, g, H, W, h, w));
-  return s;
-}
-
 struct Grad {
   float gx, gy, mag;
 };
-
-// Sobel / C and the zero-safe magnitude at (h, w) of the summed image S.
-__device__ __forceinline__ Grad sobel_mag(const float* S, int C, int H, int W,
-                                          int h, int w) {
-  Grad g;
-  const float cf = (float)C;
-  g.gx = __fdiv_rn(stencil3(S, kSobelX, H, W, h, w), cf);
-  g.gy = __fdiv_rn(stencil3(S, kSobelY, H, W, h, w), cf);
-  const float v = __fadd_rn(__fmul_rn(g.gx, g.gx), __fmul_rn(g.gy, g.gy));
-  g.mag = (v == 0.f) ? 0.f : __fsqrt_rn(v);
-  return g;
-}
 
 __device__ __forceinline__ float edge_of(float mag, const Params& p) {
   const float mag_m = (mag < p.alpha) ? 0.f : mag;
@@ -482,160 +406,327 @@ __device__ __forceinline__ void band_hfs(const BandLayout& L, int H, int W, int 
   }
 }
 
-// blur_sum and sobel_mag on a tile whose halo holds the edge-replicated
-// reads, so that no tap needs a clamp: the same products and sums in the
-// same order, bit for bit, with the Gaussian's taps in registers and the
-// Sobel taps (kSobelX, kSobelY) and their zeros fixed at compile time.
-template <int LD, int PLANE>
-__device__ __forceinline__ float blur_sum_tile(const float* X, const float (&g)[9],
-                                               int C, int r, int s) {
-  const float* at = X + r * LD + s;
-  float sum = 0.f;
-  for (int c = 0; c < C; ++c, at += PLANE) {
-    float acc = 0.f;
-    bool first = true;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (g[i * 3 + j] == 0.f) continue;
-        const float t = __fmul_rn(g[i * 3 + j], at[(i - 1) * LD + j - 1]);
-        acc = first ? t : __fadd_rn(acc, t);
-        first = false;
-      }
-    sum = c == 0 ? acc : __fadd_rn(sum, acc);
+// ---- The Canny tile functions (K1, K2, K3a, K3b) ---------------------------
+//
+// A Tile holds rows [h0 - HALO, h0 + ROWS + HALO) and columns
+// [w0 - 4, w0 + COLS + 4) of one plane around the ROWS x COLS pixels at
+// (h0, w0), COLS + 8 floats a row: pixel (h0 + r, w0 + s) sits at at(r, s),
+// and columns w0, w0 + 4, ... start on 16 bytes, so that rows are staged and
+// quads read 16 bytes at a time. ops/cuda/ee_fused.py sizes shared memory by
+// this layout (TILE_PAD, _tile_floats); a CPU test reads the padding, each
+// function's halos and its count of tiles from this file.
+template <int ROWS, int COLS, int HALO>
+struct Tile {
+  static_assert(COLS % 4 == 0 && HALO <= 4, "tile");
+  static constexpr int kTileRows = ROWS, kCols = COLS, kHalo = HALO;
+  static constexpr int kRows = ROWS + 2 * HALO;
+  static constexpr int kLd = COLS + 8;
+  static constexpr int kFloats = kRows * kLd;
+  __host__ __device__ static constexpr int at(int r, int s) {
+    return (r + HALO) * kLd + s + 4;
   }
-  return sum;
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int LD>
-__device__ __forceinline__ Grad sobel_mag_tile(const float* S, int C, int r, int s) {
-  const float* a = S + r * LD + s;
-  float sx = __fmul_rn(-0.5f, a[-LD - 1]);
-  sx = __fadd_rn(sx, __fmul_rn(0.5f, a[-LD + 1]));
-  sx = __fadd_rn(sx, __fmul_rn(-1.f, a[-1]));
-  sx = __fadd_rn(sx, __fmul_rn(1.f, a[1]));
-  sx = __fadd_rn(sx, __fmul_rn(-0.5f, a[LD - 1]));
-  sx = __fadd_rn(sx, __fmul_rn(0.5f, a[LD + 1]));
-  float sy = __fmul_rn(-0.5f, a[-LD - 1]);
-  sy = __fadd_rn(sy, __fmul_rn(-1.f, a[-LD]));
-  sy = __fadd_rn(sy, __fmul_rn(-0.5f, a[-LD + 1]));
-  sy = __fadd_rn(sy, __fmul_rn(0.5f, a[LD - 1]));
-  sy = __fadd_rn(sy, __fmul_rn(1.f, a[LD]));
-  sy = __fadd_rn(sy, __fmul_rn(0.5f, a[LD + 1]));
-  Grad g;
+// v to p[0 .. 3]: 16 bytes at once when `vec`, else the first n one by one.
+__device__ __forceinline__ void store_quad(float* p, float4 v, bool vec, int n) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  const float a[4] = {v.x, v.y, v.z, v.w};
+  for (int j = 0; j < n && j < 4; ++j) p[j] = a[j];
+}
+
+// Stages n planes (plane(i) points at plane i's pixel (0, 0), rows W floats
+// apart) into n consecutive tiles T at dst. Unit e is 4 columns of one row,
+// floats [4 e, 4 e + 4) of every tile: one 16-byte cp.async a plane where
+// its 4 pixels lie in the plane and `vec` holds (W % 4 == 0 and the planes
+// start on 16 bytes), else 4-byte copies. A read off the plane takes the
+// nearest edge pixel (REPLICATE) or zero. A thread that has waited for its
+// own copies may read its own units before any barrier.
+template <class T, int THREADS, bool REPLICATE, class Plane>
+__device__ __forceinline__ void stage_tile(float* dst, int n, Plane plane, int H, int W,
+                                           int h0, int w0, bool vec) {
+  constexpr int kUnitsPerRow = T::kLd / 4;
+  for (int e = threadIdx.x; e < T::kFloats / 4; e += THREADS) {
+    const int h = h0 - T::kHalo + e / kUnitsPerRow, w = w0 - 4 + 4 * (e % kUnitsPerRow);
+    float* d = dst + 4 * e;
+    const bool row_in = h >= 0 && h < H;
+    if (vec && row_in && w >= 0 && w + 4 <= W) {
+      for (int i = 0; i < n; ++i) cp_async16(d + i * T::kFloats, plane(i) + (size_t)h * W + w);
+      continue;
+    }
+    const size_t row = (size_t)clampi(h, 0, H - 1) * W;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = row_in && w + j >= 0 && w + j < W;
+      const size_t q = row + clampi(w + j, 0, W - 1);
+      for (int i = 0; i < n; ++i) {
+        if (REPLICATE || in)
+          cp_async4(d + i * T::kFloats + j, plane(i) + q);
+        else
+          d[i * T::kFloats + j] = 0.f;
+      }
+    }
+  }
+}
+
+// Sobel-x and Sobel-y taps (edge_enhancement_tpu/ops/filters.py), row-major,
+// as values the compiler knows: it folds them and skips their zeros.
+__device__ __forceinline__ void sobel_taps(float (&kx)[9], float (&ky)[9]) {
+  const float x[9] = {-0.5f, 0.f, 0.5f, -1.f, 0.f, 1.f, -0.5f, 0.f, 0.5f};
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    kx[t] = x[t];
+    ky[t] = x[(t % 3) * 3 + t / 3];  // Sobel-y is Sobel-x transposed
+  }
+}
+
+// The sum over k's taps t, row-major, of k[t] a(t / 3 - 1, t % 3 - 1),
+// a(i, j) reading a pixel's (row + i, column + j): each product and sum
+// rounded on its own, in the order of the PyTorch composition. That skips
+// zero taps; so does SKIP_ZEROS, for taps the compiler knows (Sobel). A
+// runtime test a tap would branch around each of its loads, so the blur
+// multiplies all its taps: on finite pixels a zero tap adds a zero, which
+// changes no sum but the sign of a zero one.
+template <bool SKIP_ZEROS, class A>
+__device__ __forceinline__ float tap_sum(A a, const float (&k)[9]) {
+  float acc = 0.f;
+  bool first = true;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    if (SKIP_ZEROS && k[t] == 0.f) continue;
+    const float v = __fmul_rn(k[t], a(t / 3 - 1, t % 3 - 1));
+    acc = first ? v : __fadd_rn(acc, v);
+    first = false;
+  }
+  return acc;
+}
+
+// The summed blur into tile S (the tile plus S's halo) from the C x tiles X:
+// each channel blurred, the channels summed in order; off the image S holds
+// the nearest edge pixel's value, the Sobel's edge replication.
+template <class X, class S, int THREADS>
+__device__ __forceinline__ void blur_stage(const float* sX, float* sS, const float (&g)[9],
+                                           int C, int H, int W, int h0, int w0) {
+  constexpr int kCols = S::kCols + 2 * S::kHalo;
+  for (int i = threadIdx.x; i < S::kRows * kCols; i += THREADS) {
+    const int r = i / kCols - S::kHalo, s = i % kCols - S::kHalo;
+    const int hr = clampi(h0 + r, 0, H - 1) - h0, ws = clampi(w0 + s, 0, W - 1) - w0;
+    const float* at = sX + X::at(hr, ws);
+    float sum = 0.f;
+    for (int c = 0; c < C; ++c, at += X::kFloats) {
+      const float b = tap_sum<false>([&](int di, int dj) { return at[di * X::kLd + dj]; }, g);
+      sum = c == 0 ? b : __fadd_rn(sum, b);
+    }
+    sS[S::at(r, s)] = sum;
+  }
+}
+
+// Sobel / C and the zero-safe magnitude at a pixel of the summed image, read
+// by a(i, j) as in tap_sum. A zero operand would send the IEEE division and
+// square root down their slow paths even where the result is not taken (flat
+// regions make many): they get 1 there, and the zero is selected, bit for bit
+// the same.
+template <class A>
+__device__ __forceinline__ Grad sobel_mag_tile(A a, int C) {
+  float kx[9], ky[9];
+  sobel_taps(kx, ky);
   const float cf = (float)C;
-  g.gx = __fdiv_rn(sx, cf);
-  g.gy = __fdiv_rn(sy, cf);
+  auto over_c = [&](float v) { return v == 0.f ? v : __fdiv_rn(v == 0.f ? 1.f : v, cf); };
+  Grad g;
+  g.gx = over_c(tap_sum<true>(a, kx));
+  g.gy = over_c(tap_sum<true>(a, ky));
   const float v = __fadd_rn(__fmul_rn(g.gx, g.gx), __fmul_rn(g.gy, g.gy));
-  g.mag = (v == 0.f) ? 0.f : __fsqrt_rn(v);
+  g.mag = (v == 0.f) ? 0.f : __fsqrt_rn(v == 0.f ? 1.f : v);
   return g;
 }
 
-// K1's Canny branch: the band's edge map into sE (row stride lde), strip by
-// strip, with K3a's staging and device functions.
-__device__ __forceinline__ void band_edge(const float* __restrict__ xb, const float* g,
-                                          const Params& p, int h0, float* sX,
-                                          float* sE, int lde) {
-  constexpr int XH = kBandRows + 4, XW = kStripW + 4;  // x, 2-pixel halo
-  constexpr int SH = kBandRows + 2, SW = kStripW + 2;  // summed blur, 1-pixel halo
-  const int C = p.C, H = p.H, W = p.W;
-  float* sS = sX + C * XH * XW;
-  float gr[9];
+// fn(r, s, win) for each quad of pixels (r, s .. s + 3) of tile T's pixels,
+// s a multiple of 4, in the image or not: win[i][j] = T at (r + i - 1,
+// s + j - 1), the 3 x 6 window around the quad, three 16-byte reads a row.
+template <class T, int THREADS, class Fn>
+__device__ __forceinline__ void for_each_quad(const float* tile, Fn fn) {
+  constexpr int kQuads = T::kCols / 4;
+  for (int e = threadIdx.x; e < T::kTileRows * kQuads; e += THREADS) {
+    const int r = e / kQuads, s = 4 * (e % kQuads);
+    float win[3][6];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) gr[i] = g[i];
-  for (int w0 = 0; w0 < W; w0 += kStripW) {
-    for (int i = threadIdx.x; i < C * XH * XW; i += kBandThreads) {
-      const int c = i / (XH * XW), r = (i / XW) % XH, s = i % XW;
-      cp_async4(sX + i, xb + ((size_t)c * H + clampi(h0 - 2 + r, 0, H - 1)) * W +
-                            clampi(w0 - 2 + s, 0, W - 1));
+    for (int i = 0; i < 3; ++i) {
+      const float4* row = reinterpret_cast<const float4*>(tile + T::at(r + i - 1, s));
+      const float4 lo = row[-1], mid = row[0], hi = row[1];
+      const float v[6] = {lo.w, mid.x, mid.y, mid.z, mid.w, hi.x};
+#pragma unroll
+      for (int j = 0; j < 6; ++j) win[i][j] = v[j];
     }
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    for (int i = threadIdx.x; i < SH * SW; i += kBandThreads) {
-      const int h = clampi(h0 - 1 + i / SW, 0, H - 1);
-      const int w = clampi(w0 - 1 + i % SW, 0, W - 1);
-      sS[i] = blur_sum_tile<XW, XH * XW>(sX, gr, C, h - h0 + 2, w - w0 + 2);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBandRows * kStripW; i += kBandThreads) {
-      const int r = i / kStripW, s = i % kStripW, h = h0 + r, w = w0 + s;
-      if (h >= H || w >= W) continue;
-      sE[r * lde + w] = edge_of(sobel_mag_tile<SW>(sS, C, r + 1, s + 1).mag, p);
-    }
-    __syncthreads();
+    fn(r, s, win);
   }
 }
 
-// Adjoint of the edge-replicated 3x3 stencil k at an (h, w) of an (H, W)
-// plane, from a tile of the cotangent that holds zeros off the plane: the
-// zero-padded adjoint at (h, w), plus the outer rows and columns that the
-// clamp folded onto a border pixel (above row 0 only k's first row reads
-// the plane, below row H - 1 only its last; likewise for columns). `at`
-// points at (h, w) in the tile; the tile covers (h +- 1, w +- 1). The sums
-// run in another order than the plain version's, well inside K2's 1e-4.
-template <int LD>
-__device__ __forceinline__ float stencil3_adjoint_tile(const float* at,
-                                                       const float (&k)[9], int H,
-                                                       int W, int h, int w) {
+// The step125 Canny forward of the ROWS x COLS pixels at (h0, w0) of the C
+// planes at xb, K1's and K3a's: x staged with a 2-pixel edge-replicated
+// halo (smem: C tiles, then the summed blur's), the summed blur with a
+// 1-pixel halo, then epilogue(r, s, q) for every quad of the tile, in the
+// image or not, q[j] being the Grad of pixel (h0 + r, w0 + s + j). Ends
+// without a barrier.
+template <int ROWS, int COLS, int THREADS, class Epilogue>
+__device__ __forceinline__ void canny_tile(const float* __restrict__ xb, const float (&g)[9],
+                                           int C, int H, int W, int h0, int w0, bool vec,
+                                           float* smem, Epilogue epilogue) {
+  using X = Tile<ROWS, COLS, 2>;
+  using S = Tile<ROWS, COLS, 1>;
+  float* sS = smem + C * X::kFloats;
+  stage_tile<X, THREADS, true>(
+      smem, C, [&](int c) { return xb + (size_t)c * H * W; }, H, W, h0, w0, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  blur_stage<X, S, THREADS>(smem, sS, g, C, H, W, h0, w0);
+  __syncthreads();
+  for_each_quad<S, THREADS>(sS, [&](int r, int s, const float (&win)[3][6]) {
+    Grad q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = sobel_mag_tile([&](int di, int dj) { return win[1 + di][1 + j + dj]; }, C);
+    epilogue(r, s, q);
+  });
+}
+
+// The gate of the JAX _canny_bwd_kernel at one pixel, K2's and K3b's: the
+// edge map's cotangent u through the To_compare window (high, 1.001], the
+// alpha gate and d|g|/dg with 1/|g| := 0 at |g| = 0; returns (u_gx, u_gy).
+__device__ __forceinline__ float2 gate(float u, float mag, float gx, float gy,
+                                       const Params& p) {
+  const float mag_m = (mag < p.alpha) ? 0.f : mag;
+  const bool keep = mag_m > p.high && mag_m <= 1.001f && mag >= p.alpha;
+  const float u_mag = keep ? u : 0.f;
+  const float inv = (mag == 0.f) ? 0.f : __frcp_rn(mag == 0.f ? 1.f : mag);  // as in sobel_mag_tile
+  return make_float2(u_mag * gx * inv, u_mag * gy * inv);
+}
+
+// Adjoint of the edge-replicated 3x3 stencil k at pixel (h, w) of an (H, W)
+// plane, where a(i, j) reads the cotangent at (h + i, w + j) from a tile
+// that holds zeros off the plane: the zero-padded adjoint, plus the outer
+// rows and columns that the clamp maps onto a border pixel (above row 0
+// only k's first row reads the plane, below row H - 1 only its last;
+// likewise for columns). The sums run in another order than the plain
+// version's, well inside the tests' 1e-4.
+template <class A>
+__device__ __forceinline__ float stencil3_adjoint_tile(A a, const float (&k)[9], int H, int W,
+                                                     int h, int w) {
   float z = 0.f;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) z += k[i * 3 + j] * at[(1 - i) * LD + 1 - j];
+    for (int j = 0; j < 3; ++j) z += k[i * 3 + j] * a(1 - i, 1 - j);
   const bool top = h == 0, bottom = h == H - 1, left = w == 0, right = w == W - 1;
   if (top || bottom || left || right) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      if (top) z += k[j] * at[1 - j];
-      if (bottom) z += k[6 + j] * at[1 - j];
-      if (left) z += k[j * 3] * at[(1 - j) * LD];
-      if (right) z += k[j * 3 + 2] * at[(1 - j) * LD];
+      if (top) z += k[j] * a(0, 1 - j);
+      if (bottom) z += k[6 + j] * a(0, 1 - j);
+      if (left) z += k[j * 3] * a(1 - j, 0);
+      if (right) z += k[j * 3 + 2] * a(1 - j, 0);
     }
-    if (top && left) z += k[0] * at[0];
-    if (top && right) z += k[2] * at[0];
-    if (bottom && left) z += k[6] * at[0];
-    if (bottom && right) z += k[8] * at[0];
+    if (top && left) z += k[0] * a(0, 0);
+    if (top && right) z += k[2] * a(0, 0);
+    if (bottom && left) z += k[6] * a(0, 0);
+    if (bottom && right) z += k[8] * a(0, 0);
   }
   return z;
 }
 
+// K2's and K3b's last stages: from u_gx, u_gy in tiles G (2-pixel halo,
+// zeros off the plane), u_summed = (Sobel-x^T u_gx + Sobel-y^T u_gy) / C on
+// the tile plus 1 in tile sU (zeros off the plane); then epilogue(r, s, v)
+// for every quad of the tile, in the image or not, v's components being the
+// blur's adjoint of u_summed at pixels (h0 + r, w0 + s .. s + 3). Ends
+// without a barrier.
+template <int ROWS, int COLS, int THREADS, class Epilogue>
+__device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float* sG1,
+                                                   float* sU, const float (&g)[9], int C,
+                                                   int H, int W, int h0, int w0,
+                                                   Epilogue epilogue) {
+  using G = Tile<ROWS, COLS, 2>;
+  using U = Tile<ROWS, COLS, 1>;
+  float sx[9], sy[9];
+  sobel_taps(sx, sy);
+  constexpr int kCols = COLS + 2;
+  for (int i = threadIdx.x; i < U::kRows * kCols; i += THREADS) {
+    const int r = i / kCols - 1, s = i % kCols - 1, h = h0 + r, w = w0 + s;
+    float v = 0.f;
+    if (h >= 0 && h < H && w >= 0 && w < W) {
+      const float* a0 = sG0 + G::at(r, s);
+      const float* a1 = sG1 + G::at(r, s);
+      v = (stencil3_adjoint_tile([&](int di, int dj) { return a0[di * G::kLd + dj]; }, sx,
+                               H, W, h, w) +
+           stencil3_adjoint_tile([&](int di, int dj) { return a1[di * G::kLd + dj]; }, sy,
+                               H, W, h, w)) /
+          (float)C;
+    }
+    sU[U::at(r, s)] = v;
+  }
+  __syncthreads();
+  for_each_quad<U, THREADS>(sU, [&](int r, int s, const float (&win)[3][6]) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = stencil3_adjoint_tile([&](int di, int dj) { return win[1 + di][1 + j + dj]; }, g,
+                                 H, W, h0 + r, w0 + s + j);
+    epilogue(r, s, make_float4(v[0], v[1], v[2], v[3]));
+  });
+}
+
+// ---- K1/K2: the band's Canny branch and the kernels -----------------------
+
+// K1's Canny branch: the band's edge map into sE (row stride lde, a multiple
+// of 4), strip by strip.
+__device__ __forceinline__ void band_edge(const float* __restrict__ xb, const float (&g)[9],
+                                          const Params& p, int h0, bool vec, float* smem,
+                                          float* sE, int lde) {
+  for (int w0 = 0; w0 < p.W; w0 += kStripW) {
+    canny_tile<kBandRows, kStripW, kBandThreads>(
+        xb, g, p.C, p.H, p.W, h0, w0, vec, smem, [&](int r, int s, const Grad (&q)[4]) {
+          if (w0 + s < p.W)
+            store_quad(sE + r * lde + w0 + s,
+                       make_float4(edge_of(q[0].mag, p), edge_of(q[1].mag, p),
+                                   edge_of(q[2].mag, p), edge_of(q[3].mag, p)),
+                       true, 4);
+        });
+    __syncthreads();
+  }
+}
+
 // K2's Canny branch: the band's share of dx from the edge map, one plane for
-// every channel, into sE. Per strip: x with a 4-pixel halo (cp.async) and
-// u_edge = w sum_c U on the band plus 2, the summed blur with 3, u_gx / u_gy
-// on the band plus 2 (mag, gx, gy recomputed), u_summed plus 1 (K3b's Sobel
-// adjoints), then the blur's adjoint.
+// every channel, into sE (row stride lde, a multiple of 4). Per strip: x
+// with a 4-pixel halo and u_edge = w sum_c U on the band plus 2, the summed
+// blur with 3, u_gx / u_gy on the band plus 2 (mag, gx, gy recomputed, then
+// the gate), then canny_adjoint_tail.
 __device__ __forceinline__ void band_canny_adjoint(const float* __restrict__ xb,
                                                    const float* __restrict__ ub,
                                                    const float* __restrict__ yb,
-                                                   const float* g, const Params& p,
-                                                   int h0, float* sX, float* sE,
+                                                   const float (&g)[9], const Params& p,
+                                                   int h0, bool vec, float* smem, float* sE,
                                                    int lde) {
-  constexpr int XH = kBandRows + 8, XW = kStripW + 8;
-  constexpr int SH = kBandRows + 6, SW = kStripW + 6;
-  constexpr int GH = kBandRows + 4, GW = kStripW + 4;
-  constexpr int UH = kBandRows + 2, UW = kStripW + 2;
+  using X = Tile<kBandRows, kStripW, 4>;
+  using S = Tile<kBandRows, kStripW, 3>;
+  using G = Tile<kBandRows, kStripW, 2>;
   const int C = p.C, H = p.H, W = p.W;
-  float* sS = sX + C * XH * XW;
-  float* sG0 = sS + SH * SW;  // u_gx at (h0-2+r, w0-2+s), 0 off the plane
-  float* sG1 = sG0 + GH * GW;  // u_gy
-  float* sU = sG1 + GH * GW;   // u_summed at (h0-1+r, w0-1+s), 0 off the plane
-  float gr[9], sx[9], sy[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    gr[i] = g[i];
-    sx[i] = kSobelX[i];
-    sy[i] = kSobelY[i];
-  }
+  float* sS = smem + C * X::kFloats;
+  float* sG0 = sS + S::kFloats;  // u_edge, then u_gx; 0 off the plane
+  float* sG1 = sG0 + G::kFloats;  // u_gy
+  float* sU = sG1 + G::kFloats;   // u_summed
+  constexpr int kCols = kStripW + 4;
   for (int w0 = 0; w0 < W; w0 += kStripW) {
-    for (int i = threadIdx.x; i < C * XH * XW; i += kBandThreads) {
-      const int c = i / (XH * XW), r = (i / XW) % XH, s = i % XW;
-      cp_async4(sX + i, xb + ((size_t)c * H + clampi(h0 - 4 + r, 0, H - 1)) * W +
-                            clampi(w0 - 4 + s, 0, W - 1));
-    }
-    for (int i = threadIdx.x; i < GH * GW; i += kBandThreads) {
-      const int h = h0 - 2 + i / GW, w = w0 - 2 + i % GW;
+    stage_tile<X, kBandThreads, true>(
+        smem, C, [&](int c) { return xb + (size_t)c * H * W; }, H, W, h0, w0, vec);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < G::kRows * kCols; i += kBandThreads) {
+      const int r = i / kCols - 2, s = i % kCols - 2, h = h0 + r, w = w0 + s;
       float u_edge = 0.f;
       if (h >= 0 && h < H && w >= 0 && w < W) {
         for (int c = 0; c < C; ++c) {
@@ -643,53 +734,35 @@ __device__ __forceinline__ void band_canny_adjoint(const float* __restrict__ xb,
           u_edge += ub[k] * clip_mask(yb[k]);
         }
       }
-      sG0[i] = u_edge * p.w;
+      sG0[G::at(r, s)] = u_edge * p.w;
     }
-    cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
-    for (int i = threadIdx.x; i < SH * SW; i += kBandThreads) {
-      const int h = clampi(h0 - 3 + i / SW, 0, H - 1);
-      const int w = clampi(w0 - 3 + i % SW, 0, W - 1);
-      sS[i] = blur_sum_tile<XW, XH * XW>(sX, gr, C, h - h0 + 4, w - w0 + 4);
-    }
+    blur_stage<X, S, kBandThreads>(smem, sS, g, C, H, W, h0, w0);
     __syncthreads();
-    for (int i = threadIdx.x; i < GH * GW; i += kBandThreads) {
-      const int r = i / GW, s = i % GW, h = h0 - 2 + r, w = w0 - 2 + s;
-      float v0 = 0.f, v1 = 0.f;
+    for (int i = threadIdx.x; i < G::kRows * kCols; i += kBandThreads) {
+      const int r = i / kCols - 2, s = i % kCols - 2, h = h0 + r, w = w0 + s;
+      float2 v = make_float2(0.f, 0.f);
       if (h >= 0 && h < H && w >= 0 && w < W) {
-        const Grad gd = sobel_mag_tile<SW>(sS, C, r + 1, s + 1);
-        const float u_edge = sG0[i];
-        const float mag_m = (gd.mag < p.alpha) ? 0.f : gd.mag;
-        const bool keep = mag_m > p.high && mag_m <= 1.001f && gd.mag >= p.alpha;
-        const float u_mag = keep ? u_edge : 0.f;
-        const float inv = (gd.mag == 0.f) ? 0.f : __frcp_rn(gd.mag);
-        v0 = u_mag * gd.gx * inv;
-        v1 = u_mag * gd.gy * inv;
+        const float* a = sS + S::at(r, s);
+        const Grad gd = sobel_mag_tile([&](int di, int dj) { return a[di * S::kLd + dj]; }, C);
+        v = gate(sG0[G::at(r, s)], gd.mag, gd.gx, gd.gy, p);
       }
-      sG0[i] = v0;
-      sG1[i] = v1;
+      sG0[G::at(r, s)] = v.x;
+      sG1[G::at(r, s)] = v.y;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < UH * UW; i += kBandThreads) {
-      const int r = i / UW, s = i % UW, h = h0 - 1 + r, w = w0 - 1 + s;
-      float v = 0.f;
-      if (h >= 0 && h < H && w >= 0 && w < W) {
-        const int at = (r + 1) * GW + s + 1;
-        v = (stencil3_adjoint_tile<GW>(sG0 + at, sx, H, W, h, w) +
-             stencil3_adjoint_tile<GW>(sG1 + at, sy, H, W, h, w)) / (float)C;
-      }
-      sU[i] = v;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBandRows * kStripW; i += kBandThreads) {
-      const int r = i / kStripW, s = i % kStripW, h = h0 + r, w = w0 + s;
-      if (h >= H || w >= W) continue;
-      sE[r * lde + w] =
-          stencil3_adjoint_tile<UW>(sU + (r + 1) * UW + s + 1, gr, H, W, h, w);
-    }
+    canny_adjoint_tail<kBandRows, kStripW, kBandThreads>(
+        sG0, sG1, sU, g, C, H, W, h0, w0, [&](int r, int s, float4 v) {
+          if (w0 + s < W) store_quad(sE + r * lde + w0 + s, v, true, 4);
+        });
     __syncthreads();
   }
+}
+
+__device__ __forceinline__ void load_taps(const float* __restrict__ gtaps, float (&g)[9]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) g[i] = __ldg(gtaps + i);
 }
 
 __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
@@ -706,11 +779,10 @@ ee_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ strip
   float* sE = smem;
   float* sT = smem + L.t;
   float* sS = smem + L.s;
-  __shared__ float g[9];
-  if (threadIdx.x < 9) g[threadIdx.x] = gtaps[threadIdx.x];
-  __syncthreads();
+  float g[9];
+  load_taps(gtaps, g);
   const float* xb = x + (size_t)b * C * HW;
-  band_edge(xb, g, p, h0, sS, sE, L.wq);
+  band_edge(xb, g, p, h0, W % 4 == 0 && aligned16(x), sS, sE, L.wq);
 
   for (int c = 0; c < C; ++c) {
     const size_t off = ((size_t)b * C + c) * HW;
@@ -743,11 +815,11 @@ ee_fused_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
   float* sE = smem;
   float* sT = smem + L.t;
   float* sS = smem + L.s;
-  __shared__ float g[9];
-  if (threadIdx.x < 9) g[threadIdx.x] = gtaps[threadIdx.x];
-  __syncthreads();
+  float g[9];
+  load_taps(gtaps, g);
   const size_t img = (size_t)b * C * HW;
-  band_canny_adjoint(x + img, u + img, y + img, g, p, h0, sS, sE, L.wq);
+  band_canny_adjoint(x + img, u + img, y + img, g, p, h0, W % 4 == 0 && aligned16(x), sS,
+                     sE, L.wq);
 
   for (int c = 0; c < C; ++c) {
     const size_t off = img + (size_t)c * HW;
@@ -768,128 +840,116 @@ ee_fused_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
 
 // ---- K3a/K3b: the Canny-only pair ------------------------------------------
 //
-// Replaces ee_fused.py::_canny_fwd_kernel and ::_canny_bwd_kernel. A block
-// owns a kCannyH x kCannyW tile of one image. K3a stages the C planes of x
-// with a 2-pixel edge-replicated halo (the blur's and the Sobel's reach) and
-// the summed blur with a 1-pixel halo in shared memory; K3b stages the
-// Sobel-adjoint inputs with a 2-pixel halo and u_summed with a 1-pixel halo.
-// Halo entries hold the clamped reads, so the stencil helpers above run on
-// tile-local planes unchanged and K3a's edge map is K1's bit for bit. Any
-// H x W takes ceil(H/16) x ceil(W/32) tiles; only C is bounded (by shared
-// memory). What bounds both: bytes. K3a reads x and writes four (B, 1, H, W)
-// planes, K3b reads those four and writes dx; the stencils are a few dozen
-// FP32 operations a pixel.
+// A block owns a kCannyRows x kCannyCols tile of one image (grid: tiles
+// across, tiles down, images; ragged tiles masked). ops/cuda/ee_fused.py
+// (canny_geometry) mirrors kCannyRows and kCannyCols as CANNY_ROWS and
+// CANNY_COLS, computes the grid and a block's shared memory, and passes both
+// to the launch. K3a: C x tiles and the summed blur's; K3b: four tiles and
+// u_summed's, whatever C.
 
-constexpr int kCannyH = 16, kCannyW = 32;
-constexpr int kXH = kCannyH + 4, kXW = kCannyW + 4;  // 2-pixel halo
-constexpr int kSH = kCannyH + 2, kSW = kCannyW + 2;  // 1-pixel halo
+constexpr int kCannyRows = 16;
+constexpr int kCannyCols = 32;
+constexpr int kCannyThreads = 128;
+constexpr int kCannyMinBlocks = 6;
 
-__host__ __device__ inline size_t canny_fwd_smem_floats(int C) {
-  return (size_t)C * kXH * kXW + (size_t)kSH * kSW;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// K3a: writes out (the edge map), mag, gx, gy, each (B, 1, H, W).
+__global__ void __launch_bounds__(kCannyThreads, kCannyMinBlocks)
 canny_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gtaps,
                  float* __restrict__ out, float* __restrict__ mag,
                  float* __restrict__ gx, float* __restrict__ gy, Params p) {
-  extern __shared__ float smem[];
-  const int C = p.C, H = p.H, W = p.W;
-  const int b = blockIdx.z, h0 = blockIdx.y * kCannyH, w0 = blockIdx.x * kCannyW;
-  float* sX = smem;                 // x at (clamp(h0-2+r), clamp(w0-2+s))
-  float* sS = sX + C * kXH * kXW;   // summed blur at (clamp(h0-1+r), clamp(w0-1+s))
-  __shared__ float g[9];
-  if (threadIdx.x < 9) g[threadIdx.x] = gtaps[threadIdx.x];
-  const float* xb = x + (size_t)b * C * H * W;
-  for (int i = threadIdx.x; i < C * kXH * kXW; i += blockDim.x) {
-    const int c = i / (kXH * kXW), r = (i / kXW) % kXH, s = i % kXW;
-    sX[i] = xb[((size_t)c * H + clampi(h0 - 2 + r, 0, H - 1)) * W +
-               clampi(w0 - 2 + s, 0, W - 1)];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kSH * kSW; i += blockDim.x) {
-    const int h = clampi(h0 - 1 + i / kSW, 0, H - 1);
-    const int w = clampi(w0 - 1 + i % kSW, 0, W - 1);
-    sS[i] = blur_sum(sX, g, C, kXH, kXW, h - h0 + 2, w - w0 + 2);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kCannyH * kCannyW; i += blockDim.x) {
-    const int r = i / kCannyW, s = i % kCannyW, h = h0 + r, w = w0 + s;
-    if (h >= H || w >= W) continue;
-    const Grad gr = sobel_mag(sS, C, kSH, kSW, r + 1, s + 1);
-    const size_t q = ((size_t)b * H + h) * W + w;
-    out[q] = edge_of(gr.mag, p);
-    mag[q] = gr.mag;
-    gx[q] = gr.gx;
-    gy[q] = gr.gy;
-  }
+  extern __shared__ float4 smem4[];
+  const int H = p.H, W = p.W, b = blockIdx.z;
+  const int h0 = blockIdx.y * kCannyRows, w0 = blockIdx.x * kCannyCols;
+  float g[9];
+  load_taps(gtaps, g);
+  // the outputs are the wrapper's own tensors: their rows start on 16 bytes
+  // whenever x's do
+  const bool vec = W % 4 == 0 && aligned16(x);
+  const size_t plane = (size_t)b * H * W;
+  canny_tile<kCannyRows, kCannyCols, kCannyThreads>(
+      x + plane * p.C, g, p.C, H, W, h0, w0, vec, reinterpret_cast<float*>(smem4),
+      [&](int r, int s, const Grad (&q)[4]) {
+        const int h = h0 + r, w = w0 + s;
+        if (h >= H || w >= W) return;
+        const size_t at = plane + (size_t)h * W + w;
+        store_quad(out + at,
+                   make_float4(edge_of(q[0].mag, p), edge_of(q[1].mag, p),
+                               edge_of(q[2].mag, p), edge_of(q[3].mag, p)),
+                   vec, W - w);
+        store_quad(mag + at, make_float4(q[0].mag, q[1].mag, q[2].mag, q[3].mag), vec, W - w);
+        store_quad(gx + at, make_float4(q[0].gx, q[1].gx, q[2].gx, q[3].gx), vec, W - w);
+        store_quad(gy + at, make_float4(q[0].gy, q[1].gy, q[2].gy, q[3].gy), vec, W - w);
+      });
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K3b: writes dx (B, C, H, W), the same plane in every channel.
+__global__ void __launch_bounds__(kCannyThreads, kCannyMinBlocks)
 canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
                  const float* __restrict__ gx, const float* __restrict__ gy,
-                 const float* __restrict__ gtaps, float* __restrict__ dx,
-                 Params p) {
-  __shared__ float sG0[kXH * kXW];  // u_gx at (h0-2+r, w0-2+s), 0 off the plane
-  __shared__ float sG1[kXH * kXW];  // u_gy
-  __shared__ float sU[kSH * kSW];   // u_summed at (h0-1+r, w0-1+s)
-  __shared__ float g[9];
-  const int C = p.C, H = p.H, W = p.W;
-  const int b = blockIdx.z, h0 = blockIdx.y * kCannyH, w0 = blockIdx.x * kCannyW;
-  if (threadIdx.x < 9) g[threadIdx.x] = gtaps[threadIdx.x];
+                 const float* __restrict__ gtaps, float* __restrict__ dx, Params p) {
+  using G = Tile<kCannyRows, kCannyCols, 2>;
+  extern __shared__ float4 smem4[];
+  // u, mag, gx, gy; the gate turns u's tile into u_gx and mag's into u_gy
+  float* sIn = reinterpret_cast<float*>(smem4);
+  float* sU = sIn + 4 * G::kFloats;
+  const int C = p.C, H = p.H, W = p.W, b = blockIdx.z;
+  const int h0 = blockIdx.y * kCannyRows, w0 = blockIdx.x * kCannyCols;
+  float g[9];
+  load_taps(gtaps, g);
+  // dx is the wrapper's own tensor: its rows start on 16 bytes whenever the
+  // inputs' do
+  const bool vec = W % 4 == 0 && aligned16(u) && aligned16(mag) && aligned16(gx) &&
+                   aligned16(gy);
   const size_t plane = (size_t)b * H * W;
-  for (int i = threadIdx.x; i < kXH * kXW; i += blockDim.x) {
-    const int h = h0 - 2 + i / kXW, w = w0 - 2 + i % kXW;
-    float v0 = 0.f, v1 = 0.f;
-    if (h >= 0 && h < H && w >= 0 && w < W) {
-      const size_t q = plane + (size_t)h * W + w;
-      const float m = mag[q];
-      const float mag_m = (m < p.alpha) ? 0.f : m;
-      const bool keep = mag_m > p.high && mag_m <= 1.001f && m >= p.alpha;
-      const float u_mag = keep ? u[q] : 0.f;
-      const float inv = (m == 0.f) ? 0.f : 1.f / m;
-      v0 = u_mag * gx[q] * inv;
-      v1 = u_mag * gy[q] * inv;
-    }
-    sG0[i] = v0;
-    sG1[i] = v1;
+  stage_tile<G, kCannyThreads, false>(
+      sIn, 4,
+      [&](int i) { return (i == 0 ? u : i == 1 ? mag : i == 2 ? gx : gy) + plane; }, H, W,
+      h0, w0, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  // the gate on this thread's own units, in place
+  for (int e = threadIdx.x; e < G::kFloats / 4; e += kCannyThreads) {
+    float4* t = reinterpret_cast<float4*>(sIn) + e;
+    constexpr int kTile = G::kFloats / 4;
+    const float4 vu = t[0], vm = t[kTile], vx = t[2 * kTile], vy = t[3 * kTile];
+    const float2 a0 = gate(vu.x, vm.x, vx.x, vy.x, p), a1 = gate(vu.y, vm.y, vx.y, vy.y, p);
+    const float2 a2 = gate(vu.z, vm.z, vx.z, vy.z, p), a3 = gate(vu.w, vm.w, vx.w, vy.w, p);
+    t[0] = make_float4(a0.x, a1.x, a2.x, a3.x);
+    t[kTile] = make_float4(a0.y, a1.y, a2.y, a3.y);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kSH * kSW; i += blockDim.x) {
-    const int h = h0 - 1 + i / kSW, w = w0 - 1 + i % kSW;
-    if (h < 0 || h >= H || w < 0 || w >= W) continue;
-    sU[i] = (stencil3_adjoint(sG0, kXW, h0 - 2, w0 - 2, kSobelX, H, W, h, w) +
-             stencil3_adjoint(sG1, kXW, h0 - 2, w0 - 2, kSobelY, H, W, h, w)) /
-            (float)C;
-  }
-  __syncthreads();
-  // the blur's adjoint of the channel-broadcast u_summed: one plane, written
-  // to every channel
-  for (int i = threadIdx.x; i < kCannyH * kCannyW; i += blockDim.x) {
-    const int h = h0 + i / kCannyW, w = w0 + i % kCannyW;
-    if (h >= H || w >= W) continue;
-    const float v = stencil3_adjoint(sU, kSW, h0 - 1, w0 - 1, g, H, W, h, w);
-    for (int c = 0; c < C; ++c) dx[(((size_t)b * C + c) * H + h) * W + w] = v;
-  }
+  canny_adjoint_tail<kCannyRows, kCannyCols, kCannyThreads>(
+      sIn, sIn + G::kFloats, sU, g, C, H, W, h0, w0, [&](int r, int s, float4 v) {
+        const int h = h0 + r, w = w0 + s;
+        if (h >= H || w >= W) return;
+        float* d = dx + ((size_t)b * C * H + h) * W + w;
+        for (int c = 0; c < C; ++c, d += (size_t)H * W) store_quad(d, v, vec, W - w);
+      });
 }
 
 constexpr int kMaxDevices = 64;
-size_t g_fwd_smem[kMaxDevices], g_bwd_smem[kMaxDevices], g_canny_smem[kMaxDevices];
+size_t g_fwd_smem[kMaxDevices], g_bwd_smem[kMaxDevices];
+size_t g_canny_fwd_smem[kMaxDevices], g_canny_bwd_smem[kMaxDevices];
 
-// Opt `kernel` into `bytes` of dynamic shared memory on the current device,
-// once per kernel, device and size: the attribute outlives the launch, and
-// setting it on every launch would put a host call inside CUDA graph
-// captures of the launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* done) {
+// Launches `kernel` on `stream` with `smem_bytes` of dynamic shared memory,
+// opting the kernel into that much once per device and size (in done[]): the
+// attribute outlives the launch, and setting it on every launch would put a
+// host call inside CUDA graph captures of the launch.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t* done, dim3 grid, int threads, size_t smem_bytes,
+           void* stream, Args... args) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (bytes <= done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) done[dev] = bytes;
-  return err;
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem_bytes > done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    done[dev] = smem_bytes;
+  }
+  kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -901,21 +961,19 @@ extern "C" {
 // BandLayout's seven fields in order, `bands` the blocks per image and
 // `smem_bytes` a block's dynamic shared memory; and the operators it padded
 // to layout's shapes (lr, li: bands x band rows by hk; rr, ri: wk x wt).
+// K3a/K3b take the tiles across and down an image and a block's dynamic
+// shared memory from the wrapper's canny_geometry.
 int ee_fused_fwd(const float* x, const float* stripes, const float* sq_delta,
                  const float* lr, const float* li, const float* rr,
                  const float* ri, const float* gtaps, float* out, float* y,
                  int B, int C, int H, int W, float eps, float w, float alpha,
                  float high, int square, const int* layout, int bands,
                  size_t smem_bytes, void* stream) {
-  const cudaError_t err = allow_smem(ee_fused_fwd_kernel, smem_bytes, g_fwd_smem);
-  if (err != cudaSuccess) return (int)err;
-  const Params p{B, C, H, W, eps, w, alpha, high, square};
   const BandLayout L{layout[0], layout[1], layout[2], layout[3],
                      layout[4], layout[5], layout[6]};
-  ee_fused_fwd_kernel<<<dim3(bands, B), kBandThreads, smem_bytes,
-                        (cudaStream_t)stream>>>(x, stripes, sq_delta, lr, li, rr, ri,
-                                                gtaps, out, y, p, L);
-  return (int)cudaGetLastError();
+  return launch(ee_fused_fwd_kernel, g_fwd_smem, dim3(bands, B), kBandThreads, smem_bytes,
+                stream, x, stripes, sq_delta, lr, li, rr, ri, gtaps, out, y,
+                Params{B, C, H, W, eps, w, alpha, high, square}, L);
 }
 
 int ee_fused_bwd(const float* u, const float* x, const float* stripes,
@@ -924,43 +982,29 @@ int ee_fused_bwd(const float* u, const float* x, const float* stripes,
                  const float* gtaps, float* dx, int B, int C, int H, int W,
                  float eps, float w, float alpha, float high, int square,
                  const int* layout, int bands, size_t smem_bytes, void* stream) {
-  const cudaError_t err = allow_smem(ee_fused_bwd_kernel, smem_bytes, g_bwd_smem);
-  if (err != cudaSuccess) return (int)err;
-  const Params p{B, C, H, W, eps, w, alpha, high, square};
   const BandLayout L{layout[0], layout[1], layout[2], layout[3],
                      layout[4], layout[5], layout[6]};
-  ee_fused_bwd_kernel<<<dim3(bands, B), kBandThreads, smem_bytes,
-                        (cudaStream_t)stream>>>(u, x, stripes, sq_delta, y, lr, li, rr,
-                                                ri, gtaps, dx, p, L);
-  return (int)cudaGetLastError();
-}
-
-size_t canny_fused_smem_bytes(int C) {
-  return canny_fwd_smem_floats(C) * sizeof(float);
+  return launch(ee_fused_bwd_kernel, g_bwd_smem, dim3(bands, B), kBandThreads, smem_bytes,
+                stream, u, x, stripes, sq_delta, y, lr, li, rr, ri, gtaps, dx,
+                Params{B, C, H, W, eps, w, alpha, high, square}, L);
 }
 
 int canny_fused_fwd(const float* x, const float* gtaps, float* out, float* mag,
                     float* gx, float* gy, int B, int C, int H, int W,
-                    float alpha, float high, void* stream) {
-  const size_t bytes = canny_fused_smem_bytes(C);
-  const cudaError_t err = allow_smem(canny_fwd_kernel, bytes, g_canny_smem);
-  if (err != cudaSuccess) return (int)err;
-  Params p{B, C, H, W, 0.f, 0.f, alpha, high, 0};
-  const dim3 grid((W + kCannyW - 1) / kCannyW, (H + kCannyH - 1) / kCannyH, B);
-  canny_fwd_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, gtaps, out, mag, gx, gy, p);
-  return (int)cudaGetLastError();
+                    float alpha, float high, int tiles_w, int tiles_h,
+                    size_t smem_bytes, void* stream) {
+  return launch(canny_fwd_kernel, g_canny_fwd_smem, dim3(tiles_w, tiles_h, B),
+                kCannyThreads, smem_bytes, stream, x, gtaps, out, mag, gx, gy,
+                Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }
 
 int canny_fused_bwd(const float* u, const float* mag, const float* gx,
                     const float* gy, const float* gtaps, float* dx, int B,
-                    int C, int H, int W, float alpha, float high,
-                    void* stream) {
-  Params p{B, C, H, W, 0.f, 0.f, alpha, high, 0};
-  const dim3 grid((W + kCannyW - 1) / kCannyW, (H + kCannyH - 1) / kCannyH, B);
-  canny_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      u, mag, gx, gy, gtaps, dx, p);
-  return (int)cudaGetLastError();
+                    int C, int H, int W, float alpha, float high, int tiles_w,
+                    int tiles_h, size_t smem_bytes, void* stream) {
+  return launch(canny_bwd_kernel, g_canny_bwd_smem, dim3(tiles_w, tiles_h, B),
+                kCannyThreads, smem_bytes, stream, u, mag, gx, gy, gtaps, dx,
+                Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }
 
 const char* ee_fused_error_string(int err) {

@@ -55,6 +55,16 @@ MAX_SMEM_BYTES = 232448
 BAND_ROWS, BAND_THREADS, CHUNK, STRIP_W = 32, 256, 16, 64
 # columns of one product panel: 4 columns a thread, BAND_ROWS / 2 row groups
 PANEL = 4 * BAND_THREADS // (BAND_ROWS // 2)
+# K3a/K3b's tile: a block owns CANNY_ROWS x CANNY_COLS pixels of one image;
+# csrc/ee_fused.cu's kCannyRows and kCannyCols (the CPU test holds these too).
+CANNY_ROWS, CANNY_COLS = 16, 32
+# csrc/ee_fused.cu's Tile<ROWS, COLS, HALO>: rows +- HALO, columns +- TILE_PAD
+TILE_PAD = 4
+
+
+def _tile_floats(rows: int, cols: int, halo: int) -> int:
+    """The floats of one Tile<rows, cols, halo> of the Canny tile functions."""
+    return (rows + 2 * halo) * (cols + 2 * TILE_PAD)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -102,11 +112,11 @@ def band_geometry(c: int, h: int, w: int, backward: bool) -> BandGeometry:
     bh, sw = BAND_ROWS, STRIP_W
     wq, wt = _round_up(w, 4), _round_up(w, PANEL)
     ld_t = wt + 4              # 4 more than a multiple of 64: T's rows on distinct banks
-    if backward:
-        canny = (c * (bh + 8) * (sw + 8) + (bh + 6) * (sw + 6)
-                 + 2 * (bh + 4) * (sw + 4) + (bh + 2) * (sw + 2))
-    else:
-        canny = c * (bh + 4) * (sw + 4) + (bh + 2) * (sw + 2)
+    tile = functools.partial(_tile_floats, bh, sw)
+    if backward:               # x (4-pixel halo), summed blur (3), u_gx, u_gy (2), u_summed (1)
+        canny = c * tile(4) + tile(3) + 2 * tile(2) + tile(1)
+    else:                      # x (2-pixel halo), summed blur (1)
+        canny = c * tile(2) + tile(1)
     chunk_plane, chunk_ops = CHUNK * PANEL, 2 * bh * (CHUNK + 4)
     stage = max(chunk_ops + chunk_plane, 2 * chunk_plane)
     hfs = 2 * stage + bh * PANEL
@@ -317,12 +327,11 @@ def _library():
     c.ee_fused_fwd.restype = _I
     c.ee_fused_bwd.argtypes = [_P] * 11 + [_I] * 4 + [_F] * 4 + [_I] + band
     c.ee_fused_bwd.restype = _I
-    c.canny_fused_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]
+    tiles = [_I, _I, ctypes.c_size_t, _P]                  # tiles_w, tiles_h, bytes, stream
+    c.canny_fused_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + tiles
     c.canny_fused_fwd.restype = _I
-    c.canny_fused_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]
+    c.canny_fused_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + tiles
     c.canny_fused_bwd.restype = _I
-    c.canny_fused_smem_bytes.argtypes = [_I]
-    c.canny_fused_smem_bytes.restype = ctypes.c_size_t
     c.ee_fused_error_string.argtypes = [_I]
     c.ee_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -443,24 +452,53 @@ def ee_fused(x, stripes, sq_delta, k: FusedConsts):
 # K3a/K3b: the Canny-only pair
 # --------------------------------------------------------------------------
 
-def _check_canny(x, *planes):
+@dataclasses.dataclass(frozen=True)
+class CannyGeometry:
+    """Where K3a/K3b put a (C, H, W) problem: tiles_h x tiles_w tiles of
+    CANNY_ROWS x CANNY_COLS pixels per image, tile (i, j) owning rows from
+    i * CANNY_ROWS and columns from j * CANNY_COLS; the dynamic shared memory
+    of a K3a block (C x tiles and the summed blur's) and of a K3b block (u,
+    mag, gx, gy and u_summed, whatever C); and the most channels a K3a block
+    holds, above which both wrappers refuse."""
+    tiles_h: int
+    tiles_w: int
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+    max_channels: int
+
+
+@functools.lru_cache(maxsize=None)
+def canny_geometry(c: int, h: int, w: int) -> CannyGeometry:
+    """K3a's and K3b's grid and shared memory for C channels of H x W."""
+    x_tile = _tile_floats(CANNY_ROWS, CANNY_COLS, 2)   # x; K3b's u, mag, gx, gy
+    s_tile = _tile_floats(CANNY_ROWS, CANNY_COLS, 1)   # summed blur; u_summed
+    return CannyGeometry(tiles_h=-(-h // CANNY_ROWS), tiles_w=-(-w // CANNY_COLS),
+                         fwd_smem_bytes=4 * (c * x_tile + s_tile),
+                         bwd_smem_bytes=4 * (4 * x_tile + s_tile),
+                         max_channels=(MAX_SMEM_BYTES // 4 - s_tile) // x_tile)
+
+
+def _check_canny(x, *planes) -> CannyGeometry:
     """x: the (B, C, H, W) image of K3a, or the dx that K3b writes; planes:
-    (B, 1, H, W) each."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the Canny kernels take CUDA tensors, got {x.device}")
+    (B, 1, H, W) each. Raises on what the kernels do not take (the device
+    last, so that any host can test the rest); returns the geometry."""
     if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x and dx must be contiguous (B, C, H, W) float32 "
                          f"tensors (got {x.dtype}, shape {tuple(x.shape)})")
-    need = _library().lib.canny_fused_smem_bytes(x.shape[1])
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{x.shape[1]} channels need {need} bytes of shared "
-                         f"memory per block, above {MAX_SMEM_BYTES}")
-    b, _, h, w = x.shape
+    b, c, h, w = x.shape
+    geo = canny_geometry(c, h, w)
+    if c > geo.max_channels:
+        raise ValueError(f"{c} channels need {geo.fwd_smem_bytes} bytes of shared memory "
+                         f"per block, above {MAX_SMEM_BYTES}: the Canny kernels take at "
+                         f"most {geo.max_channels}")
     for t in planes:
         if (tuple(t.shape) != (b, 1, h, w) or t.dtype != x.dtype
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"u, mag, gx and gy must be contiguous float32 "
                              f"{(b, 1, h, w)} tensors on {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the Canny kernels take CUDA tensors, got {x.device}")
+    return geo
 
 
 def canny_fused_fwd(x, high: float, sigma: float, alpha: float):
@@ -468,15 +506,15 @@ def canny_fused_fwd(x, high: float, sigma: float, alpha: float):
     CPU tensor."""
     if x.device.type == "cpu":
         return canny_fused_fwd_plain(x, high, sigma, alpha)
-    _check_canny(x)
+    geo = _check_canny(x)
     lib = _library()
     b, c, h, w = x.shape
     out, mag, gx, gy = (x.new_empty((b, 1, h, w)) for _ in range(4))
     with torch.cuda.device(x.device):
         err = lib.lib.canny_fused_fwd(
             _ptr(x), _ptr(gaussian_taps(sigma, x.device)), _ptr(out), _ptr(mag),
-            _ptr(gx), _ptr(gy), b, c, h, w, alpha, high,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _ptr(gx), _ptr(gy), b, c, h, w, alpha, high, geo.tiles_w, geo.tiles_h,
+            geo.fwd_smem_bytes, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib, "canny_fused_fwd")
     LAUNCHES["canny_fused_fwd"] += 1
     return out, mag, gx, gy
@@ -490,13 +528,14 @@ def canny_fused_bwd(u, mag, gx, gy, channels: int, high: float, sigma: float,
         return canny_fused_bwd_plain(u, mag, gx, gy, channels, high, sigma, alpha)
     b, _, h, w = mag.shape
     dx = mag.new_empty((b, channels, h, w))
-    _check_canny(dx, u, mag, gx, gy)
+    geo = _check_canny(dx, u, mag, gx, gy)
     lib = _library()
     with torch.cuda.device(mag.device):
         err = lib.lib.canny_fused_bwd(
             _ptr(u), _ptr(mag), _ptr(gx), _ptr(gy),
             _ptr(gaussian_taps(sigma, mag.device)), _ptr(dx), b, channels, h, w,
-            alpha, high, torch.cuda.current_stream(mag.device).cuda_stream)
+            alpha, high, geo.tiles_w, geo.tiles_h, geo.bwd_smem_bytes,
+            torch.cuda.current_stream(mag.device).cuda_stream)
     _raise_on(err, lib, "canny_fused_bwd")
     LAUNCHES["canny_fused_bwd"] += 1
     return dx

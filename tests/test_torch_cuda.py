@@ -119,40 +119,78 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 CANNY_BWD_TOL = 1e-4
 
 
-# tiles are 16 x 32: whole tiles, ragged tiles, one channel, 224 px
-@pytest.mark.parametrize("shape,alpha", [((4, 3, 32, 64), 0.0),
-                                         ((3, 3, 37, 45), 0.1),
-                                         ((2, 1, 28, 28), 0.3),
-                                         ((1, 3, 224, 224), 0.0)])
-def test_canny_kernels_match_plain(cuda, shape, alpha):
-    x, _, _, _ = _operands(shape, False, cuda)
-    b, c, h, w = shape
+def _canny_check(x, alpha, cuda, sigma=1.0):
+    """K3a exactly its plain version; K3b within CANNY_BWD_TOL of the plain
+    adjoint and of autograd of the plain forward. Returns (edge map, dx)."""
+    b, c, h, w = x.shape
     u = torch.randn((b, 1, h, w), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(3))
     high = 76 / 255
-    outs_k = F.canny_fused_fwd(x, high, 1.0, alpha)
-    outs_p = F.canny_fused_fwd_plain(x, high, 1.0, alpha)
+    outs_k = F.canny_fused_fwd(x, high, sigma, alpha)
+    outs_p = F.canny_fused_fwd_plain(x, high, sigma, alpha)
     for got, want in zip(outs_k, outs_p):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
-    assert 0 < outs_k[0].mean() < 1
     _, mag, gx, gy = outs_k
-    dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, 1.0, alpha)
+    dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha)
     torch.testing.assert_close(
-        dx_k, F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, 1.0, alpha),
+        dx_k, F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma, alpha),
         atol=CANNY_BWD_TOL, rtol=0)
     xa = x.clone().requires_grad_()
     (g_auto,) = torch.autograd.grad(
-        (F.canny_fused_fwd_plain(xa, high, 1.0, alpha)[0] * u).sum(), [xa])
+        (F.canny_fused_fwd_plain(xa, high, sigma, alpha)[0] * u).sum(), [xa])
     torch.testing.assert_close(dx_k, g_auto, atol=CANNY_BWD_TOL, rtol=0)
+    return outs_k[0], dx_k
+
+
+# tiles of CANNY_ROWS x CANNY_COLS (16 x 32): whole tiles, ragged tiles with
+# W not a multiple of 4 (the 4-byte paths), one channel (MNIST's 28 px), an
+# image wider and taller than a tile with ragged last tiles, one tile
+# smaller than the halo, 224 px; and sigma 0.05, whose Gaussian has the
+# centre tap alone nonzero (the plain blur skips its zeros, the kernels'
+# multiply them)
+@pytest.mark.parametrize("shape,alpha,sigma", [((4, 3, 32, 64), 0.0, 1.0),
+                                               ((3, 3, 37, 45), 0.1, 1.0),
+                                               ((2, 1, 28, 28), 0.3, 1.0),
+                                               ((2, 3, 100, 100), 0.0, 1.0),
+                                               ((2, 3, 2, 5), 0.0, 1.0),
+                                               ((1, 3, 224, 224), 0.0, 1.0),
+                                               ((2, 3, 37, 45), 0.0, 0.05)])
+def test_canny_kernels_match_plain(cuda, shape, alpha, sigma):
+    if sigma == 0.05:
+        assert (F.gaussian_taps(sigma, "cpu") == 0).sum() == 8
+    x, _, _, _ = _operands(shape, False, cuda)
+    edge, dx_k = _canny_check(x, alpha, cuda, sigma)
+    assert 0 < edge.mean() < 1
     assert dx_k.abs().max() > 0.1
 
 
-def test_canny_edge_map_equals_k1s(cuda):
+def test_canny_kernels_take_the_largest_channel_count(cuda):
+    """The most channels canny_geometry admits run and agree; one more is
+    refused before any launch, by K3a and by K3b."""
+    c = F.canny_geometry(1, 20, 20).max_channels
+    x, _, _, _ = _operands((1, c, 20, 20), False, cuda)
+    edge, dx_k = _canny_check(x, 0.0, cuda)
+    assert 0 < edge.mean() < 1 and dx_k.abs().max() > 0
+    F.reset_launches()
+    with pytest.raises(ValueError, match="channels"):
+        F.canny_fused_fwd(torch.zeros((1, c + 1, 20, 20), device=cuda), 76 / 255, 1.0, 0.0)
+    plane = torch.zeros((1, 1, 20, 20), device=cuda)
+    with pytest.raises(ValueError, match="channels"):
+        F.canny_fused_bwd(plane, plane, plane, plane, c + 1, 76 / 255, 1.0, 0.0)
+    assert all(v == 0 for v in F.LAUNCHES.values())
+
+
+# K1's bands (32 rows, 64-column strips) and K3a's 16 x 32 tiles: one whole
+# band, and ragged last bands, strips and tiles (72 = 2 x 32 + 8 = 4 x 16 + 8
+# = 64 + 8)
+@pytest.mark.parametrize("shape", [(4, 3, 32, 32), (2, 3, 72, 72)])
+def test_canny_edge_map_equals_k1s(cuda, shape):
     """K3a's edge map is K1's: with w = 1 and no square, y - hfs = edge."""
-    x, _, _, _ = _operands((4, 3, 32, 32), False, cuda, seed=2)
+    x, _, _, _ = _operands(shape, False, cuda, seed=2)
+    h, w = shape[2:]
     k = _consts(False)
     _, y = F.ee_fused_fwd(x, None, None, k)
-    ar, ai, br, bi, _ = F.operators(32, 32, 8, 1.0, cuda)
+    ar, ai, br, bi, _ = F.operators(h, w, 8, 1.0, cuda)
     from edge_enhancement_tpu_torch.ops.hfs import hfs_nchw
     edge = F.canny_fused_fwd(x, k.high, 1.0, 0.0)[0]
     torch.testing.assert_close((y - hfs_nchw(x, ar, ai, br, bi)).round(),

@@ -1,16 +1,19 @@
 """The block geometry of the row-band kernels K1/K2 (ops/cuda/ee_fused.py:
-band_geometry, band_operators) at every image size a shipped config gives
-the fused front-end: a block's shared memory fits a Hopper block and the
-bands tile every image row exactly once. The kernels themselves run only on
-a card (tests/test_torch_cuda.py); this pins on any host that each shipped
-step125 config is inside their envelope."""
+band_geometry, band_operators) and of the Canny-only tile kernels K3a/K3b
+(canny_geometry) at every image size a shipped config gives the fused
+front-end: a block's shared memory fits a Hopper block, the bands tile every
+image row and the tiles every pixel exactly once. The kernels themselves run
+only on a card (tests/test_torch_cuda.py); this pins on any host that each
+shipped step125 config is inside their envelope."""
 
+import functools
 import glob
 import os
 import re
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
@@ -98,10 +101,12 @@ def test_the_constants_are_the_kernel_sources():
     compiled with."""
     with open(SOURCE) as f:
         src = f.read()
+    names = "kBandRows|kBandThreads|kChunk|kStripW|kCannyRows|kCannyCols"
     found = {name: int(v) for name, v in
-             re.findall(r"constexpr int (kBandRows|kBandThreads|kChunk|kStripW) = (\d+);", src)}
+             re.findall(rf"constexpr int ({names}) = (\d+);", src)}
     assert found == {"kBandRows": F.BAND_ROWS, "kBandThreads": F.BAND_THREADS,
-                     "kChunk": F.CHUNK, "kStripW": F.STRIP_W}
+                     "kChunk": F.CHUNK, "kStripW": F.STRIP_W,
+                     "kCannyRows": F.CANNY_ROWS, "kCannyCols": F.CANNY_COLS}
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["K1", "K2"])
@@ -120,3 +125,97 @@ def test_band_layout_is_aligned_and_disjoint(c, h, w, backward):
     assert geo.s >= geo.t + 2 * F.BAND_ROWS * geo.ld_t and geo.s % 4 == 0
     assert geo.smem_bytes > 4 * geo.s
     assert len(geo.layout) == 7
+
+
+# the shipped step125 sizes, then the card tests' K3 shapes: ragged tiles
+# with W not a multiple of 4, one tile smaller than the halo, several tiles
+# with ragged last ones, the card tests' largest C
+CANNY_SHAPES = ([(c, n, n) for _, c, n in STEP125]
+                + [(3, 32, 64), (3, 37, 45), (3, 2, 5), (3, 100, 100), (3, 224, 224),
+                   (3, 72, 72), (F.canny_geometry(1, 20, 20).max_channels, 20, 20)])
+
+
+@pytest.mark.parametrize("c,h,w", CANNY_SHAPES)
+def test_canny_geometry_fits_and_tiles_every_pixel(c, h, w):
+    geo = F.canny_geometry(c, h, w)
+    rows, cols = F.CANNY_ROWS, F.CANNY_COLS
+    assert c <= geo.max_channels
+    assert 0 < geo.fwd_smem_bytes <= F.MAX_SMEM_BYTES
+    assert 0 < geo.bwd_smem_bytes <= F.MAX_SMEM_BYTES
+    seen = np.zeros((h, w), int)
+    for i in range(geo.tiles_h):
+        for j in range(geo.tiles_w):
+            assert i * rows < h and j * cols < w        # no tile wholly off the image
+            seen[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols] += 1
+    assert (seen == 1).all()
+
+
+def test_the_canny_envelope_in_channels():
+    """K3a's block holds C tiles of x: the most channels that fit is what
+    both wrappers refuse above, before any launch (the checks run on any
+    host; the device is checked last)."""
+    geo = F.canny_geometry(1, 64, 64)
+    top = geo.max_channels
+    assert F.canny_geometry(top, 64, 64).fwd_smem_bytes <= F.MAX_SMEM_BYTES
+    assert F.canny_geometry(top + 1, 64, 64).fwd_smem_bytes > F.MAX_SMEM_BYTES
+    assert F.canny_geometry(top + 1, 64, 64).bwd_smem_bytes == geo.bwd_smem_bytes
+    with pytest.raises(ValueError, match="channels"):
+        F._check_canny(torch.zeros(1, top + 1, 64, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        F._check_canny(torch.zeros(1, top, 64, 64))
+    plane = torch.zeros(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="channels"):     # K3b's dx
+        F._check_canny(torch.zeros(1, top + 1, 64, 64), plane, plane, plane, plane)
+    with pytest.raises(ValueError, match="CUDA"):
+        F._check_canny(torch.zeros(1, top, 64, 64), plane, plane, plane, plane)
+
+
+def _body(src, function):
+    """The source text of the device function or kernel `function`."""
+    body = src[re.search(rf"\n{function}\(|\s{function}\(", src).start():]
+    return body[:body.index("\n}\n")]
+
+
+def _tiles(body):
+    """{name: halo} of the Tile<> types that a function's body declares."""
+    return {n: int(h) for n, h in re.findall(r"using (\w) = Tile<\w+, \w+, (\d+)>;", body)}
+
+
+@pytest.mark.parametrize("c,h,w", [(1, 28, 28), (3, 64, 64), (3, 37, 45), (3, 224, 224),
+                                   (14, 64, 64), (3, 288, 288)])
+def test_the_shared_memory_holds_the_kernel_sources_tiles(c, h, w):
+    """The wrappers size shared memory by the Tile<> layout of the source:
+    its column padding, each function's halos and its count of tiles. K3a
+    takes C x tiles and the summed blur's (canny_tile), K3b four input
+    tiles and u_summed's (canny_adjoint_tail); K1/K2's Canny strips fit the
+    region they share with the HFS stages."""
+    with open(SOURCE) as f:
+        src = f.read()
+    (pad,) = re.findall(r"kLd = COLS \+ (\d+);", src)
+    assert int(pad) == 2 * F.TILE_PAD
+
+    def floats(rows, cols, halo):
+        return (rows + 2 * halo) * (cols + int(pad))
+
+    fwd, tail = _body(src, "canny_tile"), _body(src, "canny_adjoint_tail")
+    kbwd, band_bwd = _body(src, "canny_bwd_kernel"), _body(src, "band_canny_adjoint")
+    x, s = _tiles(fwd)["X"], _tiles(fwd)["S"]
+    assert "float* sS = smem + C * X::kFloats;" in fwd
+    (n_in,) = re.findall(r"float\* sU = sIn \+ (\d+) \* G::kFloats;", kbwd)
+    u = _tiles(tail)["U"]
+    assert _tiles(tail)["G"] == _tiles(kbwd)["G"]
+
+    canny = functools.partial(floats, F.CANNY_ROWS, F.CANNY_COLS)
+    geo = F.canny_geometry(c, h, w)
+    assert geo.fwd_smem_bytes == 4 * (c * canny(x) + canny(s))
+    assert geo.bwd_smem_bytes == 4 * (int(n_in) * canny(_tiles(kbwd)["G"]) + canny(u))
+
+    band = functools.partial(floats, F.BAND_ROWS, F.STRIP_W)
+    bt = _tiles(band_bwd)
+    for line in ("float* sS = smem + C * X::kFloats;", "float* sG0 = sS + S::kFloats;",
+                 "float* sG1 = sG0 + G::kFloats;", "float* sU = sG1 + G::kFloats;"):
+        assert line in band_bwd
+    k1, k2 = F.band_geometry(c, h, w, False), F.band_geometry(c, h, w, True)
+    assert k1.smem_bytes >= 4 * (k1.s + c * band(x) + band(s))
+    assert k2.smem_bytes >= 4 * (k2.s + c * band(bt["X"]) + band(bt["S"]) + 2 * band(bt["G"])
+                                 + band(u))
