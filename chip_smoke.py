@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. The device: name, power limit, torch and CUDA versions; TF32 off (the
-   slices are float32).
+   float32 slices stay float32).
 2. The build: one nvcc for each source, started together: csrc/ee_fused.cu
    (kernels K1, K2, K3a, K3b) and csrc/gemm_conv.cu (K4), for sm_90a; the
    compiler's register and spill report; the gemm_conv library's SASS must
@@ -19,9 +19,11 @@
    call's time: K1/K2 and K3a/K3b at 100 x 3 x 64 x 64
    float32 (with constant patches and saturated pixels), K1/K2 also at
    ImageNet's 224 px (square on) with 8 images (56 blocks, under half the
-   SMs) and with ImageNet's batch of 128 (896 blocks), K3a/K3b also with
-   ImageNet's batch of 128 at 224 px, each beside its bound and its plain
-   version's time; K4 forward and
+   SMs) and with free-AT's batch of 256, K3a/K3b also with ImageNet's batch
+   of 128 at 224 px, each beside its bound and its plain version's time;
+   K1/K2 in bfloat16 at fast-AT's 256 x 3 x 128 x 128, at 8 x 3 x 224 x 224
+   and at 100 x 3 x 64 x 64, square on and off (the edge maps exact, out
+   and y within one bf16 ulp, dx within the limits below); K4 forward and
    dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, timed on
    weights packed once and with the packing, beside cuDNN's convolution
    (float32 with TF32 off, so both sides compute at float32 accuracy).
@@ -34,11 +36,21 @@
       exact, with no other kernel launched;
    b. the same with the edge map smoothed (`gf: true`): exact K3a/K3b
       counts, no K1/K2 launch;
-   c. the GEMM-conv op (forward and its autograd backward, float32 and
+   c. free-AT on ImageNet (`configs/free_imagenet/free_at_ee.yml`:
+      resnet50_EE, 1000 classes, 224 px, batch 256, float32, 4 replays a
+      batch), 2 train steps and 1 validation batch: K1/K2 float32 launch
+      4 and 4 times a step, 12 and 10 times a validation batch;
+   d. fast-AT on ImageNet (`configs/fast_imagenet/fast_2px_phase1_ee.yml`:
+      resnet50_EE, 128 px, batch 256, the bf16 policy), 2 train steps and 1
+      validation batch: K1/K2 bfloat16 launch 2 and 1 times a step (the
+      descent pass asks for no input gradient), 12 and 10 a validation
+      batch. c and d print ms/step, peak device memory and the front-end
+      kernels' share of the step;
+   e. the GEMM-conv op (forward and its autograd backward, float32 and
       bfloat16) and the bench entry point tools/bench_gemm_conv over its
       three shapes, in bfloat16 and in float32: exact K4 counts; K4's and
       cuDNN's device times at each shape beside the bound.
-5. The reference, for slices a and b: the trained weights on a small
+5. The reference, for slices a to d: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
    the JAX package).
@@ -60,10 +72,19 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CONFIG = os.path.join(ROOT, "edge_enhancement_tpu", "configs", "tiny_imagenet",
-                      "ee_at_bpda3_square.yml")
+CONFIGS = os.path.join(ROOT, "edge_enhancement_tpu", "configs")
+CONFIG = os.path.join(CONFIGS, "tiny_imagenet", "ee_at_bpda3_square.yml")
 SLICE_ARGS = dict(data="synthetic", synthetic_size=600, epochs=1,
                   limit_batches=3, device="cuda")
+# The ImageNet slices: 512 synthetic images make 2 train batches of 256 and
+# a validation split of 256, 1 batch; epochs 1 (free-AT: ceil(1 / 4) = 1)
+IMAGENET_SLICES = (
+    ("free_at", os.path.join(CONFIGS, "free_imagenet", "free_at_ee.yml"),
+     "ee_fused_fwd", "ee_fused_bwd", (4, 4)),
+    ("fast_at", os.path.join(CONFIGS, "fast_imagenet", "fast_2px_phase1_ee.yml"),
+     "ee_fused_fwd_bf16", "ee_fused_bwd_bf16", (2, 1)))
+IMAGENET_ARGS = dict(data="synthetic", synthetic_size=512, epochs=1,
+                     limit_batches=2, device="cuda")
 # K1's outputs: the edge maps agree exactly (same rounding order), the HFS
 # products sum 64 FP32 terms in another order than cuBLAS: ~1e-6 on values
 # of order 1. K2: the same sums, scaled by at most 1/|g| < 1/high = 3.4.
@@ -83,8 +104,15 @@ CONV_F32_ATOL = 1e-4
 CONV_BF16_ATOL, CONV_BF16_RTOL = 1e-4, 2.0 ** -7
 # Logits of the small batch, card vs CPU, relative to the largest logit
 # (eval-mode logits after 3 steps can reach the thousands): the edge maps
-# agree bit for bit, the rest is two libraries' float32 convolutions.
-REF_TOL = 1e-3
+# agree bit for bit, the rest is two libraries' float32 convolutions. Under
+# the bf16 policy both round every convolution's output to bfloat16 (2^-9
+# relative) after float32 sums in other orders, through 53 layers.
+REF_TOL, REF_TOL_BF16 = 1e-3, 5e-2
+# K1/K2 bfloat16 against their plain versions: the edge maps exact, out and
+# y within one bf16 ulp, at most BF16_DX_SHARE of dx more than one ulp off
+# and none more than BF16_DX_REL of the largest |dx| (tests/test_torch_cuda.py
+# explains them).
+BF16_DX_REL, BF16_DX_SHARE = 2.0 ** -7, 1e-2
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor),
 # dense bf16 and dense TF32 tensor-core FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16, PEAK_TF32 = 3.35e12, 67e12, 989e12, 494.7e12
@@ -96,8 +124,10 @@ BENCH_BF16_DIFF, BENCH_F32_DIFF = 0.5, 1e-3
 CONV_SHAPE = (128, 56, 56, 64, 64)
 BENCH_REPS = 5
 # K1/K2's further checks: ImageNet's 224 px, which the row-band kernels
-# take, on a few images and at the batch that fills the card
-LARGE_SHAPES = ((8, 3, 224, 224), (128, 3, 224, 224))
+# take, on a few images and at free-AT's batch
+LARGE_SHAPES = ((8, 3, 224, 224), (256, 3, 224, 224))
+# K1/K2 bfloat16: fast-AT's batch at 128 px first, then 224 px and 64 px
+BF16_SHAPES = ((256, 3, 128, 128), (8, 3, 224, 224), (100, 3, 64, 64))
 # K3a/K3b's further check: ImageNet's batch at 224 px, 180 MB a launch
 CANNY_LARGE_SHAPES = ((128, 3, 224, 224),)
 
@@ -164,7 +194,7 @@ def _timings(torch, kernel, plain, library=None) -> dict:
 
 
 def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def _patched_input(torch, dev, shape=(100, 3, 64, 64)):
@@ -261,6 +291,98 @@ def kernel_phase(torch):
         {"name": "ee_fused_bwd", "route": "cuda", "source": src,
          "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:427",
          **k2},
+    ]
+
+
+def _bf16_case(torch, shape, square: bool):
+    """K1 and K2 in bfloat16 against their plain versions at `shape`: the
+    edge map exact (a flip moves y by w = 1), out and y within one bf16 ulp,
+    dx within BF16_DX_SHARE and BF16_DX_REL; the times and the bounds."""
+    from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
+    from edge_enhancement_tpu_torch.ops.square import (add_square_draws,
+                                                       kernel_layout)
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    x = _patched_input(torch, dev, shape).to(bf16)
+    b, c, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    eps = 0.062745098039216
+    st = sqd = None
+    if square:
+        st, sqd = kernel_layout(add_square_draws((b, h, w, c), gen), eps, bf16)
+    k = F.FusedConsts(r=8, eps=eps, w=1.0, alpha=0.0, high=76.0 / 255.0,
+                      sigma=1.0, square=square)
+    u = torch.randn(x.shape, generator=gen, device=dev).to(bf16)
+
+    out_k, y_k = F.ee_fused_fwd(x, st, sqd, k)
+    torch.cuda.synchronize()
+    out_p, y_p = F.ee_fused_fwd_plain(x, st, sqd, k)
+    flips = int(((y_k.float() - y_p.float()).abs() >= 0.5).sum().item())
+    fwd_ulps = max(F.bf16_ulps(out_k, out_p).max().item(),
+                   F.bf16_ulps(y_k, y_p).max().item())
+    fwd_err = max((out_k.float() - out_p.float()).abs().max().item(),
+                  (y_k.float() - y_p.float()).abs().max().item())
+    dx_k = F.ee_fused_bwd(u, x, st, sqd, y_k, k)
+    torch.cuda.synchronize()
+    dx_p = F.ee_fused_bwd_plain(u, x, st, sqd, y_k, k)
+    share = (F.bf16_ulps(dx_k, dx_p) > 1).float().mean().item()
+    bwd_err = (dx_k.float() - dx_p.float()).abs().max().item()
+    dx_max = dx_p.float().abs().max().item()
+    finite = all(bool(torch.isfinite(t).all()) for t in (out_k, y_k, dx_k))
+    tag = "x".join(map(str, shape)) + (" square" if square else "")
+    print(f"[kernels] bf16 at ({tag}): K1 vs plain: {flips} edge flips, max "
+          f"{fwd_ulps:.0f} ulp, max |err| {fwd_err:.3e} (limits 0, 1 ulp); K2 vs plain: "
+          f"{100 * share:.4f}% of dx more than one ulp off (limit "
+          f"{100 * BF16_DX_SHARE}%), max |err| {bwd_err:.3e} (limit "
+          f"{BF16_DX_REL * dx_max:.3e}, max |dx| {dx_max:.3f})", flush=True)
+    if (not finite or flips or fwd_ulps > 1 or share > BF16_DX_SHARE
+            or bwd_err > BF16_DX_REL * dx_max or dx_max < 0.1
+            or {out_k.dtype, y_k.dtype, dx_k.dtype} != {bf16}):
+        fail(f"a bfloat16 kernel disagrees with its plain version at {tag}")
+
+    t1 = _timings(torch, lambda: F.ee_fused_fwd(x, st, sqd, k),
+                  lambda: F.ee_fused_fwd_plain(x, st, sqd, k))
+    t2 = _timings(torch, lambda: F.ee_fused_bwd(u, x, st, sqd, y_k, k),
+                  lambda: F.ee_fused_bwd_plain(u, x, st, sqd, y_k, k))
+    # the four products as bf16 x bf16 summed in float32, what the bf16
+    # tensor cores do; bytes: the bf16 planes and the float32 operators
+    # (rounded to bf16) the kernels read, once each
+    flops = b * c * (4 * h * h * w + 4 * h * w * w)
+    ops1 = F.band_operators(h, w, 8, False, dev, bf16)
+    ops2 = F.band_operators(h, w, 8, True, dev, bf16)
+    b1 = bound(_nbytes(x, st, sqd, *ops1, out_k, y_k), flops, PEAK_BF16)
+    b2 = bound(_nbytes(u, x, y_k, st, sqd, *ops2, dx_k), flops, PEAK_BF16)
+    print(f"[kernels] bf16 at ({tag}), ms per launch on the device (eager call in "
+          f"brackets): K1 {t1['ms']:.4f} ({t1['call_ms']:.4f}) vs plain "
+          f"{t1['plain_ms']:.4f}, bound {b1['bound_us']:.2f} us ({b1['bound_by']}), "
+          f"{100 * b1['bound_ms'] / t1['ms']:.1f}% of it; K2 {t2['ms']:.4f} "
+          f"({t2['call_ms']:.4f}) vs plain {t2['plain_ms']:.4f}, bound "
+          f"{b2['bound_us']:.2f} us ({b2['bound_by']}), "
+          f"{100 * b2['bound_ms'] / t2['ms']:.1f}% of it", flush=True)
+    return ({"max_abs_err": fwd_err, "max_ulps": fwd_ulps, **t1, **b1},
+            {"max_abs_err": bwd_err, "share_over_1_ulp": share, **t2, **b2})
+
+
+def bf16_kernel_phase(torch):
+    """K1 and K2 in bfloat16: the first row is fast-AT's shape without the
+    square (resnet50_EE), the others under at_<shape>[_square]."""
+    rows = None
+    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    for shape in BF16_SHAPES:
+        for square in (False, True):
+            r1, r2 = _bf16_case(torch, shape, square)
+            if rows is None:
+                rows = (r1, r2)
+                continue
+            at = "at_" + "x".join(map(str, shape)) + ("_square" if square else "")
+            rows[0][at] = {k: r1[k] for k in keys}
+            rows[1][at] = {k: r2[k] for k in keys}
+    src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
+    return [
+        {"name": "ee_fused_fwd_bf16", "route": "cuda", "source": src,
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:409", **rows[0]},
+        {"name": "ee_fused_bwd_bf16", "route": "cuda", "source": src,
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:427", **rows[1]},
     ]
 
 
@@ -414,6 +536,13 @@ def conv_bound(dtype, nbytes: float, flop: float) -> dict:
     return bound(nbytes, flop, PEAK_BF16)
 
 
+def _record_launches(kernels, path: str, launches: dict) -> None:
+    """Each kernel's launches on `path`, under launches_by_path."""
+    for kern in kernels:
+        if launches.get(kern["name"]):
+            kern.setdefault("launches_by_path", {})[path] = launches[kern["name"]]
+
+
 def _reset_counts():
     from edge_enhancement_tpu_torch.ops.cuda import ee_fused, gemm_conv
     ee_fused.reset_launches()
@@ -453,9 +582,7 @@ def slice_phase(torch, kernels, device_line, gf: bool):
         fail("kernel launch counts differ from the slice's forwards/backwards")
     if not math.isfinite(summary["loss"]):
         fail(f"loss {summary['loss']} is not finite")
-    for kern in kernels:
-        if kern["name"] in (fwd, bwd):
-            kern["launches"] = launches[kern["name"]]
+    _record_launches(kernels, tag, launches)
     secs = summary["step_seconds"]
     steady = sorted(secs[1:]) or secs
     ms = 1000.0 * steady[len(steady) // 2]
@@ -463,6 +590,60 @@ def slice_phase(torch, kernels, device_line, gf: bool):
     print(f"[slice {tag}] train step ms: {[round(1000 * s, 1) for s in secs]}; "
           f"median after the first {ms:.1f} ms/step = {bs / ms * 1000:.1f} img/s "
           f"(bs{bs}, f32, PGD-10) on {device_line}", flush=True)
+    return cfg, summary["checkpoint"]
+
+
+def _kernel_ms(kernels, name: str, at: str = "") -> float:
+    """A kernel's device ms per launch: its first row, or the one at `at`."""
+    kern = next(k for k in kernels if k["name"] == name)
+    return (kern[at] if at else kern)["ms"]
+
+
+def imagenet_slice_phase(torch, kernels, device_line, tag: str, path: str,
+                         fwd: str, bwd: str, per_step: tuple):
+    """An ImageNet recipe through the port's driver at full width
+    (resnet50_EE, 1000 classes, batch 256): 2 train steps, 1 validation
+    batch, exact launch counts of its front-end pair, a finite loss;
+    ms/step, peak device memory and the front-end kernels' share of the
+    step (launches a step times their device ms, over the step's ms)."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    cfg = load_config(path, dict(IMAGENET_ARGS, output=os.path.join(
+        ROOT, "output", "chip_smoke", tag)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    summary = run(cfg)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+    n_steps = int(cfg["num_steps_1"])
+    want = {k: 0 for k in launches}
+    want.update({fwd: steps * per_step[0] + evals * (n_steps + 2),
+                 bwd: steps * per_step[1] + evals * n_steps})
+    print(f"[slice {tag}] {cfg['arch']} {cfg['cize']} px bs{cfg['batch_size']} "
+          f"{'bf16' if cfg.get('half') else 'f32'}: {steps} train steps, {evals} eval "
+          f"batches; launches {launches}, expected {want}; loss "
+          f"{summary['loss']:.4f}", flush=True)
+    if steps != 2 or evals != 1:
+        fail(f"expected 2 train steps and 1 eval batch, got {steps}, {evals}")
+    if launches != want:
+        fail(f"the {tag} slice's kernel launch counts differ from its passes")
+    if not math.isfinite(summary["loss"]):
+        fail(f"loss {summary['loss']} is not finite")
+    _record_launches(kernels, tag, launches)
+    secs = summary["step_seconds"]
+    ms = 1000.0 * sorted(secs[1:])[len(secs[1:]) // 2]
+    shape = f"at_{cfg['batch_size']}x3x{cfg['cize']}x{cfg['cize']}"
+    front = (per_step[0] * _kernel_ms(kernels, fwd, "" if fwd.endswith("bf16") else shape)
+             + per_step[1] * _kernel_ms(kernels, bwd, "" if bwd.endswith("bf16") else shape))
+    print(f"[slice {tag}] train step ms: {[round(1000 * s, 1) for s in secs]}; "
+          f"after the first {ms:.1f} ms/step = {int(cfg['batch_size']) / ms * 1000:.1f} "
+          f"img/s; peak device memory {peak_gb:.2f} GB; front-end kernels "
+          f"{front:.2f} ms a step ({per_step[0]} x {fwd}, {per_step[1]} x {bwd}), "
+          f"{100 * front / ms:.2f}% of the step; on {device_line}", flush=True)
     return cfg, summary["checkpoint"]
 
 
@@ -513,9 +694,9 @@ def conv_path_phase(torch, kernels):
             bench.append({"shape": r["label"], "ms": r["ms"], "op_ms": r["op_ms"],
                           "library_ms": r["cudnn_ms"], "bound_ms": b["bound_ms"],
                           "bound_by": b["bound_by"], "max_diff": r["max_diff"]})
+    _record_launches(kernels, "conv", launches)
     for kern in kernels:
-        if kern["name"] in want and kern["name"].startswith("conv_cgemm"):
-            kern["launches"] = launches[kern["name"]]
+        if kern["name"].startswith("conv_cgemm"):
             kern["bench"] = benches["float32" if kern["name"].endswith("f32")
                                     else "bfloat16"]
 
@@ -532,8 +713,11 @@ def reference_phase(torch, cfg, checkpoint):
     if not all(bool(torch.isfinite(v).all()) for v in state.values()):
         fail("checkpoint holds non-finite weights")
     num_classes = state["fc.weight"].shape[0]
+    size = int(cfg["cize"])
+    n = 8 if size <= 64 else 4
+    tol = REF_TOL_BF16 if cfg.get("half") else REF_TOL
     x = torch.from_numpy(
-        np.random.default_rng(1).random((8, 64, 64, 3)).astype(np.float32))
+        np.random.default_rng(1).random((n, size, size, 3)).astype(np.float32))
     draws = add_square_draws(x.shape, torch.Generator().manual_seed(1))
     logits = {}
     for dev in ("cpu", "cuda"):
@@ -546,12 +730,12 @@ def reference_phase(torch, cfg, checkpoint):
             logits[dev] = model(x.to(dev)).cpu()
     scale = max(1.0, logits["cpu"].abs().max().item())
     err = (logits["cuda"] - logits["cpu"]).abs().max().item() / scale
-    print(f"[reference] gf={bool(cfg.get('gf'))}: logits "
-          f"{tuple(logits['cuda'].shape)} on 8x64x64x3, card vs CPU: max |err| / "
-          f"max(1, max |logit|) {err:.3e} (limit {REF_TOL}), max |logit| "
-          f"{scale:.3f}", flush=True)
-    if (logits["cuda"].shape != (8, num_classes)
-            or not bool(torch.isfinite(logits["cuda"]).all()) or err > REF_TOL):
+    print(f"[reference] {cfg['arch']} {cfg['method_name']} gf={bool(cfg.get('gf'))} "
+          f"half={bool(cfg.get('half'))}: logits {tuple(logits['cuda'].shape)} on "
+          f"{n}x{size}x{size}x3, card vs CPU: max |err| / max(1, max |logit|) "
+          f"{err:.3e} (limit {tol}), max |logit| {scale:.3f}", flush=True)
+    if (logits["cuda"].shape != (n, num_classes)
+            or not bool(torch.isfinite(logits["cuda"]).all()) or err > tol):
         fail("the card's logits disagree with the CPU reference")
 
 
@@ -562,13 +746,20 @@ def main():
     sys.path.insert(0, ROOT)
     build_phase()
     kernels = kernel_phase(torch)
+    kernels += bf16_kernel_phase(torch)
     kernels += canny_kernel_phase(torch)
     kernels += conv_kernel_phase(torch)
     for gf in (False, True):
         cfg, checkpoint = slice_phase(torch, kernels, smi, gf)
         reference_phase(torch, cfg, checkpoint)
+    for tag, path, fwd, bwd, per_step in IMAGENET_SLICES:
+        cfg, checkpoint = imagenet_slice_phase(torch, kernels, smi, tag, path,
+                                               fwd, bwd, per_step)
+        reference_phase(torch, cfg, checkpoint)
     conv_path_phase(torch, kernels)
-    if any("launches" not in k or k["launches"] < 1 for k in kernels):
+    for kern in kernels:
+        kern["launches"] = sum(kern.get("launches_by_path", {}).values())
+    if any(k["launches"] < 1 for k in kernels):
         fail("a kernel was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 """JAX ResNet parameters -> this package's state_dict.
 
 `state_dict_from_jax(params, batch_stats)` takes the flax trees of
-edge_enhancement_tpu's ResNet-18 as nested dicts of numpy arrays and returns
+edge_enhancement_tpu's ResNet (18/34 with BasicBlocks, 50/101/152 with
+Bottlenecks) as nested dicts of numpy arrays and returns
 a state_dict with torchvision names: conv kernels HWIO -> OIHW, Dense
 (in, out) -> (out, in), BatchNorm scale/bias/mean/var -> weight/bias/
 running_mean/running_var. Every array is copied.
@@ -12,23 +13,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_LAYERS = {18: (2, 2, 2, 2)}
+from .models.resnet import _LAYOUTS, BasicBlock
 
 
 def resnet_name_map(depth: int = 18) -> dict:
-    """torchvision module name -> flax module path (flax names modules by
-    call order: BasicBlock_k holds Conv_0/1 (+ Conv_2 for the projection))."""
+    """torchvision module name -> flax module path. flax names modules by
+    call order: BasicBlock_k holds Conv_0/1 and BatchNorm_0/1, Bottleneck_k
+    Conv_0/1/2 and BatchNorm_0/1/2 (1x1, 3x3, 1x1), and the block's
+    projection, where it has one, is the next Conv and BatchNorm."""
+    block, layers = _LAYOUTS[depth]
+    n = 2 if block is BasicBlock else 3     # convolutions on the main path
     m = {"conv1": ("Conv_0",), "bn1": ("BatchNorm_0",), "fc": ("Dense_0",)}
     k = 0
-    for li, n in enumerate(_LAYERS[depth]):
-        for i in range(n):
-            blk, base = f"BasicBlock_{k}", f"layer{li + 1}.{i}"
+    for li, blocks in enumerate(layers):
+        for i in range(blocks):
+            blk, base = f"{block.__name__}_{k}", f"layer{li + 1}.{i}"
             k += 1
-            for ci in range(2):
+            for ci in range(n):
                 m[f"{base}.conv{ci + 1}"] = (blk, f"Conv_{ci}")
                 m[f"{base}.bn{ci + 1}"] = (blk, f"BatchNorm_{ci}")
-            m[f"{base}.downsample.0"] = (blk, "Conv_2")
-            m[f"{base}.downsample.1"] = (blk, "BatchNorm_2")
+            m[f"{base}.downsample.0"] = (blk, f"Conv_{n}")
+            m[f"{base}.downsample.1"] = (blk, f"BatchNorm_{n}")
     return m
 
 

@@ -65,10 +65,30 @@
 // PyTorch composition (row-major), so the edge maps of K1, K3a and the plain
 // version agree exactly: `mag > high` flips on one-ulp differences. The
 // square chain does the same, since its clips decide gradient ties. The HFS products stay on the FP32 pipes.
+//
+// K1 and K2 also take bfloat16, as the JAX kernels compute in x's dtype (the
+// bf16 policy of the fast-AT recipes). A number policy (F32, BF16 below)
+// loads and stores the tensors' type and rounds to bfloat16 at exactly the
+// points where the JAX kernel's dtype is bfloat16 (`_fwd_kernel`,
+// `_bwd_kernel` and their helpers in edge_enhancement_tpu/ops/pallas/
+// ee_fused.py): each product and sum of the blur, the Sobel and the square
+// chain; the channel sum (summed in float32, rounded once); the HFS
+// intermediate A X (K1) and U B (K2) and the float32 difference of the two
+// sandwiches; w * edge and y; dx = dx_hfs + dx_canny summed in float32 and
+// rounded once. Everything else computes in float32 registers, as the JAX
+// kernel's float32 accumulations and its float32 magnitude chain and Canny
+// adjoint do. Shared memory holds float32 either way, so the block layout is
+// the float32 one. JAX contracts K2's adjoint over W first (U B, then A^T),
+// so the bfloat16 K2 works on the transposed problem, dx^T = B^T U^T A: a
+// block owns a band of kBandRows image columns, its HFS products read the
+// planes transposed, and its Canny branch walks the column band in strips of
+// kStripW rows (band_canny_adjoint<true>).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -76,6 +96,26 @@ struct Params {
   int B, C, H, W;
   float eps, w, alpha, high;
   int square;
+};
+
+// The number policies of K1/K2: the tensors' element type, its loads and
+// stores through float32, and r(v), the rounding of a float32 result to what
+// a bfloat16 operation gives (products and sums of two bfloat16 values are
+// exact in float32, so rounding the float32 result is the bfloat16 result).
+struct F32 {
+  using T = float;
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ float r(float v) { return v; }
+};
+
+struct BF16 {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ float load(const T* p) { return __bfloat162float(*p); }
+  static __device__ __forceinline__ void store(T* p, float v) { *p = __float2bfloat16_rn(v); }
+  static __device__ __forceinline__ float r(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -102,22 +142,24 @@ __device__ __forceinline__ float edge_of(float mag, const Params& p) {
   return (mag_m > p.high) ? 1.f : 0.f;
 }
 
+template <class P>
 __device__ __forceinline__ float square_fwd(float x, float st, float sqd,
                                             float eps) {
-  const float t2 = clip01(__fadd_rn(x, __fmul_rn(eps, st)));
-  const float t3 = __fadd_rn(t2, sqd);
-  const float t5 = fminf(fmaxf(t3, __fsub_rn(x, eps)), __fadd_rn(x, eps));
+  const float t2 = clip01(P::r(__fadd_rn(x, P::r(__fmul_rn(eps, st)))));
+  const float t3 = P::r(__fadd_rn(t2, sqd));
+  const float t5 = fminf(fmaxf(t3, P::r(__fsub_rn(x, eps))), P::r(__fadd_rn(x, eps)));
   return clip01(t5);
 }
 
 // Adjoint of square_fwd w.r.t. x (stripes and delta are constants): through
 // the perturbation chain and through the projection bounds x +- eps.
+template <class P>
 __device__ __forceinline__ float square_bwd(float u, float x, float st,
                                             float sqd, float eps) {
-  const float t1 = __fadd_rn(x, __fmul_rn(eps, st));
+  const float t1 = P::r(__fadd_rn(x, P::r(__fmul_rn(eps, st))));
   const float t2 = clip01(t1);
-  const float t3 = __fadd_rn(t2, sqd);
-  const float xl = __fsub_rn(x, eps), xh = __fadd_rn(x, eps);
+  const float t3 = P::r(__fadd_rn(t2, sqd));
+  const float xl = P::r(__fsub_rn(x, eps)), xh = P::r(__fadd_rn(x, eps));
   const float t4 = fmaxf(t3, xl);
   const float t5 = fminf(t4, xh);
   const float u_t5 = u * clip_mask(t5);
@@ -129,7 +171,8 @@ __device__ __forceinline__ float square_bwd(float u, float x, float st,
   const float d_t3 = (t3 > xl ? 1.f : 0.f) + tie_max;
   const float d_xl = (xl > t3 ? 1.f : 0.f) + tie_max;
   const float u_t1 = u_t4 * d_t3 * clip_mask(t1);
-  return u_t1 + u_t5 * d_xh + u_t4 * d_xl;
+  // the products by 0, 0.5 and 1 are exact; the sums round
+  return P::r(__fadd_rn(P::r(__fadd_rn(u_t1, __fmul_rn(u_t5, d_xh))), __fmul_rn(u_t4, d_xl)));
 }
 
 // ---- K1/K2: row bands ------------------------------------------------------
@@ -255,9 +298,10 @@ __device__ __forceinline__ void pipeline(int nk, float* stages, int stage_floats
 }
 
 // K1's plane: xs = add_square(x) of one channel, 0 off the plane.
-template <int Q>
+template <int Q, class P>
 struct SquarePlane {
-  const float *x, *st, *sqd;
+  using T = typename P::T;
+  const T *x, *st, *sqd;
   int H, W;
   float eps;
   int square;
@@ -266,40 +310,44 @@ struct SquarePlane {
   __device__ __forceinline__ void load(int q, int h, int w) {
     ok[q] = h < H && w < W;
     if (!ok[q]) return;
-    vx[q] = x[h * W + w];
+    vx[q] = P::load(x + h * W + w);
     if (square) {
-      vs[q] = st[w];
-      vd[q] = sqd[h * W + w];
+      vs[q] = P::load(st + w);
+      vd[q] = P::load(sqd + h * W + w);
     }
   }
   __device__ __forceinline__ float value(int q) const {
     if (!ok[q]) return 0.f;
-    return square ? square_fwd(vx[q], vs[q], vd[q], eps) : vx[q];
+    return square ? square_fwd<P>(vx[q], vs[q], vd[q], eps) : vx[q];
   }
 };
 
-// K2's plane: U = u clip'(y) of one channel, 0 off the plane.
-template <int Q>
+// K2's plane: U = u clip'(y) of one channel, 0 off the plane; TRANSPOSED
+// reads U^T: (k, j) is pixel (j, k) of the H x W plane.
+template <int Q, class P, bool TRANSPOSED>
 struct CotangentPlane {
-  const float *u, *y;
+  using T = typename P::T;
+  const T *u, *y;
   int H, W;
   float vu[Q], vy[Q];
   bool ok[Q];
-  __device__ __forceinline__ void load(int q, int h, int w) {
+  __device__ __forceinline__ void load(int q, int k, int j) {
+    const int h = TRANSPOSED ? j : k, w = TRANSPOSED ? k : j;
     ok[q] = h < H && w < W;
     if (!ok[q]) return;
-    vu[q] = u[h * W + w];
-    vy[q] = y[h * W + w];
+    vu[q] = P::load(u + h * W + w);
+    vy[q] = P::load(y + h * W + w);
   }
   __device__ __forceinline__ float value(int q) const {
-    return ok[q] ? vu[q] * clip_mask(vy[q]) : 0.f;
+    return ok[q] ? P::r(vu[q] * clip_mask(vy[q])) : 0.f;
   }
 };
 
 // One channel's HFS products on the band [h0, h0 + kBandRows): T = [Lr; Li] P
-// into sT, then hfs = Tr Rr - Ti Ri, handed to epilogue(r, h, w, hfs) for
-// each pixel (h0 + r, w) of the band that lies in the image.
-template <class Plane, class Epilogue>
+// into sT (rounded by the policy P), then hfs = Tr Rr - Ti Ri, handed to
+// epilogue(r, h, w, hfs) for each pixel (h0 + r, w) of the band that lies in
+// the H x W plane.
+template <class P, class Plane, class Epilogue>
 __device__ __forceinline__ void band_hfs(const BandLayout& L, int H, int W, int h0,
                                          const float* __restrict__ lr,
                                          const float* __restrict__ li,
@@ -359,7 +407,7 @@ __device__ __forceinline__ void band_hfs(const BandLayout& L, int H, int W, int 
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       *reinterpret_cast<float4*>(sT + (row0 + kRowStep * i) * L.ld_t + pc0 + 4 * cg) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          make_float4(P::r(acc[i][0]), P::r(acc[i][1]), P::r(acc[i][2]), P::r(acc[i][3]));
   }
   __syncthreads();
 
@@ -447,18 +495,23 @@ __device__ __forceinline__ void store_quad(float* p, float4 v, bool vec, int n) 
 // its 4 pixels lie in the plane and `vec` holds (W % 4 == 0 and the planes
 // start on 16 bytes), else 4-byte copies. A read off the plane takes the
 // nearest edge pixel (REPLICATE) or zero. A thread that has waited for its
-// own copies may read its own units before any barrier.
-template <class T, int THREADS, bool REPLICATE, class Plane>
+// own copies may read its own units before any barrier. Planes of the
+// policy P's type: float32 by cp.async; bfloat16 loaded, converted to float32
+// and stored by the thread, so the tile is float32 either way.
+template <class T, int THREADS, bool REPLICATE, class P, class Plane>
 __device__ __forceinline__ void stage_tile(float* dst, int n, Plane plane, int H, int W,
                                            int h0, int w0, bool vec) {
   constexpr int kUnitsPerRow = T::kLd / 4;
+  constexpr bool kAsync = std::is_same<P, F32>::value;
   for (int e = threadIdx.x; e < T::kFloats / 4; e += THREADS) {
     const int h = h0 - T::kHalo + e / kUnitsPerRow, w = w0 - 4 + 4 * (e % kUnitsPerRow);
     float* d = dst + 4 * e;
     const bool row_in = h >= 0 && h < H;
-    if (vec && row_in && w >= 0 && w + 4 <= W) {
-      for (int i = 0; i < n; ++i) cp_async16(d + i * T::kFloats, plane(i) + (size_t)h * W + w);
-      continue;
+    if constexpr (kAsync) {
+      if (vec && row_in && w >= 0 && w + 4 <= W) {
+        for (int i = 0; i < n; ++i) cp_async16(d + i * T::kFloats, plane(i) + (size_t)h * W + w);
+        continue;
+      }
     }
     const size_t row = (size_t)clampi(h, 0, H - 1) * W;
 #pragma unroll
@@ -466,10 +519,12 @@ __device__ __forceinline__ void stage_tile(float* dst, int n, Plane plane, int H
       const bool in = row_in && w + j >= 0 && w + j < W;
       const size_t q = row + clampi(w + j, 0, W - 1);
       for (int i = 0; i < n; ++i) {
-        if (REPLICATE || in)
+        if (!REPLICATE && !in)
+          d[i * T::kFloats + j] = 0.f;
+        else if constexpr (kAsync)
           cp_async4(d + i * T::kFloats + j, plane(i) + q);
         else
-          d[i * T::kFloats + j] = 0.f;
+          d[i * T::kFloats + j] = P::load(plane(i) + q);
       }
     }
   }
@@ -493,24 +548,25 @@ __device__ __forceinline__ void sobel_taps(float (&kx)[9], float (&ky)[9]) {
 // runtime test a tap would branch around each of its loads, so the blur
 // multiplies all its taps: on finite pixels a zero tap adds a zero, which
 // changes no sum but the sign of a zero one.
-template <bool SKIP_ZEROS, class A>
+template <bool SKIP_ZEROS, class P, class A>
 __device__ __forceinline__ float tap_sum(A a, const float (&k)[9]) {
   float acc = 0.f;
   bool first = true;
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
     if (SKIP_ZEROS && k[t] == 0.f) continue;
-    const float v = __fmul_rn(k[t], a(t / 3 - 1, t % 3 - 1));
-    acc = first ? v : __fadd_rn(acc, v);
+    const float v = P::r(__fmul_rn(k[t], a(t / 3 - 1, t % 3 - 1)));
+    acc = first ? v : P::r(__fadd_rn(acc, v));
     first = false;
   }
   return acc;
 }
 
 // The summed blur into tile S (the tile plus S's halo) from the C x tiles X:
-// each channel blurred, the channels summed in order; off the image S holds
-// the nearest edge pixel's value, the Sobel's edge replication.
-template <class X, class S, int THREADS>
+// each channel blurred, the channels summed in order (in float32, rounded
+// once by P); off the image S holds the nearest edge pixel's value, the
+// Sobel's edge replication.
+template <class X, class S, int THREADS, class P>
 __device__ __forceinline__ void blur_stage(const float* sX, float* sS, const float (&g)[9],
                                            int C, int H, int W, int h0, int w0) {
   constexpr int kCols = S::kCols + 2 * S::kHalo;
@@ -520,10 +576,10 @@ __device__ __forceinline__ void blur_stage(const float* sX, float* sS, const flo
     const float* at = sX + X::at(hr, ws);
     float sum = 0.f;
     for (int c = 0; c < C; ++c, at += X::kFloats) {
-      const float b = tap_sum<false>([&](int di, int dj) { return at[di * X::kLd + dj]; }, g);
+      const float b = tap_sum<false, P>([&](int di, int dj) { return at[di * X::kLd + dj]; }, g);
       sum = c == 0 ? b : __fadd_rn(sum, b);
     }
-    sS[S::at(r, s)] = sum;
+    sS[S::at(r, s)] = P::r(sum);
   }
 }
 
@@ -531,16 +587,17 @@ __device__ __forceinline__ void blur_stage(const float* sX, float* sS, const flo
 // by a(i, j) as in tap_sum. A zero operand would send the IEEE division and
 // square root down their slow paths even where the result is not taken (flat
 // regions make many): they get 1 there, and the zero is selected, bit for bit
-// the same.
-template <class A>
+// the same. The Sobel sums round by P; the division and the magnitude are
+// float32.
+template <class P, class A>
 __device__ __forceinline__ Grad sobel_mag_tile(A a, int C) {
   float kx[9], ky[9];
   sobel_taps(kx, ky);
   const float cf = (float)C;
   auto over_c = [&](float v) { return v == 0.f ? v : __fdiv_rn(v == 0.f ? 1.f : v, cf); };
   Grad g;
-  g.gx = over_c(tap_sum<true>(a, kx));
-  g.gy = over_c(tap_sum<true>(a, ky));
+  g.gx = over_c(tap_sum<true, P>(a, kx));
+  g.gy = over_c(tap_sum<true, P>(a, ky));
   const float v = __fadd_rn(__fmul_rn(g.gx, g.gx), __fmul_rn(g.gy, g.gy));
   g.mag = (v == 0.f) ? 0.f : __fsqrt_rn(v == 0.f ? 1.f : v);
   return g;
@@ -573,25 +630,25 @@ __device__ __forceinline__ void for_each_quad(const float* tile, Fn fn) {
 // 1-pixel halo, then epilogue(r, s, q) for every quad of the tile, in the
 // image or not, q[j] being the Grad of pixel (h0 + r, w0 + s + j). Ends
 // without a barrier.
-template <int ROWS, int COLS, int THREADS, class Epilogue>
-__device__ __forceinline__ void canny_tile(const float* __restrict__ xb, const float (&g)[9],
-                                           int C, int H, int W, int h0, int w0, bool vec,
-                                           float* smem, Epilogue epilogue) {
+template <int ROWS, int COLS, int THREADS, class P, class Epilogue>
+__device__ __forceinline__ void canny_tile(const typename P::T* __restrict__ xb,
+                                           const float (&g)[9], int C, int H, int W, int h0,
+                                           int w0, bool vec, float* smem, Epilogue epilogue) {
   using X = Tile<ROWS, COLS, 2>;
   using S = Tile<ROWS, COLS, 1>;
   float* sS = smem + C * X::kFloats;
-  stage_tile<X, THREADS, true>(
+  stage_tile<X, THREADS, true, P>(
       smem, C, [&](int c) { return xb + (size_t)c * H * W; }, H, W, h0, w0, vec);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  blur_stage<X, S, THREADS>(smem, sS, g, C, H, W, h0, w0);
+  blur_stage<X, S, THREADS, P>(smem, sS, g, C, H, W, h0, w0);
   __syncthreads();
   for_each_quad<S, THREADS>(sS, [&](int r, int s, const float (&win)[3][6]) {
     Grad q[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      q[j] = sobel_mag_tile([&](int di, int dj) { return win[1 + di][1 + j + dj]; }, C);
+      q[j] = sobel_mag_tile<P>([&](int di, int dj) { return win[1 + di][1 + j + dj]; }, C);
     epilogue(r, s, q);
   });
 }
@@ -685,11 +742,12 @@ __device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float
 
 // K1's Canny branch: the band's edge map into sE (row stride lde, a multiple
 // of 4), strip by strip.
-__device__ __forceinline__ void band_edge(const float* __restrict__ xb, const float (&g)[9],
-                                          const Params& p, int h0, bool vec, float* smem,
-                                          float* sE, int lde) {
+template <class P>
+__device__ __forceinline__ void band_edge(const typename P::T* __restrict__ xb,
+                                          const float (&g)[9], const Params& p, int h0,
+                                          bool vec, float* smem, float* sE, int lde) {
   for (int w0 = 0; w0 < p.W; w0 += kStripW) {
-    canny_tile<kBandRows, kStripW, kBandThreads>(
+    canny_tile<kBandRows, kStripW, kBandThreads, P>(
         xb, g, p.C, p.H, p.W, h0, w0, vec, smem, [&](int r, int s, const Grad (&q)[4]) {
           if (w0 + s < p.W)
             store_quad(sE + r * lde + w0 + s,
@@ -703,26 +761,33 @@ __device__ __forceinline__ void band_edge(const float* __restrict__ xb, const fl
 
 // K2's Canny branch: the band's share of dx from the edge map, one plane for
 // every channel, into sE (row stride lde, a multiple of 4). Per strip: x
-// with a 4-pixel halo and u_edge = w sum_c U on the band plus 2, the summed
-// blur with 3, u_gx / u_gy on the band plus 2 (mag, gx, gy recomputed, then
-// the gate), then canny_adjoint_tail.
-__device__ __forceinline__ void band_canny_adjoint(const float* __restrict__ xb,
-                                                   const float* __restrict__ ub,
-                                                   const float* __restrict__ yb,
+// with a 4-pixel halo and u_edge = w sum_c U on the strip plus 2, the summed
+// blur with 3, u_gx / u_gy on the strip plus 2 (mag, gx, gy recomputed, then
+// the gate), then canny_adjoint_tail. A row band (the float32 K2) walks
+// strips of kBandRows x kStripW pixels across the band, sE[r][w] holding
+// image row band0 + r; a column band (COLUMNS, the bfloat16 K2) walks strips
+// of kStripW x kBandRows pixels down it, sE[s][h] holding image column
+// band0 + s.
+template <bool COLUMNS, class P>
+__device__ __forceinline__ void band_canny_adjoint(const typename P::T* __restrict__ xb,
+                                                   const typename P::T* __restrict__ ub,
+                                                   const typename P::T* __restrict__ yb,
                                                    const float (&g)[9], const Params& p,
-                                                   int h0, bool vec, float* smem, float* sE,
+                                                   int band0, bool vec, float* smem, float* sE,
                                                    int lde) {
-  using X = Tile<kBandRows, kStripW, 4>;
-  using S = Tile<kBandRows, kStripW, 3>;
-  using G = Tile<kBandRows, kStripW, 2>;
+  constexpr int ROWS = COLUMNS ? kStripW : kBandRows, COLS = COLUMNS ? kBandRows : kStripW;
+  using X = Tile<ROWS, COLS, 4>;
+  using S = Tile<ROWS, COLS, 3>;
+  using G = Tile<ROWS, COLS, 2>;
   const int C = p.C, H = p.H, W = p.W;
   float* sS = smem + C * X::kFloats;
   float* sG0 = sS + S::kFloats;  // u_edge, then u_gx; 0 off the plane
   float* sG1 = sG0 + G::kFloats;  // u_gy
   float* sU = sG1 + G::kFloats;   // u_summed
-  constexpr int kCols = kStripW + 4;
-  for (int w0 = 0; w0 < W; w0 += kStripW) {
-    stage_tile<X, kBandThreads, true>(
+  constexpr int kCols = COLS + 4;
+  for (int k0 = 0; k0 < (COLUMNS ? H : W); k0 += COLUMNS ? ROWS : COLS) {
+    const int h0 = COLUMNS ? k0 : band0, w0 = COLUMNS ? band0 : k0;
+    stage_tile<X, kBandThreads, true, P>(
         smem, C, [&](int c) { return xb + (size_t)c * H * W; }, H, W, h0, w0, vec);
     cp_async_commit();
     for (int i = threadIdx.x; i < G::kRows * kCols; i += kBandThreads) {
@@ -731,30 +796,38 @@ __device__ __forceinline__ void band_canny_adjoint(const float* __restrict__ xb,
       if (h >= 0 && h < H && w >= 0 && w < W) {
         for (int c = 0; c < C; ++c) {
           const size_t k = ((size_t)c * H + h) * W + w;
-          u_edge += ub[k] * clip_mask(yb[k]);
+          u_edge += P::r(P::load(ub + k) * clip_mask(P::load(yb + k)));
         }
       }
-      sG0[G::at(r, s)] = u_edge * p.w;
+      sG0[G::at(r, s)] = P::r(P::r(u_edge) * p.w);
     }
     cp_async_wait_all();
     __syncthreads();
-    blur_stage<X, S, kBandThreads>(smem, sS, g, C, H, W, h0, w0);
+    blur_stage<X, S, kBandThreads, P>(smem, sS, g, C, H, W, h0, w0);
     __syncthreads();
     for (int i = threadIdx.x; i < G::kRows * kCols; i += kBandThreads) {
       const int r = i / kCols - 2, s = i % kCols - 2, h = h0 + r, w = w0 + s;
       float2 v = make_float2(0.f, 0.f);
       if (h >= 0 && h < H && w >= 0 && w < W) {
         const float* a = sS + S::at(r, s);
-        const Grad gd = sobel_mag_tile([&](int di, int dj) { return a[di * S::kLd + dj]; }, C);
+        const Grad gd =
+            sobel_mag_tile<P>([&](int di, int dj) { return a[di * S::kLd + dj]; }, C);
         v = gate(sG0[G::at(r, s)], gd.mag, gd.gx, gd.gy, p);
       }
       sG0[G::at(r, s)] = v.x;
       sG1[G::at(r, s)] = v.y;
     }
     __syncthreads();
-    canny_adjoint_tail<kBandRows, kStripW, kBandThreads>(
+    canny_adjoint_tail<ROWS, COLS, kBandThreads>(
         sG0, sG1, sU, g, C, H, W, h0, w0, [&](int r, int s, float4 v) {
-          if (w0 + s < W) store_quad(sE + r * lde + w0 + s, v, true, 4);
+          if (!COLUMNS) {
+            if (w0 + s < W) store_quad(sE + r * lde + w0 + s, v, true, 4);
+            return;
+          }
+          if (h0 + r >= H) return;
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sE[(s + j) * lde + h0 + r] = vs[j];
         });
     __syncthreads();
   }
@@ -765,13 +838,18 @@ __device__ __forceinline__ void load_taps(const float* __restrict__ gtaps, float
   for (int i = 0; i < 9; ++i) g[i] = __ldg(gtaps + i);
 }
 
+// K1 in the policy P's type. The wrapper gives bfloat16 its operators, taps,
+// eps and w already rounded to bfloat16.
+template <class P>
 __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
-ee_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stripes,
-                    const float* __restrict__ sq_delta, const float* __restrict__ lr,
+ee_fused_fwd_kernel(const typename P::T* __restrict__ x,
+                    const typename P::T* __restrict__ stripes,
+                    const typename P::T* __restrict__ sq_delta, const float* __restrict__ lr,
                     const float* __restrict__ li, const float* __restrict__ rr,
                     const float* __restrict__ ri, const float* __restrict__ gtaps,
-                    float* __restrict__ out, float* __restrict__ y, Params p,
+                    typename P::T* __restrict__ out, typename P::T* __restrict__ y, Params p,
                     BandLayout L) {
+  using T = typename P::T;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = p.C, H = p.H, W = p.W, HW = H * W;
@@ -781,60 +859,70 @@ ee_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ strip
   float* sS = smem + L.s;
   float g[9];
   load_taps(gtaps, g);
-  const float* xb = x + (size_t)b * C * HW;
-  band_edge(xb, g, p, h0, W % 4 == 0 && aligned16(x), sS, sE, L.wq);
+  const T* xb = x + (size_t)b * C * HW;
+  band_edge<P>(xb, g, p, h0, W % 4 == 0 && aligned16(x), sS, sE, L.wq);
 
   for (int c = 0; c < C; ++c) {
     const size_t off = ((size_t)b * C + c) * HW;
-    SquarePlane<kPlanePerThread> plane{
+    SquarePlane<kPlanePerThread, P> plane{
         xb + (size_t)c * HW, p.square ? stripes + ((size_t)b * C + c) * W : nullptr,
         p.square ? sq_delta + (size_t)c * HW : nullptr, H, W, p.eps, p.square};
-    float* yc = y + off;
-    float* oc = out + off;
-    band_hfs(L, H, W, h0, lr, li, rr, ri, sT, sS, plane,
-             [&](int r, int h, int w, float hfs) {
-               const float yv = __fadd_rn(hfs, __fmul_rn(p.w, sE[r * L.wq + w]));
-               yc[h * W + w] = yv;
-               oc[h * W + w] = clip01(yv);
-             });
+    T* yc = y + off;
+    T* oc = out + off;
+    band_hfs<P>(L, H, W, h0, lr, li, rr, ri, sT, sS, plane,
+                [&](int r, int h, int w, float hfs) {
+                  const float yv = P::r(__fadd_rn(
+                      P::r(hfs), P::r(__fmul_rn(p.w, sE[r * L.wq + w]))));
+                  P::store(yc + h * W + w, yv);
+                  P::store(oc + h * W + w, clip01(yv));
+                });
   }
 }
 
+// K2 in the policy P's type: float32 on row bands; bfloat16 on column bands
+// (COLUMNS), the HFS products on the transposed problem dx^T = R^T U^T L with
+// the operators the wrapper gives it (L = B^T, R = A, rounded to bfloat16).
+template <class P, bool COLUMNS>
 __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
-ee_fused_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
-                    const float* __restrict__ stripes,
-                    const float* __restrict__ sq_delta, const float* __restrict__ y,
-                    const float* __restrict__ lr, const float* __restrict__ li,
-                    const float* __restrict__ rr, const float* __restrict__ ri,
-                    const float* __restrict__ gtaps, float* __restrict__ dx,
-                    Params p, BandLayout L) {
+ee_fused_bwd_kernel(const typename P::T* __restrict__ u, const typename P::T* __restrict__ x,
+                    const typename P::T* __restrict__ stripes,
+                    const typename P::T* __restrict__ sq_delta,
+                    const typename P::T* __restrict__ y, const float* __restrict__ lr,
+                    const float* __restrict__ li, const float* __restrict__ rr,
+                    const float* __restrict__ ri, const float* __restrict__ gtaps,
+                    typename P::T* __restrict__ dx, Params p, BandLayout L) {
+  using T = typename P::T;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = p.C, H = p.H, W = p.W, HW = H * W;
-  const int b = blockIdx.y, h0 = blockIdx.x * kBandRows;
+  const int b = blockIdx.y, band0 = blockIdx.x * kBandRows;
   float* sE = smem;
   float* sT = smem + L.t;
   float* sS = smem + L.s;
   float g[9];
   load_taps(gtaps, g);
   const size_t img = (size_t)b * C * HW;
-  band_canny_adjoint(x + img, u + img, y + img, g, p, h0, W % 4 == 0 && aligned16(x), sS,
-                     sE, L.wq);
+  band_canny_adjoint<COLUMNS, P>(x + img, u + img, y + img, g, p, band0,
+                                 W % 4 == 0 && aligned16(x), sS, sE, L.wq);
 
   for (int c = 0; c < C; ++c) {
     const size_t off = img + (size_t)c * HW;
-    CotangentPlane<kPlanePerThread> plane{u + off, y + off, H, W};
-    const float* xc = x + off;
-    const float* st = p.square ? stripes + ((size_t)b * C + c) * W : nullptr;
-    const float* sqd = p.square ? sq_delta + (size_t)c * HW : nullptr;
-    float* dxc = dx + off;
-    band_hfs(L, H, W, h0, lr, li, rr, ri, sT, sS, plane,
-             [&](int r, int h, int w, float dxs) {
-               const int q = h * W + w;
-               const float d = p.square ? square_bwd(dxs, xc[q], st[w], sqd[q], p.eps)
-                                        : dxs;
-               dxc[q] = d + sE[r * L.wq + w];
-             });
+    CotangentPlane<kPlanePerThread, P, COLUMNS> plane{u + off, y + off, H, W};
+    const T* xc = x + off;
+    const T* st = p.square ? stripes + ((size_t)b * C + c) * W : nullptr;
+    const T* sqd = p.square ? sq_delta + (size_t)c * HW : nullptr;
+    T* dxc = dx + off;
+    // (i, j) of the product: pixel (i, j), or (j, i) on the transposed problem
+    auto epilogue = [&](int r, int i, int j, float dxs_sum) {
+      const int h = COLUMNS ? j : i, w = COLUMNS ? i : j, q = h * W + w;
+      const float dxs = P::r(dxs_sum);
+      const float d = p.square ? square_bwd<P>(dxs, P::load(xc + q), P::load(st + w),
+                                               P::load(sqd + q), p.eps)
+                               : dxs;
+      P::store(dxc + q, d + sE[r * L.wq + (COLUMNS ? h : w)]);
+    };
+    band_hfs<P>(L, COLUMNS ? W : H, COLUMNS ? H : W, band0, lr, li, rr, ri, sT, sS, plane,
+                epilogue);
   }
 }
 
@@ -866,7 +954,7 @@ canny_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gtaps,
   // whenever x's do
   const bool vec = W % 4 == 0 && aligned16(x);
   const size_t plane = (size_t)b * H * W;
-  canny_tile<kCannyRows, kCannyCols, kCannyThreads>(
+  canny_tile<kCannyRows, kCannyCols, kCannyThreads, F32>(
       x + plane * p.C, g, p.C, H, W, h0, w0, vec, reinterpret_cast<float*>(smem4),
       [&](int r, int s, const Grad (&q)[4]) {
         const int h = h0 + r, w = w0 + s;
@@ -901,7 +989,7 @@ canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
   const bool vec = W % 4 == 0 && aligned16(u) && aligned16(mag) && aligned16(gx) &&
                    aligned16(gy);
   const size_t plane = (size_t)b * H * W;
-  stage_tile<G, kCannyThreads, false>(
+  stage_tile<G, kCannyThreads, false, F32>(
       sIn, 4,
       [&](int i) { return (i == 0 ? u : i == 1 ? mag : i == 2 ? gx : gy) + plane; }, H, W,
       h0, w0, vec);
@@ -929,6 +1017,7 @@ canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
 
 constexpr int kMaxDevices = 64;
 size_t g_fwd_smem[kMaxDevices], g_bwd_smem[kMaxDevices];
+size_t g_fwd_bf16_smem[kMaxDevices], g_bwd_bf16_smem[kMaxDevices];
 size_t g_canny_fwd_smem[kMaxDevices], g_canny_bwd_smem[kMaxDevices];
 
 // Launches `kernel` on `stream` with `smem_bytes` of dynamic shared memory,
@@ -952,6 +1041,39 @@ int launch(Kernel kernel, size_t* done, dim3 grid, int threads, size_t smem_byte
   return (int)cudaGetLastError();
 }
 
+BandLayout band_layout(const int* layout) {
+  return BandLayout{layout[0], layout[1], layout[2], layout[3],
+                    layout[4], layout[5], layout[6]};
+}
+
+template <class P>
+int fused_fwd(const void* x, const void* stripes, const void* sq_delta, const float* lr,
+              const float* li, const float* rr, const float* ri, const float* gtaps,
+              void* out, void* y, int B, int C, int H, int W, float eps, float w,
+              float alpha, float high, int square, const int* layout, int bands,
+              size_t smem_bytes, void* stream, size_t* done) {
+  using T = typename P::T;
+  return launch(ee_fused_fwd_kernel<P>, done, dim3(bands, B), kBandThreads, smem_bytes,
+                stream, static_cast<const T*>(x), static_cast<const T*>(stripes),
+                static_cast<const T*>(sq_delta), lr, li, rr, ri, gtaps, static_cast<T*>(out),
+                static_cast<T*>(y), Params{B, C, H, W, eps, w, alpha, high, square},
+                band_layout(layout));
+}
+
+template <class P, bool COLUMNS>
+int fused_bwd(const void* u, const void* x, const void* stripes, const void* sq_delta,
+              const void* y, const float* lr, const float* li, const float* rr,
+              const float* ri, const float* gtaps, void* dx, int B, int C, int H, int W,
+              float eps, float w, float alpha, float high, int square, const int* layout,
+              int bands, size_t smem_bytes, void* stream, size_t* done) {
+  using T = typename P::T;
+  return launch(ee_fused_bwd_kernel<P, COLUMNS>, done, dim3(bands, B), kBandThreads,
+                smem_bytes, stream, static_cast<const T*>(u), static_cast<const T*>(x),
+                static_cast<const T*>(stripes), static_cast<const T*>(sq_delta),
+                static_cast<const T*>(y), lr, li, rr, ri, gtaps, static_cast<T*>(dx),
+                Params{B, C, H, W, eps, w, alpha, high, square}, band_layout(layout));
+}
+
 }  // namespace
 
 extern "C" {
@@ -961,6 +1083,9 @@ extern "C" {
 // BandLayout's seven fields in order, `bands` the blocks per image and
 // `smem_bytes` a block's dynamic shared memory; and the operators it padded
 // to layout's shapes (lr, li: bands x band rows by hk; rr, ri: wk x wt).
+// The _bf16 forms take bfloat16 tensors, and the operators, taps, eps and w
+// rounded to bfloat16; K2's operators and layout are those of its column
+// bands (L = B^T, R = A).
 // K3a/K3b take the tiles across and down an image and a block's dynamic
 // shared memory from the wrapper's canny_geometry.
 int ee_fused_fwd(const float* x, const float* stripes, const float* sq_delta,
@@ -969,11 +1094,8 @@ int ee_fused_fwd(const float* x, const float* stripes, const float* sq_delta,
                  int B, int C, int H, int W, float eps, float w, float alpha,
                  float high, int square, const int* layout, int bands,
                  size_t smem_bytes, void* stream) {
-  const BandLayout L{layout[0], layout[1], layout[2], layout[3],
-                     layout[4], layout[5], layout[6]};
-  return launch(ee_fused_fwd_kernel, g_fwd_smem, dim3(bands, B), kBandThreads, smem_bytes,
-                stream, x, stripes, sq_delta, lr, li, rr, ri, gtaps, out, y,
-                Params{B, C, H, W, eps, w, alpha, high, square}, L);
+  return fused_fwd<F32>(x, stripes, sq_delta, lr, li, rr, ri, gtaps, out, y, B, C, H, W, eps,
+                        w, alpha, high, square, layout, bands, smem_bytes, stream, g_fwd_smem);
 }
 
 int ee_fused_bwd(const float* u, const float* x, const float* stripes,
@@ -982,11 +1104,30 @@ int ee_fused_bwd(const float* u, const float* x, const float* stripes,
                  const float* gtaps, float* dx, int B, int C, int H, int W,
                  float eps, float w, float alpha, float high, int square,
                  const int* layout, int bands, size_t smem_bytes, void* stream) {
-  const BandLayout L{layout[0], layout[1], layout[2], layout[3],
-                     layout[4], layout[5], layout[6]};
-  return launch(ee_fused_bwd_kernel, g_bwd_smem, dim3(bands, B), kBandThreads, smem_bytes,
-                stream, u, x, stripes, sq_delta, y, lr, li, rr, ri, gtaps, dx,
-                Params{B, C, H, W, eps, w, alpha, high, square}, L);
+  return fused_bwd<F32, false>(u, x, stripes, sq_delta, y, lr, li, rr, ri, gtaps, dx, B, C, H,
+                               W, eps, w, alpha, high, square, layout, bands, smem_bytes,
+                               stream, g_bwd_smem);
+}
+
+int ee_fused_fwd_bf16(const void* x, const void* stripes, const void* sq_delta,
+                      const float* lr, const float* li, const float* rr, const float* ri,
+                      const float* gtaps, void* out, void* y, int B, int C, int H, int W,
+                      float eps, float w, float alpha, float high, int square,
+                      const int* layout, int bands, size_t smem_bytes, void* stream) {
+  return fused_fwd<BF16>(x, stripes, sq_delta, lr, li, rr, ri, gtaps, out, y, B, C, H, W,
+                         eps, w, alpha, high, square, layout, bands, smem_bytes, stream,
+                         g_fwd_bf16_smem);
+}
+
+int ee_fused_bwd_bf16(const void* u, const void* x, const void* stripes,
+                      const void* sq_delta, const void* y, const float* lr,
+                      const float* li, const float* rr, const float* ri,
+                      const float* gtaps, void* dx, int B, int C, int H, int W, float eps,
+                      float w, float alpha, float high, int square, const int* layout,
+                      int bands, size_t smem_bytes, void* stream) {
+  return fused_bwd<BF16, true>(u, x, stripes, sq_delta, y, lr, li, rr, ri, gtaps, dx, B, C, H,
+                               W, eps, w, alpha, high, square, layout, bands, smem_bytes,
+                               stream, g_bwd_bf16_smem);
 }
 
 int canny_fused_fwd(const float* x, const float* gtaps, float* out, float* mag,

@@ -1,5 +1,6 @@
 """Arch string -> model, as edge_enhancement_tpu/models/registry.py, for the
-ported architectures: resnet18, resnet18_EE, resnet18_EE_square."""
+ported architectures: resnet{18,34,50,101,152} with the suffixes _EE and
+_EE_square, in float32 or under the bf16 policy."""
 
 from __future__ import annotations
 
@@ -24,17 +25,24 @@ def _ee_from_args(a: Mapping[str, Any], square: bool) -> EEConfig:
         n_queries=int(a.get("n_queries", 1)))
 
 
+def _dtype_from_args(a: Mapping[str, Any]) -> Optional[torch.dtype]:
+    """The mixed-precision policy: `dtype: bf16|bfloat16` or the fast-AT
+    key `half: true` select bfloat16 compute (parameters stay float32)."""
+    if a.get("half") or str(a.get("dtype", "")).lower() in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    return None
+
+
 def build_model(arch: str, args: Mapping[str, Any], num_classes: int, *,
                 square_source: Optional[Callable] = None,
                 generator: Optional[torch.Generator] = None):
     """Construct (and initialise from `generator`) the model for `arch`."""
     a = dict(args)
-    if a.get("half") or str(a.get("dtype", "")).lower() in ("bf16", "bfloat16"):
-        raise NotImplementedError("the bf16 policy is not ported yet (f32 only)")
     m = re.fullmatch(r"resnet(\d+)(_EE_square|_EE)?", arch)
     if m is None:
         raise NotImplementedError(f"arch {arch!r} is not ported")
     suffix = m.group(2) or ""
     ee = _ee_from_args(a, square=suffix == "_EE_square") if suffix else None
     return resnet(int(m.group(1)), num_classes=num_classes, ee=ee,
-                  square_source=square_source, generator=generator)
+                  square_source=square_source, generator=generator,
+                  dtype=_dtype_from_args(a))

@@ -1,10 +1,19 @@
-"""ResNet-18 with the edge-enhancement front-end, as
-edge_enhancement_tpu/models/resnet.py (`ResNet` with `BasicBlock`).
+"""ResNet-18/34/50/101/152 with the edge-enhancement front-end, as
+edge_enhancement_tpu/models/resnet.py (`ResNet` with `BasicBlock` or
+`Bottleneck`; the stride of a Bottleneck sits on its 3x3 convolution).
 
-Modules carry torchvision's names (conv1, bn1, layer1.0.conv1, ..., fc), so
-convert.state_dict_from_jax maps the JAX parameters straight in. The stem is
-a plain 7x7 stride-2 convolution: the JAX `StemConv` is a space-to-depth
-rewrite of the same parameter for the TPU's layout.
+Modules carry torchvision's names (conv1, bn1, layer1.0.conv1, ...,
+downsample.0/1, fc), so convert.state_dict_from_jax maps the JAX parameters
+straight in. The stem is a plain 7x7 stride-2 convolution: the JAX
+`StemConv` is a space-to-depth rewrite of the same parameter for the TPU's
+layout.
+
+The dtype policy is the JAX model's `dtype` field: with bfloat16 the input
+is cast to bfloat16 before the front-end, the convolutions and the final
+Dense compute in bfloat16 from float32 parameters cast at use, BatchNorm
+keeps float32 parameters and running statistics and computes as flax's
+`nn.BatchNorm(dtype=bf16)` does, and the logits come back as float32. The
+casts are written out: torch.autocast's per-op policy is not JAX's.
 
 Input is NHWC in [0, 1], as in the JAX model; the convolutions run NCHW.
 """
@@ -25,7 +34,11 @@ from .ee_frontend import EEConfig, check_ported, ee_frontend
 class BatchNorm2d(nn.Module):
     """BatchNorm with flax's running-statistics rule: running_var moves
     toward the BIASED batch variance (torch's own BatchNorm uses the
-    unbiased one). Momentum 0.9 in flax's sense (torch 0.1), eps 1e-5."""
+    unbiased one). Momentum 0.9 in flax's sense (torch 0.1), eps 1e-5.
+
+    A bfloat16 input computes as flax's BatchNorm with dtype=bf16: the
+    statistics are reduced and the output normalised in float32, with the
+    float32 parameters, and the output is rounded to bfloat16 once."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -37,33 +50,56 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
+        dtype = x.dtype
+        x = x.to(torch.promote_types(dtype, torch.float32))
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+                            self.eps).to(dtype)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+class Conv2d(nn.Conv2d):
+    """A convolution in its input's dtype, the float32 weight cast at use."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class Linear(nn.Linear):
+    """flax's Dense in its input's dtype: x W^T rounded, then + b rounded."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+
+
+def _projection(inplanes: int, planes: int, stride: int):
+    """The shortcut's 1x1 convolution and BatchNorm where the shape changes."""
+    if stride == 1 and inplanes == planes:
+        return None
+    return nn.Sequential(_conv(inplanes, planes, 1, stride), BatchNorm2d(planes))
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3)
         self.bn2 = BatchNorm2d(planes)
-        self.downsample = None
-        if stride != 1 or inplanes != planes:
-            self.downsample = nn.Sequential(_conv(inplanes, planes, 1, stride),
-                                            BatchNorm2d(planes))
+        self.downsample = _projection(inplanes, planes, stride)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -72,28 +108,52 @@ class BasicBlock(nn.Module):
         return F.relu(out + residual)
 
 
-class ResNet(nn.Module):
-    """Plain / EE / EE_square ResNet with BasicBlocks. `square_source(shape)`
-    supplies the square draws of the EE_square front-end."""
+class Bottleneck(nn.Module):
+    """1x1 reduce, 3x3 (the stride), 1x1 expand to 4 planes."""
+    expansion = 4
 
-    def __init__(self, layers=(2, 2, 2, 2), num_classes: int = 200,
-                 ee: Optional[EEConfig] = None,
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 1)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = BatchNorm2d(planes * 4)
+        self.downsample = _projection(inplanes, planes * 4, stride)
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class ResNet(nn.Module):
+    """Plain / EE / EE_square ResNet. `square_source(shape)` supplies the
+    square draws of the EE_square front-end; `dtype` (None or
+    torch.bfloat16) is the compute dtype of the policy above."""
+
+    def __init__(self, block=BasicBlock, layers=(2, 2, 2, 2),
+                 num_classes: int = 200, ee: Optional[EEConfig] = None,
                  square_source: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if ee is not None:
             check_ported(ee)
-        self.ee, self.square_source = ee, square_source
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.ee, self.square_source, self.dtype = ee, square_source, dtype
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for g, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
             stride = 1 if g == 0 else 2
-            group = [BasicBlock(inplanes, planes, stride)]
-            group += [BasicBlock(planes, planes) for _ in range(blocks - 1)]
-            inplanes = planes
+            group = [block(inplanes, planes, stride)]
+            inplanes = planes * block.expansion
+            group += [block(inplanes, planes) for _ in range(blocks - 1)]
             setattr(self, f"layer{g + 1}", nn.Sequential(*group))
-        self.fc = nn.Linear(512, num_classes)
+        self.fc = Linear(inplanes, num_classes)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -113,23 +173,31 @@ class ResNet(nn.Module):
                 m.bias.zero_()
 
     def forward(self, x):
-        """x: NHWC float32 in [0, 1] -> logits (B, num_classes)."""
+        """x: NHWC float32 in [0, 1] -> float32 logits (B, num_classes)."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if self.ee is not None:
             x = ee_frontend(x, self.ee, self.square_source)
         x = x.permute(0, 3, 1, 2)
         x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return self.fc(x.mean(dim=(2, 3)))
+        # jnp.mean sums a low-precision array in float32 and rounds once
+        x = x.float().mean(dim=(2, 3)).to(x.dtype)
+        return self.fc(x).float()
 
 
-_LAYOUTS = {18: (2, 2, 2, 2)}
+_LAYOUTS = {18: (BasicBlock, (2, 2, 2, 2)), 34: (BasicBlock, (3, 4, 6, 3)),
+            50: (Bottleneck, (3, 4, 6, 3)), 101: (Bottleneck, (3, 4, 23, 3)),
+            152: (Bottleneck, (3, 8, 36, 3))}
 
 
 def resnet(depth: int, num_classes: int = 200, ee: Optional[EEConfig] = None,
            square_source: Optional[Callable] = None,
-           generator: Optional[torch.Generator] = None) -> ResNet:
+           generator: Optional[torch.Generator] = None,
+           dtype: Optional[torch.dtype] = None) -> ResNet:
     if depth not in _LAYOUTS:
         raise NotImplementedError(
             f"resnet depth {depth}; ported: {sorted(_LAYOUTS)}")
-    return ResNet(_LAYOUTS[depth], num_classes=num_classes, ee=ee,
-                  square_source=square_source, generator=generator)
+    block, layers = _LAYOUTS[depth]
+    return ResNet(block, layers, num_classes=num_classes, ee=ee,
+                  square_source=square_source, generator=generator, dtype=dtype)

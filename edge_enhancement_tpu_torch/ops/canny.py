@@ -37,27 +37,33 @@ def _blur_sobel_magnitude_nchw(x: torch.Tensor, sigma: float):
     """Per-channel Gaussian blur, channel sum BEFORE the Sobel (padding and
     the channel sum commute; this order decides exact ties as the JAX code
     does), Sobel / C, magnitude. x: (B, C, H, W); returns (B, 1, H, W) each
-    of gx, gy, magnitude."""
+    of gx, gy, magnitude, in float32.
+
+    A bfloat16 x takes the casts of the JAX fused kernel's
+    `_canny125_forward`: the blur and the Sobel taps in bfloat16, each
+    product and sum rounded; the channel sum in float32, rounded once (jnp
+    sums low-precision floats in float32); the division by C and the
+    magnitude in float32."""
     c = x.shape[1]
     blurred = stencil2d_nchw(x, gaussian_kernel(3, 0.0, sigma), "edge")
-    summed = _channel_sum(blurred)
+    summed = _channel_sum(blurred.float()).to(x.dtype)
     sob = sobel_kernel(3)
     # divide by a tensor: CUDA turns division by a Python scalar into a
     # multiplication by its reciprocal, which can differ by one ulp (made on
     # the device, so a CUDA graph can capture it)
-    cdiv = torch.full((), float(c), dtype=summed.dtype, device=summed.device)
-    grad_x = stencil2d_nchw(summed, sob, "edge") / cdiv
-    grad_y = stencil2d_nchw(summed, sob.T, "edge") / cdiv
+    cdiv = torch.full((), float(c), dtype=torch.float32, device=summed.device)
+    grad_x = stencil2d_nchw(summed, sob, "edge").float() / cdiv
+    grad_y = stencil2d_nchw(summed, sob.T, "edge").float() / cdiv
     return grad_x, grad_y, _safe_magnitude(grad_x, grad_y)
 
 
 def canny_step125_nchw(x: torch.Tensor, high_threshold: float, *,
                        sigma: float = 1.0, alpha: float = 0.0) -> torch.Tensor:
-    """(B, C, H, W) -> (B, 1, H, W) edge map in {0, 1}."""
+    """(B, C, H, W) -> (B, 1, H, W) edge map in {0, 1}, in x's dtype."""
     _, _, magnitude = _blur_sobel_magnitude_nchw(x, sigma)
     magnitude = torch.where(magnitude < alpha, torch.zeros_like(magnitude),
                             magnitude)
-    return to_compare(magnitude, float(high_threshold))
+    return to_compare(magnitude, float(high_threshold)).to(x.dtype)
 
 
 def canny_step125(img: torch.Tensor, high_threshold: float, *,

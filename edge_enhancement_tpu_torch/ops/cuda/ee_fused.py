@@ -19,8 +19,12 @@ mag, gx, gy; K3b its adjoint from them. The front-end runs them where K1
 does not apply (the edge map smoothed by a Gaussian, `with_gf`).
 Source and design notes: edge_enhancement_tpu_torch/csrc/ee_fused.cu.
 
-Tensors are (B, C, H, W) float32. On a CPU tensor the wrappers run the
-plain versions; on a CUDA tensor they launch the kernel or raise. The plain
+K1/K2 take (B, C, H, W) float32 or bfloat16 (the bf16 policy: the JAX
+kernels compute in x's dtype, rounding where it is bfloat16; the square
+draws come in x's dtype too); K3a/K3b float32, and raise on another dtype
+(JAX's Canny-only pair in bfloat16 is not ported). On a CPU tensor the
+wrappers run the plain versions; on a CUDA tensor they launch the kernel
+or raise, and never convert a tensor to reach another form. The plain
 versions are also the oracle of the tests and of chip_smoke.py.
 """
 
@@ -37,12 +41,13 @@ from ..canny import _blur_sobel_magnitude_nchw, _channel_sum, canny_step125_nchw
 from ..filters import gaussian_kernel, sobel_kernel
 from ..hfs import _hfs_axis_operators, hfs_nchw
 from ..square import clip01, square_forward_nchw
-from ..stencil import stencil_taps
+from ..stencil import stencil_taps, weak_scalar
 from ..ste import to_compare
 
 # Launches of each kernel since the last reset_launches(); the wrappers add
 # one where they launch and nowhere else.
 LAUNCHES = {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
+            "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
             "canny_fused_fwd": 0, "canny_fused_bwd": 0}
 # Largest dynamic shared memory a Hopper block may opt into (232,448 bytes).
 MAX_SMEM_BYTES = 232448
@@ -79,7 +84,10 @@ class BandGeometry:
     band's Canny plane of BAND_ROWS x wq at 0, T = [Lr; Li] P of
     2 BAND_ROWS x ld_t at t, of which wt columns are computed, and at s the
     region the Canny strips, then the HFS stages and the exchange share);
-    the padded operators' inner sizes hk (L) and wk (R); and the bytes."""
+    the padded operators' inner sizes hk (L) and wk (R); and the bytes.
+    With `columns` (the bfloat16 K2) the bands are of image columns and the
+    products those of the transposed problem: H and W trade places, and the
+    Canny strips are STRIP_W rows by BAND_ROWS columns."""
     bands: int
     wq: int
     wt: int
@@ -107,12 +115,18 @@ class BandGeometry:
 
 
 @functools.lru_cache(maxsize=None)
-def band_geometry(c: int, h: int, w: int, backward: bool) -> BandGeometry:
-    """K1's (backward=False) or K2's block geometry for C channels of H x W."""
+def band_geometry(c: int, h: int, w: int, backward: bool,
+                  columns: bool = False) -> BandGeometry:
+    """K1's (backward=False) or K2's block geometry for C channels of H x W;
+    `columns`: K2 on column bands (the bfloat16 K2)."""
     bh, sw = BAND_ROWS, STRIP_W
+    if columns:
+        h, w = w, h
+        tile = functools.partial(_tile_floats, sw, bh)
+    else:
+        tile = functools.partial(_tile_floats, bh, sw)
     wq, wt = _round_up(w, 4), _round_up(w, PANEL)
     ld_t = wt + 4              # 4 more than a multiple of 64: T's rows on distinct banks
-    tile = functools.partial(_tile_floats, bh, sw)
     if backward:               # x (4-pixel halo), summed blur (3), u_gx, u_gy (2), u_summed (1)
         canny = c * tile(4) + tile(3) + 2 * tile(2) + tile(1)
     else:                      # x (2-pixel halo), summed blur (1)
@@ -148,12 +162,19 @@ _OPERATORS: dict = {}
 _TAPS: dict = {}
 
 
-def gaussian_taps(sigma: float, device) -> torch.Tensor:
-    """The 3x3 Gaussian's taps (9,) on `device`, built once per key."""
-    key = (sigma, str(device))
+def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 `t` with its values rounded to `dtype` (the JAX kernel's
+    operators and taps in x's dtype; the kernels read them as float32)."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def gaussian_taps(sigma: float, device, dtype=torch.float32) -> torch.Tensor:
+    """The 3x3 Gaussian's taps (9,) on `device` as float32, rounded to
+    `dtype`, built once per key."""
+    key = (sigma, str(device), dtype)
     if key not in _TAPS:
         taps = gaussian_kernel(3, 0.0, sigma).reshape(9).copy()
-        _TAPS[key] = torch.from_numpy(taps).to(device)
+        _TAPS[key] = _rounded(torch.from_numpy(taps), dtype).to(device)
     return _TAPS[key]
 
 
@@ -167,14 +188,22 @@ def operators(h: int, w: int, r: int, sigma: float, device) -> tuple:
     return _OPERATORS[key]
 
 
-def band_operators(h: int, w: int, r: int, backward: bool, device) -> tuple:
+def band_operators(h: int, w: int, r: int, backward: bool, device,
+                   dtype=torch.float32) -> tuple:
     """K1's (Ar, Ai, Br^T, Bi^T) or K2's (Ar^T, Ai^T, Br, Bi), contiguous and
-    zero-padded to band_geometry's shapes, built once per key on `device`."""
-    key = ("band", h, w, r, backward, str(device))
+    zero-padded to band_geometry's shapes, as float32 with their values
+    rounded to `dtype`, built once per key on `device`. The bfloat16 K2
+    works on column bands: (Br^T, Bi^T, Ar, Ai)."""
+    key = ("band", h, w, r, backward, str(device), dtype)
     if key not in _OPERATORS:
-        geo = band_geometry(1, h, w, backward)
-        ar, ai, br, bi = (torch.from_numpy(m).to(device) for m in _hfs_axis_operators(h, w, r))
-        mats = (ar.T, ai.T, br, bi) if backward else (ar, ai, br.T, bi.T)
+        columns = backward and dtype != torch.float32
+        geo = band_geometry(1, h, w, backward, columns)
+        ar, ai, br, bi = (_rounded(torch.from_numpy(m), dtype).to(device)
+                          for m in _hfs_axis_operators(h, w, r))
+        if columns:
+            mats = (br.T, bi.T, ar, ai)
+        else:
+            mats = (ar.T, ai.T, br, bi) if backward else (ar, ai, br.T, bi.T)
 
         def padded(m, shape):
             out = m.new_zeros(shape)
@@ -191,13 +220,15 @@ def band_operators(h: int, w: int, r: int, backward: bool, device) -> tuple:
 # --------------------------------------------------------------------------
 
 def ee_fused_fwd_plain(x, stripes, sq_delta, k: FusedConsts):
-    """Transcription of `_fwd_kernel`: returns (out, y). Differentiable, with
-    JAX's gradient conventions (clip ties 0.5, the To_compare window), so
-    torch autograd of it is a second oracle of the adjoint."""
+    """Transcription of `_fwd_kernel`: returns (out, y), in x's dtype
+    (float32 or bfloat16, with the JAX kernel's casts: see hfs_nchw and
+    canny._blur_sobel_magnitude_nchw). Differentiable, with JAX's gradient
+    conventions (clip ties 0.5, the To_compare window), so torch autograd of
+    it is a second oracle of the float32 adjoint."""
     ar, ai, br, bi, _ = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
     xs = square_forward_nchw(x, stripes, sq_delta, k.eps) if k.square else x
     edge = canny_step125_nchw(x, k.high, sigma=k.sigma, alpha=k.alpha)
-    y = hfs_nchw(xs, ar, ai, br, bi) + k.w * edge
+    y = hfs_nchw(xs, ar, ai, br, bi) + weak_scalar(k.w, x.dtype) * edge
     return clip01(y), y
 
 
@@ -220,7 +251,8 @@ def _min_masks(a, b):
 
 def _square_backward(u_xs, x, stripes, sq_delta, eps):
     """Adjoint of square_forward_nchw w.r.t. x, through the perturbation
-    chain and the projection bounds x +- eps."""
+    chain and the projection bounds x +- eps, in x's dtype."""
+    eps = weak_scalar(eps, x.dtype)
     t1 = x + eps * stripes
     t3 = clip01(t1) + sq_delta
     xl, xh = x - eps, x + eps
@@ -264,18 +296,31 @@ def _apply_taps_adjoint(u, kernel):
 
 
 def ee_fused_bwd_plain(u, x, stripes, sq_delta, y, k: FusedConsts):
-    """Transcription of `_bwd_kernel`: dx from the cotangent u of `out`."""
+    """Transcription of `_bwd_kernel`: dx from the cotangent u of `out`, in
+    x's dtype. bfloat16 takes the JAX kernel's casts: U B summed in float32
+    and rounded before A^T (U B), the HFS adjoint and the square chain in
+    bfloat16, the channel sum of U in float32 rounded once, the Canny
+    adjoint in float32, and dx_hfs + dx_canny summed in float32 and rounded
+    once."""
     ar, ai, br, bi, _ = operators(x.shape[2], x.shape[3], k.r, k.sigma, x.device)
-    c = x.shape[1]
+    c, dt = x.shape[1], x.dtype
     u_y = u * _clip_mask(y)
-    dxs = ar.T @ (u_y @ br) - ai.T @ (u_y @ bi)
+    if dt == torch.float32:
+        dxs = ar.T @ (u_y @ br) - ai.T @ (u_y @ bi)
+    else:
+        uf = u_y.float()
+        r = lambda m: m.to(dt).float()
+        adj = lambda a, b: r(a).T @ (uf @ r(b)).to(dt).float()
+        dxs = (adj(ar, br) - adj(ai, bi)).to(dt)
     dx_hfs = (_square_backward(dxs, x, stripes, sq_delta, k.eps)
               if k.square else dxs)
 
     # Canny branch: recompute the forward, then the Canny pair's adjoint
     gx, gy, mag = _blur_sobel_magnitude_nchw(x, k.sigma)
-    return dx_hfs + canny_fused_bwd_plain(k.w * _channel_sum(u_y), mag, gx, gy,
-                                          c, k.high, k.sigma, k.alpha)
+    u_edge = weak_scalar(k.w, dt) * _channel_sum(u_y.float()).to(dt)
+    dx_canny = canny_fused_bwd_plain(u_edge.float(), mag, gx, gy, c, k.high,
+                                     k.sigma, k.alpha)
+    return (dx_hfs.float() + dx_canny).to(dt)
 
 
 def canny_fused_fwd_plain(x, high: float, sigma: float, alpha: float):
@@ -323,10 +368,12 @@ def _library():
     lib = build.load("ee_fused")
     c = lib.lib
     band = [ctypes.POINTER(_I), _I, ctypes.c_size_t, _P]   # layout, bands, bytes, stream
-    c.ee_fused_fwd.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I] + band
-    c.ee_fused_fwd.restype = _I
-    c.ee_fused_bwd.argtypes = [_P] * 11 + [_I] * 4 + [_F] * 4 + [_I] + band
-    c.ee_fused_bwd.restype = _I
+    for name in ("ee_fused_fwd", "ee_fused_fwd_bf16"):
+        getattr(c, name).argtypes = [_P] * 10 + [_I] * 4 + [_F] * 4 + [_I] + band
+        getattr(c, name).restype = _I
+    for name in ("ee_fused_bwd", "ee_fused_bwd_bf16"):
+        getattr(c, name).argtypes = [_P] * 11 + [_I] * 4 + [_F] * 4 + [_I] + band
+        getattr(c, name).restype = _I
     tiles = [_I, _I, ctypes.c_size_t, _P]                  # tiles_w, tiles_h, bytes, stream
     c.canny_fused_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + tiles
     c.canny_fused_fwd.restype = _I
@@ -337,18 +384,25 @@ def _library():
     return lib
 
 
+def kernel_geometry(c: int, h: int, w: int, backward: bool, dtype) -> BandGeometry:
+    """The block geometry that K1 (K2 with `backward`) launches with for a
+    (B, C, H, W) tensor of `dtype`: the bfloat16 K2 on column bands."""
+    return band_geometry(c, h, w, backward, columns=backward and dtype == torch.bfloat16)
+
+
 def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x) -> BandGeometry:
     """Raise on what K1 (K2 with u and y given) does not take; return the
     block geometry."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused front-end kernel takes CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous (B, C, H, W) float32 tensor "
-                         f"(got {x.dtype}, shape {tuple(x.shape)})")
+    if (x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4
+            or not x.is_contiguous()):
+        raise ValueError("x must be a contiguous (B, C, H, W) float32 or bfloat16 "
+                         f"tensor (got {x.dtype}, shape {tuple(x.shape)})")
     b, c, h, w = x.shape
     # a block holds its band's planes and C channels of the Canny halo tile;
     # K1 refuses what K2 could not take, so no step fails in its backward
-    need = max(band_geometry(c, h, w, bwd).smem_bytes for bwd in (False, True))
+    need = max(kernel_geometry(c, h, w, bwd, x.dtype).smem_bytes for bwd in (False, True))
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{c} channels at {h}x{w} need {need} bytes of shared "
                          f"memory per block, above the {MAX_SMEM_BYTES} a block "
@@ -362,9 +416,9 @@ def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x) -> BandGeometry:
         for t, shape in ((stripes, (b, c, 1, w)), (sq_delta, (1, c, h, w))):
             if (t is None or tuple(t.shape) != shape or t.dtype != x.dtype
                     or t.device != x.device or not t.is_contiguous()):
-                raise ValueError(f"square draws must be contiguous float32 "
-                                 f"{shape} tensors on {x.device}")
-    return band_geometry(c, h, w, backward=bool(same_as_x))
+                raise ValueError(f"square draws must be contiguous {shape} "
+                                 f"tensors of x's dtype on {x.device}")
+    return kernel_geometry(c, h, w, bool(same_as_x), x.dtype)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -382,6 +436,17 @@ def _raise_on(err: int, lib, what: str):
                            f"{lib.lib.ee_fused_error_string(err).decode()}")
 
 
+def _entry(name: str, dtype) -> str:
+    """The entry point and launch counter of K1/K2 for `dtype`."""
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def _scalars(k: FusedConsts, dtype) -> tuple:
+    """(eps, w, alpha, high) as the kernels take them: eps and w rounded to
+    x's dtype (JAX's weak typing), the thresholds float32."""
+    return (weak_scalar(k.eps, dtype), weak_scalar(k.w, dtype), k.alpha, k.high)
+
+
 def ee_fused_fwd(x, stripes, sq_delta, k: FusedConsts):
     """K1: (out, y) of the front-end; plain version on a CPU tensor."""
     if x.device.type == "cpu":
@@ -389,17 +454,18 @@ def ee_fused_fwd(x, stripes, sq_delta, k: FusedConsts):
     geo = _check(x, stripes, sq_delta, k)
     lib = _library()
     b, c, h, w = x.shape
-    lr, li, rr, ri = band_operators(h, w, k.r, False, x.device)
-    taps = gaussian_taps(k.sigma, x.device)
+    lr, li, rr, ri = band_operators(h, w, k.r, False, x.device, x.dtype)
+    taps = gaussian_taps(k.sigma, x.device, x.dtype)
     out, y = torch.empty_like(x), torch.empty_like(x)
+    name = _entry("ee_fused_fwd", x.dtype)
     with torch.cuda.device(x.device):
-        err = lib.lib.ee_fused_fwd(
+        err = getattr(lib.lib, name)(
             _ptr(x), _ptr(stripes), _ptr(sq_delta), _ptr(lr), _ptr(li),
             _ptr(rr), _ptr(ri), _ptr(taps), _ptr(out), _ptr(y), b, c, h, w,
-            k.eps, k.w, k.alpha, k.high, int(k.square), *_band_args(geo),
+            *_scalars(k, x.dtype), int(k.square), *_band_args(geo),
             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, lib, "ee_fused_fwd")
-    LAUNCHES["ee_fused_fwd"] += 1
+    _raise_on(err, lib, name)
+    LAUNCHES[name] += 1
     return out, y
 
 
@@ -410,17 +476,18 @@ def ee_fused_bwd(u, x, stripes, sq_delta, y, k: FusedConsts):
     geo = _check(x, stripes, sq_delta, k, u, y)
     lib = _library()
     b, c, h, w = x.shape
-    lr, li, rr, ri = band_operators(h, w, k.r, True, x.device)
-    taps = gaussian_taps(k.sigma, x.device)
+    lr, li, rr, ri = band_operators(h, w, k.r, True, x.device, x.dtype)
+    taps = gaussian_taps(k.sigma, x.device, x.dtype)
     dx = torch.empty_like(x)
+    name = _entry("ee_fused_bwd", x.dtype)
     with torch.cuda.device(x.device):
-        err = lib.lib.ee_fused_bwd(
+        err = getattr(lib.lib, name)(
             _ptr(u), _ptr(x), _ptr(stripes), _ptr(sq_delta), _ptr(y),
             _ptr(lr), _ptr(li), _ptr(rr), _ptr(ri), _ptr(taps), _ptr(dx),
-            b, c, h, w, k.eps, k.w, k.alpha, k.high, int(k.square),
+            b, c, h, w, *_scalars(k, x.dtype), int(k.square),
             *_band_args(geo), torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, lib, "ee_fused_bwd")
-    LAUNCHES["ee_fused_bwd"] += 1
+    _raise_on(err, lib, name)
+    LAUNCHES[name] += 1
     return dx
 
 
@@ -501,9 +568,18 @@ def _check_canny(x, *planes) -> CannyGeometry:
     return geo
 
 
+def _float32_only(t):
+    """The Canny-only pair is float32 (JAX's runs in the image's dtype; its
+    bfloat16 form is not ported): raise rather than convert."""
+    if t.dtype != torch.float32:
+        raise NotImplementedError(f"the Canny-only pair K3a/K3b takes float32, "
+                                  f"got {t.dtype}")
+
+
 def canny_fused_fwd(x, high: float, sigma: float, alpha: float):
     """K3a: (out, mag, gx, gy) of a (B, C, H, W) batch; plain version on a
-    CPU tensor."""
+    CPU tensor. float32 only, on every device."""
+    _float32_only(x)
     if x.device.type == "cpu":
         return canny_fused_fwd_plain(x, high, sigma, alpha)
     geo = _check_canny(x)
@@ -523,7 +599,8 @@ def canny_fused_fwd(x, high: float, sigma: float, alpha: float):
 def canny_fused_bwd(u, mag, gx, gy, channels: int, high: float, sigma: float,
                     alpha: float):
     """K3b: dx (B, channels, H, W) from the cotangent u (B, 1, H, W) of
-    `out`; plain version on a CPU tensor."""
+    `out`; plain version on a CPU tensor. float32 only, on every device."""
+    _float32_only(u)
     if mag.device.type == "cpu":
         return canny_fused_bwd_plain(u, mag, gx, gy, channels, high, sigma, alpha)
     b, _, h, w = mag.shape
@@ -565,3 +642,12 @@ def canny_step125_fused(img, high_threshold: float, sigma: float = 1.0,
     x = img.permute(0, 3, 1, 2).contiguous()
     out = CannyFused.apply(x, float(high_threshold), float(sigma), float(alpha))
     return out.permute(0, 2, 3, 1)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| in bfloat16 ulps of the larger magnitude of the two, as
+    float32: how the bfloat16 forms of K1/K2 are held to their plain
+    versions and the plain versions to JAX."""
+    a, b = got.float(), want.float()
+    exponent = torch.frexp(torch.maximum(a.abs(), b.abs())).exponent
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), exponent - 8)

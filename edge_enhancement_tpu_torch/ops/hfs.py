@@ -42,8 +42,23 @@ def _hfs_axis_operators(h: int, w: int, r: int):
 
 def hfs_nchw(x: torch.Tensor, ar, ai, br, bi) -> torch.Tensor:
     """A-contraction first, then B, for each (image, channel) plane of a
-    (B, C, H, W) tensor; the operators are (H, H) and (W, W) tensors."""
-    return (ar @ x) @ br.T - (ai @ x) @ bi.T
+    (B, C, H, W) tensor; the operators are (H, H) and (W, W) tensors.
+
+    A bfloat16 x takes JAX's casts (edge_enhancement_tpu/ops/hfs.py and the
+    fused kernel's `_hfs_sandwich`): the operators rounded to bfloat16, the
+    products summed in float32 (`preferred_element_type`), A x rounded to
+    bfloat16 before the second product, and the float32 difference of the
+    two sandwiches rounded once."""
+    if x.dtype == torch.float32:
+        return (ar @ x) @ br.T - (ai @ x) @ bi.T
+    dt = x.dtype
+    xf = x.float()
+
+    def sandwich(a, b):
+        t = (a.to(dt).float() @ xf).to(dt).float()
+        return t @ b.to(dt).float().T
+
+    return (sandwich(ar, br) - sandwich(ai, bi)).to(dt)
 
 
 def high_freq_suppress(x: torch.Tensor, r: int) -> torch.Tensor:

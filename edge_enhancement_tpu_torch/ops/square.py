@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from .stencil import weak_scalar
+
 
 def p_selection(it: int, p_init: float) -> float:
     """Decaying square-size schedule over the query index `it`."""
@@ -67,10 +69,12 @@ def kernel_layout(draws, epsilon: float, dtype=torch.float32):
 
 
 def square_forward_nchw(x, stripes, sq_delta, epsilon: float):
-    """add_square (n_queries=1) on (B, C, H, W) with kernel-layout draws."""
-    t2 = clip01(x + epsilon * stripes)
+    """add_square (n_queries=1) on (B, C, H, W) with kernel-layout draws, in
+    x's dtype (epsilon rounded to it, as JAX's weak typing does)."""
+    eps = weak_scalar(epsilon, x.dtype)
+    t2 = clip01(x + eps * stripes)
     t3 = t2 + sq_delta
-    t5 = torch.minimum(torch.maximum(t3, x - epsilon), x + epsilon)
+    t5 = torch.minimum(torch.maximum(t3, x - eps), x + eps)
     return clip01(t5)
 
 

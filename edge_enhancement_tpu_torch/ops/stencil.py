@@ -3,7 +3,9 @@
 Mirrors edge_enhancement_tpu/ops/stencil.py: the taps are applied in
 row-major order with zero taps skipped, each product and sum rounded on its
 own, so the result equals the JAX stencil bit for bit (the hard Canny
-threshold downstream flips on one-ulp differences).
+threshold downstream flips on one-ulp differences). In bfloat16 that holds
+too: JAX rounds a Python-float tap to bfloat16 before it multiplies (weak
+typing), and so does `weak_scalar` here; torch would keep it in float32.
 """
 
 from __future__ import annotations
@@ -11,6 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def weak_scalar(v: float, dtype: torch.dtype) -> float:
+    """The Python float `v` as JAX's weak typing takes it into an operation
+    on a `dtype` array: rounded to `dtype` (a no-op for float32 operands,
+    whose scalars torch and JAX both take in float32)."""
+    if dtype == torch.float32:
+        return float(v)
+    return float(torch.tensor(float(v), dtype=torch.float32).to(dtype))
 
 
 def stencil_taps(kernel: np.ndarray) -> list[tuple[int, int, float]]:
@@ -34,7 +45,7 @@ def stencil2d_nchw(x: torch.Tensor, kernel: np.ndarray,
     out = None
     for dh, dw, coeff in stencil_taps(kernel):
         i, j = dh + ph, dw + pw
-        term = coeff * xp[:, :, i:i + h, j:j + w]
+        term = weak_scalar(coeff, x.dtype) * xp[:, :, i:i + h, j:j + w]
         out = term if out is None else out + term
     return torch.zeros_like(x) if out is None else out
 

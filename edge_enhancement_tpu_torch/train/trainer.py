@@ -45,6 +45,7 @@ def create_train_state(model: torch.nn.Module) -> TrainState:
 class OptimConfig:
     momentum: float = 0.9
     weight_decay: float = 0.0
+    bn_no_decay: bool = False   # fast-AT: no decay on BatchNorm's parameters
 
 
 def build_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,

@@ -22,6 +22,16 @@ EPS = 0.062745098039216
 # sum in another order: ~1e-6 on values of order 1. K2: the same sums,
 # scaled by at most 1/|g| < 1/high = 3.4
 FWD_TOL, BWD_TOL = 2e-5, 1e-4
+# The bfloat16 forms round where the plain versions do, on float32 sums in
+# another order: a sum that lies within float32 noise of a bfloat16 rounding
+# boundary rounds the other way, so out and y are at most one bf16 ulp off
+# (and the edge maps exact). dx = dx_hfs + dx_canny rounds once, so one ulp
+# of the HFS part can be more ulps of a small dx: at most BF16_DX_SHARE of
+# dx more than one ulp off, and none more than BF16_DX_REL of the largest
+# |dx|. Measured on an H100: bit for bit at 64, 128 and 224 px (cuBLAS sums
+# in the kernel's order there); at 24 x 40 0.16% of dx more than one ulp
+# off, at most 1.95e-3 with |dx| up to 1.86.
+BF16_DX_REL, BF16_DX_SHARE = 2.0 ** -7, 1e-2
 
 
 @pytest.fixture
@@ -60,6 +70,7 @@ def _operands(shape, square, dev, seed=0):
 # ragged last one (72: 3 bands, the last of 8 rows; 100: 4 bands, the last
 # of 4 rows and columns past a 64-column panel), and the ImageNet sizes
 # 224 and 288 (7 and 9 whole bands)
+# and the fast-AT recipes' 128 px (4 bands, or 4 column bands in bfloat16)
 @pytest.mark.parametrize("shape,square", [((4, 3, 32, 32), True),
                                           ((4, 3, 32, 32), False),
                                           ((2, 3, 24, 40), False),
@@ -68,9 +79,14 @@ def _operands(shape, square, dev, seed=0):
                                           ((2, 1, 28, 28), False),
                                           ((2, 3, 30, 30), True),
                                           ((2, 3, 72, 72), True),
-                                          ((1, 3, 100, 100), False)])
-def test_kernels_match_plain(cuda, shape, square):
+                                          ((1, 3, 100, 100), False),
+                                          ((2, 3, 128, 128), True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain(cuda, shape, square, dtype):
     x, st, sqd, u = _operands(shape, square, cuda)
+    if dtype == torch.bfloat16:
+        _check_bf16(*(None if t is None else t.to(dtype) for t in (x, st, sqd, u)), square)
+        return
     k = _consts(square)
     out_k, y_k = F.ee_fused_fwd(x, st, sqd, k)
     out_p, y_p = F.ee_fused_fwd_plain(x, st, sqd, k)
@@ -86,6 +102,31 @@ def test_kernels_match_plain(cuda, shape, square):
     assert dx_k.abs().max() > 0.1
 
 
+def _check_bf16(x, st, sqd, u, square):
+    """K1/K2 in bfloat16 against their plain versions (the limits above),
+    then through the autograd.Function: one launch of each bfloat16 form."""
+    k = _consts(square)
+    F.reset_launches()
+    out_k, y_k = F.ee_fused_fwd(x, st, sqd, k)
+    out_p, y_p = F.ee_fused_fwd_plain(x, st, sqd, k)
+    assert out_k.dtype == y_k.dtype == torch.bfloat16
+    assert (y_k.float() - y_p.float()).abs().max() < 0.5     # an edge flip moves y by 1
+    assert F.bf16_ulps(out_k, out_p).max() <= 1
+    assert F.bf16_ulps(y_k, y_p).max() <= 1
+    dx_k = F.ee_fused_bwd(u, x, st, sqd, y_p, k)
+    dx_p = F.ee_fused_bwd_plain(u, x, st, sqd, y_p, k)
+    assert dx_k.dtype == torch.bfloat16 and dx_k.float().abs().max() > 0.1
+    assert (F.bf16_ulps(dx_k, dx_p) > 1).float().mean() <= BF16_DX_SHARE
+    assert ((dx_k.float() - dx_p.float()).abs().max()
+            <= BF16_DX_REL * dx_p.float().abs().max())
+    xa = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad((F.ee_fused(xa, st, sqd, k) * u).sum(), [xa])
+    assert g.dtype == torch.bfloat16
+    assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
+                          "ee_fused_fwd_bf16": 2, "ee_fused_bwd_bf16": 2,
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+
+
 def test_autograd_function_launches_each_kernel_once(cuda):
     x, st, sqd, u = _operands((2, 3, 32, 32), True, cuda, seed=1)
     k = _consts(True)
@@ -93,6 +134,7 @@ def test_autograd_function_launches_each_kernel_once(cuda):
     xa = x.clone().requires_grad_()
     (g,) = torch.autograd.grad((F.ee_fused(xa, st, sqd, k) * u).sum(), [xa])
     assert F.LAUNCHES == {"ee_fused_fwd": 1, "ee_fused_bwd": 1,
+                          "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
                           "canny_fused_fwd": 0, "canny_fused_bwd": 0}
     _, y = F.ee_fused_fwd(x, st, sqd, k)
     torch.testing.assert_close(g, F.ee_fused_bwd(u, x, st, sqd, y, k), atol=0, rtol=0)
@@ -102,6 +144,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     k = _consts(False)
     F.reset_launches()
     bad = [torch.zeros(1, 3, 32, 32, device=cuda, dtype=torch.float64),
+           torch.zeros(1, 3, 32, 32, device=cuda, dtype=torch.float16),
            torch.zeros(1, 3, 32, 64, device=cuda)[..., ::2],     # not contiguous
            torch.zeros(1, 80, 32, 32, device=cuda),              # halo tile above shared memory
            torch.zeros(1, 15, 64, 64, device=cuda)]              # fits K1, not K2
@@ -111,6 +154,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x = torch.zeros(1, 3, 32, 32, device=cuda)
     with pytest.raises(ValueError):                                # missing draws
         F.ee_fused_fwd(x, None, None, _consts(True))
+    st, sqd = kernel_layout(add_square_draws((1, 32, 32, 3), torch.Generator(
+        device=cuda).manual_seed(0)), EPS)
+    with pytest.raises(ValueError):                   # float32 draws with a bfloat16 x
+        F.ee_fused_fwd(x.bfloat16(), st, sqd, _consts(True))
     assert all(v == 0 for v in F.LAUNCHES.values())
 
 
@@ -209,6 +256,7 @@ def test_gf_frontend_launches_only_k3(cuda):
     out = tee.ee_frontend(xa, cfg, lambda shape: draws)
     out.sum().backward()
     assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
+                          "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
                           "canny_fused_fwd": 1, "canny_fused_bwd": 1}
     xc = x.permute(0, 2, 3, 1).cpu().requires_grad_()
     out_c = tee.ee_frontend(xc, cfg, lambda shape: tuple(d.cpu() for d in draws))

@@ -58,7 +58,7 @@ def test_driver_runs_gf_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
-    ({"method_name": "free_AT"}, NotImplementedError),
+    ({"attack_method": "FGSM"}, NotImplementedError),
     ({"method_name": "TRADES"}, NotImplementedError),
     ({"awp_gamma": 0.01}, NotImplementedError),
     ({"evaluate": True}, NotImplementedError),
@@ -73,6 +73,45 @@ def test_driver_refuses(override, error):
                                       batch_size=4, device="cpu"), **override})
     with pytest.raises(error):
         run(cfg)
+
+
+IMAGENET = os.path.join(REPO, "edge_enhancement_tpu", "configs")
+
+
+@pytest.mark.parametrize("config,method,dtype", [
+    ("free_imagenet/free_at_ee.yml", "free_AT", torch.float32),
+    ("fast_imagenet/fast_2px_phase1_ee.yml", "fast_AT", torch.bfloat16)])
+def test_driver_runs_free_and_fast_at_on_cpu(tmp_path, config, method, dtype):
+    """The ImageNet recipes (resnet50_EE, 1000 classes) through run() at a
+    tiny size: one train step, one validation batch, the log, the
+    checkpoint and the replay noise beside it; --resume still raises."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    over = dict(data="synthetic", synthetic_size=4, batch_size=2, cize=32,
+                epochs=1, limit_batches=1, num_steps_1=1, device="cpu",
+                output=str(tmp_path))
+    cfg = load_config(os.path.join(IMAGENET, config), over)
+    summary = run(cfg)
+    assert summary["train_steps"] == [1] and summary["eval_batches"] == [1]
+    assert np.isfinite(summary["loss"])
+    log = open(os.path.join(summary["out_dir"], "log", "log.txt")).read()
+    for line in (f"method {method}", "Epoch: [0][0/2]", " * Adv Prec@1",
+                 "=> done. best robust-eval Prec@1"):
+        assert line in log, log
+    ckpt = torch.load(summary["checkpoint"])
+    assert ckpt["epoch"] == 1 and ckpt["arch"] == "resnet50_EE"
+    assert ckpt["state_dict"]["layer4.2.conv3.weight"].dtype == torch.float32
+    assert len(ckpt["optimizer"]["state"]) == len(
+        [k for k in ckpt["state_dict"] if not k.endswith(("running_mean", "running_var"))])
+    noise = torch.load(summary["noise"])
+    assert os.path.dirname(summary["noise"]) == os.path.dirname(summary["checkpoint"])
+    clip = float(cfg["clip_eps"]) / 255
+    assert noise.shape == (2, 32, 32, 3) and 0 < noise.abs().max() <= clip + 1e-7
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    assert build_model(cfg["arch"], cfg, 1000).dtype == (None if dtype == torch.float32
+                                                          else dtype)
+    with pytest.raises(NotImplementedError):
+        run(load_config(os.path.join(IMAGENET, config), {**over, "resume": "ckpt"}))
 
 
 def test_port_imports_no_jax():

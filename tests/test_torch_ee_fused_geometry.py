@@ -219,3 +219,71 @@ def test_the_shared_memory_holds_the_kernel_sources_tiles(c, h, w):
     assert k1.smem_bytes >= 4 * (k1.s + c * band(x) + band(s))
     assert k2.smem_bytes >= 4 * (k2.s + c * band(bt["X"]) + band(bt["S"]) + 2 * band(bt["G"])
                                  + band(u))
+
+
+# ---- the bfloat16 forms ----------------------------------------------------
+# K1 bf16 stages its planes as float32, so its geometry is K1's; K2 bf16
+# works on column bands of the transposed problem (dx^T = B^T U^T A: JAX
+# contracts its adjoint over W first), its Canny strips STRIP_W rows by
+# BAND_ROWS columns.
+
+@pytest.mark.parametrize("name,channels,cize", STEP125, ids=[n for n, _, _ in STEP125])
+def test_bf16_geometry_fits_and_tiles_every_column(name, channels, cize):
+    k1 = F.kernel_geometry(channels, cize, cize, False, torch.bfloat16)
+    assert k1 == F.band_geometry(channels, cize, cize, False)
+    geo = F.kernel_geometry(channels, cize, cize, True, torch.bfloat16)
+    assert geo == F.band_geometry(channels, cize, cize, True, columns=True)
+    assert 0 < geo.smem_bytes <= F.MAX_SMEM_BYTES
+    cols = np.zeros(cize, int)
+    for band in range(geo.bands):
+        cols[band * F.BAND_ROWS:(band + 1) * F.BAND_ROWS] += 1
+    assert (cols == 1).all()
+
+
+@pytest.mark.parametrize("h,w", [(24, 40), (30, 30), (128, 128)])
+def test_bf16_operators_are_rounded_and_transposed(h, w):
+    """K1 bf16 gets (Ar, Ai, Br^T, Bi^T), K2 bf16 (Br^T, Bi^T, Ar, Ai): the
+    values rounded to bfloat16, held as float32, zero-padded to its column
+    geometry's shapes."""
+    ar, ai, br, bi = (torch.from_numpy(m).to(torch.bfloat16).float().numpy()
+                      for m in _hfs_axis_operators(h, w, 8))
+    for backward, want in ((False, (ar, ai, br.T, bi.T)), (True, (br.T, bi.T, ar, ai))):
+        geo = F.kernel_geometry(3, h, w, backward, torch.bfloat16)
+        got = F.band_operators(h, w, 8, backward, "cpu", torch.bfloat16)
+        for g, m, shape in zip(got, want, (geo.l_shape,) * 2 + (geo.r_shape,) * 2):
+            g = g.numpy().copy()
+            assert g.dtype == np.float32 and g.shape == shape
+            np.testing.assert_array_equal(g[:m.shape[0], :m.shape[1]], m)
+            g[:m.shape[0], :m.shape[1]] = 0
+            assert not g.any()
+
+
+@pytest.mark.parametrize("c,h,w", [(3, 64, 64), (3, 128, 128), (3, 224, 224), (3, 24, 40),
+                                   (1, 28, 28), (3, 288, 288)])
+def test_the_column_bands_hold_the_kernel_sources_tiles(c, h, w):
+    """band_canny_adjoint<COLUMNS> walks strips of kStripW rows by
+    kBandRows columns; its tiles fit the region column geometry gives it."""
+    with open(SOURCE) as f:
+        src = f.read()
+    body = _body(src, "band_canny_adjoint")
+    assert ("constexpr int ROWS = COLUMNS ? kStripW : kBandRows, "
+            "COLS = COLUMNS ? kBandRows : kStripW;") in body
+    halos = _tiles(body)
+    (pad,) = re.findall(r"kLd = COLS \+ (\d+);", src)
+    tile = lambda halo: (F.STRIP_W + 2 * halo) * (F.BAND_ROWS + int(pad))
+    geo = F.band_geometry(c, h, w, True, columns=True)
+    need = c * tile(halos["X"]) + tile(halos["S"]) + 2 * tile(halos["G"]) + tile(1)
+    assert geo.smem_bytes >= 4 * (geo.s + need)
+    # T and the Canny plane of a column band: H takes W's place
+    assert geo.wq >= h and geo.wt >= h and geo.hk >= w and geo.bands * F.BAND_ROWS >= w
+
+
+def test_bf16_and_float32_entry_points():
+    """The wrappers pick K1/K2's entry point and launch counter by dtype."""
+    assert F._entry("ee_fused_fwd", torch.float32) == "ee_fused_fwd"
+    assert F._entry("ee_fused_bwd", torch.bfloat16) == "ee_fused_bwd_bf16"
+    assert {"ee_fused_fwd_bf16", "ee_fused_bwd_bf16"} <= set(F.LAUNCHES)
+    with open(SOURCE) as f:
+        src = f.read()
+    for name in ("ee_fused_fwd", "ee_fused_bwd", "ee_fused_fwd_bf16", "ee_fused_bwd_bf16"):
+        assert re.search(rf"^int {name}\(", src, re.MULTILINE), name

@@ -96,9 +96,9 @@ def test_init_statistics():
     assert (model.bn1.weight == 1).all() and (model.bn1.bias == 0).all()
 
 
-@pytest.mark.parametrize("arch,args", [("resnet50", {}), ("Net2", {}),
+@pytest.mark.parametrize("arch,args", [("resnet200", {}), ("Net2", {}),
                                        ("resnet18_EE", {}),
-                                       ("resnet18", {"dtype": "bfloat16"})])
+                                       ("resnet50_fd", {"dtype": "bfloat16"})])
 def test_unported_models_raise(arch, args):
     with pytest.raises(NotImplementedError):
         build_model(arch, args, 200)

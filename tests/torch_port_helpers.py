@@ -73,6 +73,26 @@ class TorchSquareReplay:
         return tuple(torch.from_numpy(a.copy()) for a in d)
 
 
+def random_variables(shapes, rng, spread: float = 0.0):
+    """numpy values for a flax variable tree of ShapeDtypeStructs: conv
+    kernels N(0, 2/fan_out), Dense N(0, 1/fan_in), biases 0, BatchNorm
+    scale and variance 1 and mean 0; `spread` > 0 moves the BatchNorm
+    terms by N(0, spread) (the variance by U(-5 spread, 5 spread))."""
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            fan = (np.prod(s.shape[:-2]) * s.shape[-1] if len(s.shape) == 4
+                   else s.shape[0] / 2.0)
+            return rng.normal(0, np.sqrt(2.0 / fan), s.shape).astype(np.float32)
+        if name == "var":
+            return 1.0 + rng.uniform(-5 * spread, 5 * spread, s.shape).astype(np.float32)
+        base = 1.0 if name == "scale" else 0.0
+        if name == "bias" and len(path) == 2 and path[0].key.startswith("Dense"):
+            return np.zeros(s.shape, np.float32)
+        return (base + spread * rng.standard_normal(s.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 def to_numpy_tree(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
