@@ -9,8 +9,10 @@
    (kernels K1, K2, K3a, K3b) and csrc/gemm_conv.cu (K4), for sm_90a; the
    compiler's register and spill report; the gemm_conv library's SASS must
    hold both HGMMA (wgmma) forms, BF16 for the bf16 K4 and TF32 for the
-   float32 K4 (three TF32 products, 3xTF32): a library whose K4 fell back
-   to FP32 FMAs fails.
+   float32 K4 (three TF32 products, 3xTF32), and the ee_fused library's a
+   bf16 tensor-core instruction with float32 sums (HMMA or HGMMA .F32.BF16)
+   for the bf16 K1/K2's products: a library whose kernels fell back to FP32
+   FMAs fails.
 3. The kernels against their plain PyTorch versions at the shapes their
    paths give them, errors against stated limits, median times from CUDA
    events, and each kernel's bound (the least time the card could take for
@@ -21,9 +23,11 @@
    ImageNet's 224 px (square on) with 8 images (56 blocks, under half the
    SMs) and with free-AT's batch of 256, K3a/K3b also with ImageNet's batch
    of 128 at 224 px, each beside its bound and its plain version's time;
-   K1/K2 in bfloat16 at fast-AT's 256 x 3 x 128 x 128, at 8 x 3 x 224 x 224
-   and at 100 x 3 x 64 x 64, square on and off (the edge maps exact, out
-   and y within one bf16 ulp, dx within the limits below); K4 forward and
+   K1/K2 in bfloat16 at fast-AT's three phases, 256 x 3 x 128 x 128,
+   128 x 3 x 224 x 224 and 96 x 3 x 288 x 288, at 8 x 3 x 224 x 224 and at
+   100 x 3 x 64 x 64, square on and off (the edge maps exact, out and y
+   within one bf16 ulp, dx within the limits below), each beside its bound
+   and its share of it; K4 forward and
    dgrad at 128 x 56 x 56, 64 -> 64, in float32 and bfloat16, timed on
    weights packed once and with the packing, beside cuDNN's convolution
    (float32 with TF32 off, so both sides compute at float32 accuracy).
@@ -126,8 +130,11 @@ BENCH_REPS = 5
 # K1/K2's further checks: ImageNet's 224 px, which the row-band kernels
 # take, on a few images and at free-AT's batch
 LARGE_SHAPES = ((8, 3, 224, 224), (256, 3, 224, 224))
-# K1/K2 bfloat16: fast-AT's batch at 128 px first, then 224 px and 64 px
-BF16_SHAPES = ((256, 3, 128, 128), (8, 3, 224, 224), (100, 3, 64, 64))
+# K1/K2 bfloat16: fast-AT's phase 1 (128 px, its slice's shape) first, then
+# phases 2 and 3 (fast_*_phase2_ee.yml, fast_*_phase3_ee.yml), a few images
+# at 224 px, and 64 px
+BF16_SHAPES = ((256, 3, 128, 128), (128, 3, 224, 224), (96, 3, 288, 288),
+               (8, 3, 224, 224), (100, 3, 64, 64))
 # K3a/K3b's further check: ImageNet's batch at 224 px, 180 MB a launch
 CANNY_LARGE_SHAPES = ((128, 3, 224, 224),)
 
@@ -180,6 +187,15 @@ def build_phase():
           f"({', '.join(sorted(set(hgmma)))}); by form {forms}", flush=True)
     if not all(forms.values()):
         fail(f"the gemm_conv library lacks an HGMMA form: {forms}")
+    # the bfloat16 K1/K2 run their products on the tensor cores: bf16 inputs,
+    # float32 sums, as mma.sync (HMMA) or wgmma (HGMMA)
+    mma = re.findall(r"HG?MMA[.\w]*", build.sass(libs["ee_fused"].path))
+    bf16 = sorted({m for m in mma if m.endswith(".F32.BF16")})
+    print(f"[build] ee_fused SASS: {len(mma)} tensor-core instructions "
+          f"({', '.join(sorted(set(mma)))}); bf16 with float32 sums: {bf16}", flush=True)
+    if not bf16:
+        fail("the ee_fused library holds no bf16 tensor-core instruction "
+             "(HMMA/HGMMA .F32.BF16)")
 
 
 def _timings(torch, kernel, plain, library=None) -> dict:
@@ -345,8 +361,8 @@ def _bf16_case(torch, shape, square: bool):
     t2 = _timings(torch, lambda: F.ee_fused_bwd(u, x, st, sqd, y_k, k),
                   lambda: F.ee_fused_bwd_plain(u, x, st, sqd, y_k, k))
     # the four products as bf16 x bf16 summed in float32, what the bf16
-    # tensor cores do; bytes: the bf16 planes and the float32 operators
-    # (rounded to bf16) the kernels read, once each
+    # tensor cores do; bytes: the bf16 planes and the operators the kernels
+    # read (K1's A as float32), once each
     flops = b * c * (4 * h * h * w + 4 * h * w * w)
     ops1 = F.band_operators(h, w, 8, False, dev, bf16)
     ops2 = F.band_operators(h, w, 8, True, dev, bf16)

@@ -64,25 +64,59 @@
 // its own (__fmul_rn, __fadd_rn: no FMA contraction) in the tap order of the
 // PyTorch composition (row-major), so the edge maps of K1, K3a and the plain
 // version agree exactly: `mag > high` flips on one-ulp differences. The
-// square chain does the same, since its clips decide gradient ties. The HFS products stay on the FP32 pipes.
+// square chain does the same, since its clips decide gradient ties. The
+// float32 HFS products stay on the FP32 pipes.
 //
-// K1 and K2 also take bfloat16, as the JAX kernels compute in x's dtype (the
-// bf16 policy of the fast-AT recipes). A number policy (F32, BF16 below)
-// loads and stores the tensors' type and rounds to bfloat16 at exactly the
-// points where the JAX kernel's dtype is bfloat16 (`_fwd_kernel`,
-// `_bwd_kernel` and their helpers in edge_enhancement_tpu/ops/pallas/
-// ee_fused.py): each product and sum of the blur, the Sobel and the square
-// chain; the channel sum (summed in float32, rounded once); the HFS
-// intermediate A X (K1) and U B (K2) and the float32 difference of the two
-// sandwiches; w * edge and y; dx = dx_hfs + dx_canny summed in float32 and
-// rounded once. Everything else computes in float32 registers, as the JAX
-// kernel's float32 accumulations and its float32 magnitude chain and Canny
-// adjoint do. Shared memory holds float32 either way, so the block layout is
-// the float32 one. JAX contracts K2's adjoint over W first (U B, then A^T),
-// so the bfloat16 K2 works on the transposed problem, dx^T = B^T U^T A: a
-// block owns a band of kBandRows image columns, its HFS products read the
-// planes transposed, and its Canny branch walks the column band in strips of
-// kStripW rows (band_canny_adjoint<true>).
+// K1 and K2 also take bfloat16 (ee_fused_fwd_bf16_kernel,
+// ee_fused_bwd_bf16_kernel), as the same JAX kernels compute in x's dtype
+// (the bf16 policy of the fast-AT recipes). A number policy (F32, BF16
+// below) loads and stores the tensors' type and rounds to bfloat16 at
+// exactly the points where the JAX kernel's dtype is bfloat16: each product
+// and sum of the blur, the Sobel and the square chain; the channel sum
+// (summed in float32, rounded once); T = A X (K1) and U B (K2), each one
+// float32 sum rounded once; hfs, the float32 difference of the two
+// sandwiches, rounded once; w * edge and y; dx = dx_hfs + dx_canny summed in
+// float32 and rounded once. Everything else computes in float32 registers,
+// as the JAX kernel's float32 accumulations, magnitude chain and Canny
+// adjoint do. JAX contracts K2's adjoint over W first (U B, then A^T), so the
+// bfloat16 K2 works on the transposed problem, dx^T = B^T U^T A: a block
+// owns a band of kBandRows image columns, and its Canny branch walks the
+// column band in strips of kStripW rows (band_canny_adjoint<true>).
+//
+// What bounds the bfloat16 pair: bytes (22.6 us for K1, 30.1 us for K2 at
+// fast-AT's 256 x 3 x 128 x 128). Their products, 12.9 GFLOP a launch there,
+// are bf16 x bf16 summed in float32, as JAX's `_bmm` (a bf16 dot_general with
+// preferred_element_type float32): on the FP32 pipes they alone take at least
+// 0.19 ms, on the bf16 tensor cores 13 us. So the bfloat16 forms run products
+// on the tensor cores: mma.sync m16n8k16 (bf16 in, float32 accumulators) fed
+// by ldmatrix from bfloat16 tiles in shared memory, the operators streamed by
+// 16-byte cp.async and the planes by 16-byte row segments through registers
+// (their transforms need the threads), two stages deep, the next chunk's
+// copies in flight during this chunk's mma. mma.sync, not wgmma: the second
+// product has 32 rows a band (Tr Rr and Ti Ri have different B operands),
+// below wgmma's 64, and a warp holding both of its accumulators forms
+// Tr Rr - Ti Ri in registers; at these shapes the tensor cores are not the
+// limit either way. The Canny branch stays on the FP32 pipes, exactly
+// rounded and shared with the float32 forms.
+//
+// The order of the sums is part of K1's result. K1's out and y are held to
+// one bf16 ulp of the plain version, whose products are float32 FMA chains
+// in k order; where hfs is small beside its terms, and T rounds to bfloat16
+// once before the second product, any other order moves hfs by more than an
+// ulp (up to 27 ulps at 224 and 288 px on an H100; exact sums do no
+// better). So K1 computes T on the FP32 pipes in that order (band_hfs's
+// tiles and chunks, on a ring of up to 4 stages with x staged raw by
+// cp.async: band_t_ring), and hfs on the tensor cores with a bound on its
+// distance from the FMA chains' result: the 2-3% of outputs whose bound
+// straddles a bfloat16 rounding point are recomputed as FMA chains, and K1
+// gives the plain version's bits (mma_hfs<EXACT>). K2's limits allow its
+// sums' order: both its products run on the tensor cores. JAX contracts K2
+// over W first, so its U is the plane of the transposed problem; K2 stages U
+// in its own row-major layout, which is already [column][k] of U^T, and
+// feeds the B fragments by plain ldmatrix (the tiles of R by .trans), so no
+// load or store of K2 strides across W: u, y, x, sq_delta and dx move as
+// 16-byte row segments, the result tiles go out through shared memory, and
+// the column Canny branch writes its plane as float4 row segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +151,10 @@ struct BF16 {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
+
+// The float32 values of the low and high bfloat16 of a 32-bit word.
+__device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -220,7 +258,7 @@ struct BandLayout {
   int t, s;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
@@ -271,8 +309,8 @@ __device__ __forceinline__ void fma_chunk(float acc[4][4], const float* a, int a
 // Two stages, one barrier a chunk: chunk t + 1 is copied (issue) and its
 // plane values loaded into registers (fetch) while chunk t is computed;
 // then the values go to the other stage (put).
-template <class Issue, class Fetch, class Put, class Compute>
-__device__ __forceinline__ void pipeline(int nk, float* stages, int stage_floats,
+template <class T, class Issue, class Fetch, class Put, class Compute>
+__device__ __forceinline__ void pipeline(int nk, T* stages, int stage_elems,
                                          Issue issue, Fetch fetch, Put put,
                                          Compute compute) {
   issue(0, stages);
@@ -282,8 +320,8 @@ __device__ __forceinline__ void pipeline(int nk, float* stages, int stage_floats
   cp_async_wait_all();
   __syncthreads();
   for (int t = 0; t < nk; ++t) {
-    float* cur = stages + (t & 1) * stage_floats;
-    float* nxt = stages + ((t + 1) & 1) * stage_floats;
+    T* cur = stages + (t & 1) * stage_elems;
+    T* nxt = stages + ((t + 1) & 1) * stage_elems;
     const bool more = t + 1 < nk;
     if (more) {
       issue(t + 1, nxt);
@@ -322,17 +360,15 @@ struct SquarePlane {
   }
 };
 
-// K2's plane: U = u clip'(y) of one channel, 0 off the plane; TRANSPOSED
-// reads U^T: (k, j) is pixel (j, k) of the H x W plane.
-template <int Q, class P, bool TRANSPOSED>
+// K2's plane: U = u clip'(y) of one channel, 0 off the plane.
+template <int Q, class P>
 struct CotangentPlane {
   using T = typename P::T;
   const T *u, *y;
   int H, W;
   float vu[Q], vy[Q];
   bool ok[Q];
-  __device__ __forceinline__ void load(int q, int k, int j) {
-    const int h = TRANSPOSED ? j : k, w = TRANSPOSED ? k : j;
+  __device__ __forceinline__ void load(int q, int h, int w) {
     ok[q] = h < H && w < W;
     if (!ok[q]) return;
     vu[q] = P::load(u + h * W + w);
@@ -479,6 +515,10 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+__device__ __forceinline__ bool aligned8(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+}
+
 // v to p[0 .. 3]: 16 bytes at once when `vec`, else the first n one by one.
 __device__ __forceinline__ void store_quad(float* p, float4 v, bool vec, int n) {
   if (vec) {
@@ -496,35 +536,66 @@ __device__ __forceinline__ void store_quad(float* p, float4 v, bool vec, int n) 
 // start on 16 bytes), else 4-byte copies. A read off the plane takes the
 // nearest edge pixel (REPLICATE) or zero. A thread that has waited for its
 // own copies may read its own units before any barrier. Planes of the
-// policy P's type: float32 by cp.async; bfloat16 loaded, converted to float32
-// and stored by the thread, so the tile is float32 either way.
+// policy P's type: float32 by cp.async; bfloat16 loaded by the thread, all
+// of its units of a plane at once (8 bytes each where `vec` holds), then
+// converted to float32 and stored, so the tile is float32 either way.
 template <class T, int THREADS, bool REPLICATE, class P, class Plane>
 __device__ __forceinline__ void stage_tile(float* dst, int n, Plane plane, int H, int W,
                                            int h0, int w0, bool vec) {
   constexpr int kUnitsPerRow = T::kLd / 4;
-  constexpr bool kAsync = std::is_same<P, F32>::value;
-  for (int e = threadIdx.x; e < T::kFloats / 4; e += THREADS) {
-    const int h = h0 - T::kHalo + e / kUnitsPerRow, w = w0 - 4 + 4 * (e % kUnitsPerRow);
-    float* d = dst + 4 * e;
-    const bool row_in = h >= 0 && h < H;
-    if constexpr (kAsync) {
+  if constexpr (std::is_same<P, F32>::value) {
+    for (int e = threadIdx.x; e < T::kFloats / 4; e += THREADS) {
+      const int h = h0 - T::kHalo + e / kUnitsPerRow, w = w0 - 4 + 4 * (e % kUnitsPerRow);
+      float* d = dst + 4 * e;
+      const bool row_in = h >= 0 && h < H;
       if (vec && row_in && w >= 0 && w + 4 <= W) {
         for (int i = 0; i < n; ++i) cp_async16(d + i * T::kFloats, plane(i) + (size_t)h * W + w);
         continue;
       }
-    }
-    const size_t row = (size_t)clampi(h, 0, H - 1) * W;
+      const size_t row = (size_t)clampi(h, 0, H - 1) * W;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool in = row_in && w + j >= 0 && w + j < W;
-      const size_t q = row + clampi(w + j, 0, W - 1);
-      for (int i = 0; i < n; ++i) {
-        if (!REPLICATE && !in)
-          d[i * T::kFloats + j] = 0.f;
-        else if constexpr (kAsync)
-          cp_async4(d + i * T::kFloats + j, plane(i) + q);
-        else
-          d[i * T::kFloats + j] = P::load(plane(i) + q);
+      for (int j = 0; j < 4; ++j) {
+        const bool in = row_in && w + j >= 0 && w + j < W;
+        const size_t q = row + clampi(w + j, 0, W - 1);
+        for (int i = 0; i < n; ++i) {
+          if (!REPLICATE && !in)
+            d[i * T::kFloats + j] = 0.f;
+          else
+            cp_async4(d + i * T::kFloats + j, plane(i) + q);
+        }
+      }
+    }
+  } else {
+    constexpr int kUnits = T::kFloats / 4, kPer = (kUnits + THREADS - 1) / THREADS;
+    for (int i = 0; i < n; ++i) {
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(plane(i));
+      uint2 v[kPer];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int e = threadIdx.x + q * THREADS;
+        v[q] = make_uint2(0u, 0u);
+        if (e >= kUnits) continue;
+        const int h = h0 - T::kHalo + e / kUnitsPerRow, w = w0 - 4 + 4 * (e % kUnitsPerRow);
+        const bool row_in = h >= 0 && h < H;
+        if (vec && row_in && w >= 0 && w + 4 <= W) {
+          v[q] = __ldg(reinterpret_cast<const uint2*>(src + (size_t)h * W + w));
+          continue;
+        }
+        const size_t row = (size_t)clampi(h, 0, H - 1) * W;
+        unsigned b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = row_in && w + j >= 0 && w + j < W;
+          b[j] = (!REPLICATE && !in) ? 0u : __ldg(src + row + clampi(w + j, 0, W - 1));
+        }
+        v[q] = make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
+      }
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int e = threadIdx.x + q * THREADS;
+        if (e < kUnits)
+          *reinterpret_cast<float4*>(dst + i * T::kFloats + 4 * e) =
+              make_float4(bf16_lo(v[q].x), bf16_hi(v[q].x), bf16_lo(v[q].y), bf16_hi(v[q].y));
       }
     }
   }
@@ -766,8 +837,8 @@ __device__ __forceinline__ void band_edge(const typename P::T* __restrict__ xb,
 // the gate), then canny_adjoint_tail. A row band (the float32 K2) walks
 // strips of kBandRows x kStripW pixels across the band, sE[r][w] holding
 // image row band0 + r; a column band (COLUMNS, the bfloat16 K2) walks strips
-// of kStripW x kBandRows pixels down it, sE[s][h] holding image column
-// band0 + s.
+// of kStripW x kBandRows pixels down it, sE[h][s] holding image row h of
+// columns band0 + s (lde = kBandRows), so both store row segments.
 template <bool COLUMNS, class P>
 __device__ __forceinline__ void band_canny_adjoint(const typename P::T* __restrict__ xb,
                                                    const typename P::T* __restrict__ ub,
@@ -785,21 +856,57 @@ __device__ __forceinline__ void band_canny_adjoint(const typename P::T* __restri
   float* sG1 = sG0 + G::kFloats;  // u_gy
   float* sU = sG1 + G::kFloats;   // u_summed
   constexpr int kCols = COLS + 4;
+  const bool quads = W % 4 == 0 && aligned8(ub) && aligned8(yb);
   for (int k0 = 0; k0 < (COLUMNS ? H : W); k0 += COLUMNS ? ROWS : COLS) {
     const int h0 = COLUMNS ? k0 : band0, w0 = COLUMNS ? band0 : k0;
     stage_tile<X, kBandThreads, true, P>(
         smem, C, [&](int c) { return xb + (size_t)c * H * W; }, H, W, h0, w0, vec);
     cp_async_commit();
-    for (int i = threadIdx.x; i < G::kRows * kCols; i += kBandThreads) {
-      const int r = i / kCols - 2, s = i % kCols - 2, h = h0 + r, w = w0 + s;
-      float u_edge = 0.f;
-      if (h >= 0 && h < H && w >= 0 && w < W) {
-        for (int c = 0; c < C; ++c) {
-          const size_t k = ((size_t)c * H + h) * W + w;
-          u_edge += P::r(P::load(ub + k) * clip_mask(P::load(yb + k)));
+    if constexpr (COLUMNS) {
+      // the bfloat16 K2: quads of 4 image columns from w0 - 4, 8-byte loads
+      // where the rows allow, every channel's issued together (the columns
+      // past the halo are never read)
+      constexpr int kQuads = COLS / 4 + 2;
+      for (int i = threadIdx.x; i < G::kRows * kQuads; i += kBandThreads) {
+        const int r = i / kQuads - 2, s = 4 * (i % kQuads) - 4, h = h0 + r, w = w0 + s;
+        float u_edge[4] = {0.f, 0.f, 0.f, 0.f};
+        if (h >= 0 && h < H) {
+          if (quads && w >= 0 && w + 4 <= W) {
+            for (int c = 0; c < C; ++c) {
+              const size_t k = ((size_t)c * H + h) * W + w;
+              const uint2 vu = __ldg(reinterpret_cast<const uint2*>(ub + k));
+              const uint2 vy = __ldg(reinterpret_cast<const uint2*>(yb + k));
+              const float uj[4] = {bf16_lo(vu.x), bf16_hi(vu.x), bf16_lo(vu.y), bf16_hi(vu.y)};
+              const float yj[4] = {bf16_lo(vy.x), bf16_hi(vy.x), bf16_lo(vy.y), bf16_hi(vy.y)};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) u_edge[j] += P::r(uj[j] * clip_mask(yj[j]));
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (w + j < 0 || w + j >= W) continue;
+              for (int c = 0; c < C; ++c) {
+                const size_t k = ((size_t)c * H + h) * W + w + j;
+                u_edge[j] += P::r(P::load(ub + k) * clip_mask(P::load(yb + k)));
+              }
+            }
+          }
         }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sG0[G::at(r, s + j)] = P::r(P::r(u_edge[j]) * p.w);
       }
-      sG0[G::at(r, s)] = P::r(P::r(u_edge) * p.w);
+    } else {
+      for (int i = threadIdx.x; i < G::kRows * kCols; i += kBandThreads) {
+        const int r = i / kCols - 2, s = i % kCols - 2, h = h0 + r, w = w0 + s;
+        float u_edge = 0.f;
+        if (h >= 0 && h < H && w >= 0 && w < W) {
+          for (int c = 0; c < C; ++c) {
+            const size_t k = ((size_t)c * H + h) * W + w;
+            u_edge += P::r(P::load(ub + k) * clip_mask(P::load(yb + k)));
+          }
+        }
+        sG0[G::at(r, s)] = P::r(P::r(u_edge) * p.w);
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -822,12 +929,9 @@ __device__ __forceinline__ void band_canny_adjoint(const typename P::T* __restri
         sG0, sG1, sU, g, C, H, W, h0, w0, [&](int r, int s, float4 v) {
           if (!COLUMNS) {
             if (w0 + s < W) store_quad(sE + r * lde + w0 + s, v, true, 4);
-            return;
+          } else if (h0 + r < H) {
+            store_quad(sE + (h0 + r) * lde + s, v, true, 4);
           }
-          if (h0 + r >= H) return;
-          const float vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sE[(s + j) * lde + h0 + r] = vs[j];
         });
     __syncthreads();
   }
@@ -838,18 +942,14 @@ __device__ __forceinline__ void load_taps(const float* __restrict__ gtaps, float
   for (int i = 0; i < 9; ++i) g[i] = __ldg(gtaps + i);
 }
 
-// K1 in the policy P's type. The wrapper gives bfloat16 its operators, taps,
-// eps and w already rounded to bfloat16.
-template <class P>
+// K1 in float32.
 __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
-ee_fused_fwd_kernel(const typename P::T* __restrict__ x,
-                    const typename P::T* __restrict__ stripes,
-                    const typename P::T* __restrict__ sq_delta, const float* __restrict__ lr,
+ee_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stripes,
+                    const float* __restrict__ sq_delta, const float* __restrict__ lr,
                     const float* __restrict__ li, const float* __restrict__ rr,
                     const float* __restrict__ ri, const float* __restrict__ gtaps,
-                    typename P::T* __restrict__ out, typename P::T* __restrict__ y, Params p,
-                    BandLayout L) {
-  using T = typename P::T;
+                    float* __restrict__ out, float* __restrict__ y, Params p, BandLayout L) {
+  using P = F32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = p.C, H = p.H, W = p.W, HW = H * W;
@@ -859,7 +959,7 @@ ee_fused_fwd_kernel(const typename P::T* __restrict__ x,
   float* sS = smem + L.s;
   float g[9];
   load_taps(gtaps, g);
-  const T* xb = x + (size_t)b * C * HW;
+  const float* xb = x + (size_t)b * C * HW;
   band_edge<P>(xb, g, p, h0, W % 4 == 0 && aligned16(x), sS, sE, L.wq);
 
   for (int c = 0; c < C; ++c) {
@@ -867,8 +967,8 @@ ee_fused_fwd_kernel(const typename P::T* __restrict__ x,
     SquarePlane<kPlanePerThread, P> plane{
         xb + (size_t)c * HW, p.square ? stripes + ((size_t)b * C + c) * W : nullptr,
         p.square ? sq_delta + (size_t)c * HW : nullptr, H, W, p.eps, p.square};
-    T* yc = y + off;
-    T* oc = out + off;
+    float* yc = y + off;
+    float* oc = out + off;
     band_hfs<P>(L, H, W, h0, lr, li, rr, ri, sT, sS, plane,
                 [&](int r, int h, int w, float hfs) {
                   const float yv = P::r(__fadd_rn(
@@ -879,19 +979,15 @@ ee_fused_fwd_kernel(const typename P::T* __restrict__ x,
   }
 }
 
-// K2 in the policy P's type: float32 on row bands; bfloat16 on column bands
-// (COLUMNS), the HFS products on the transposed problem dx^T = R^T U^T L with
-// the operators the wrapper gives it (L = B^T, R = A, rounded to bfloat16).
-template <class P, bool COLUMNS>
+// K2 in float32, on row bands.
 __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
-ee_fused_bwd_kernel(const typename P::T* __restrict__ u, const typename P::T* __restrict__ x,
-                    const typename P::T* __restrict__ stripes,
-                    const typename P::T* __restrict__ sq_delta,
-                    const typename P::T* __restrict__ y, const float* __restrict__ lr,
+ee_fused_bwd_kernel(const float* __restrict__ u, const float* __restrict__ x,
+                    const float* __restrict__ stripes, const float* __restrict__ sq_delta,
+                    const float* __restrict__ y, const float* __restrict__ lr,
                     const float* __restrict__ li, const float* __restrict__ rr,
                     const float* __restrict__ ri, const float* __restrict__ gtaps,
-                    typename P::T* __restrict__ dx, Params p, BandLayout L) {
-  using T = typename P::T;
+                    float* __restrict__ dx, Params p, BandLayout L) {
+  using P = F32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = p.C, H = p.H, W = p.W, HW = H * W;
@@ -902,27 +998,647 @@ ee_fused_bwd_kernel(const typename P::T* __restrict__ u, const typename P::T* __
   float g[9];
   load_taps(gtaps, g);
   const size_t img = (size_t)b * C * HW;
-  band_canny_adjoint<COLUMNS, P>(x + img, u + img, y + img, g, p, band0,
-                                 W % 4 == 0 && aligned16(x), sS, sE, L.wq);
+  band_canny_adjoint<false, P>(x + img, u + img, y + img, g, p, band0,
+                               W % 4 == 0 && aligned16(x), sS, sE, L.wq);
 
   for (int c = 0; c < C; ++c) {
     const size_t off = img + (size_t)c * HW;
-    CotangentPlane<kPlanePerThread, P, COLUMNS> plane{u + off, y + off, H, W};
-    const T* xc = x + off;
-    const T* st = p.square ? stripes + ((size_t)b * C + c) * W : nullptr;
-    const T* sqd = p.square ? sq_delta + (size_t)c * HW : nullptr;
-    T* dxc = dx + off;
-    // (i, j) of the product: pixel (i, j), or (j, i) on the transposed problem
-    auto epilogue = [&](int r, int i, int j, float dxs_sum) {
-      const int h = COLUMNS ? j : i, w = COLUMNS ? i : j, q = h * W + w;
-      const float dxs = P::r(dxs_sum);
+    CotangentPlane<kPlanePerThread, P> plane{u + off, y + off, H, W};
+    const float* xc = x + off;
+    const float* st = p.square ? stripes + ((size_t)b * C + c) * W : nullptr;
+    const float* sqd = p.square ? sq_delta + (size_t)c * HW : nullptr;
+    float* dxc = dx + off;
+    auto epilogue = [&](int r, int h, int w, float dxs) {
+      const int q = h * W + w;
       const float d = p.square ? square_bwd<P>(dxs, P::load(xc + q), P::load(st + w),
                                                P::load(sqd + q), p.eps)
                                : dxs;
-      P::store(dxc + q, d + sE[r * L.wq + (COLUMNS ? h : w)]);
+      P::store(dxc + q, d + sE[r * L.wq + w]);
     };
-    band_hfs<P>(L, COLUMNS ? W : H, COLUMNS ? H : W, band0, lr, li, rr, ri, sT, sS, plane,
-                epilogue);
+    band_hfs<P>(L, H, W, band0, lr, li, rr, ri, sT, sS, plane, epilogue);
+  }
+}
+
+// ---- K1/K2 in bfloat16: the HFS products on the tensor cores ---------------
+//
+// The same bands and Canny branches as above; K1 keeps T on the FP32 pipes
+// (band_t_ring) and runs hfs on the tensor cores (mma_hfs<EXACT>), K2 runs
+// both products there (mma_t, mma_hfs). ops/cuda/ee_fused.py (mma_geometry)
+// owns the layout of a block and passes it in (MmaLayout); it mirrors
+// kMmaChunk, kMmaPanel and kMmaPad as MMA_CHUNK, MMA_PANEL and MMA_PAD, and
+// a CPU test reads them from this file.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaChunk = 32;   // contraction depth of a chunk: two k16 steps
+constexpr int kMmaPanel = 128;  // columns of T, or of the result, in one pass
+constexpr int kMmaPad = 8;      // bfloat16 after each staged row
+constexpr int kLdK = kMmaChunk + kMmaPad;  // row stride of a chunk stored [row][k]
+constexpr int kLdN = kMmaPanel + kMmaPad;  // row stride of a chunk stored [k][column]
+// A stage, in bfloat16: the largest chunk, R's (Rr, Ri, each kMmaChunk x
+// kLdN); K2's first product's (the operator rows [Lr; Li], then U's chunk,
+// kMmaPanel x kLdK, U's own layout, [column][k]); K1's T stage (float32
+// operator rows and plane, raw x and sq_delta). After a pass of mma_hfs the
+// first stage holds the result tile ([row][column], kLdN apart, or K2's
+// [column][row], kLdK apart) and (EXACT) the second the outputs to
+// recompute.
+constexpr int kMmaStage = 2 * kMmaChunk * kLdN;
+static_assert(2 * kBandRows * kLdK + kMmaPanel * kLdK <= kMmaStage &&
+                  kBandRows * kLdN <= kMmaStage && kMmaPanel * kLdK <= kMmaStage &&
+                  kBandRows * kMmaPanel * sizeof(unsigned short) <= kMmaStage * sizeof(bf16) &&
+                  2 * kBandRows * (kMmaChunk / 8) == kBandThreads &&
+                  kBandThreads == 256 && kBandRows == 32,
+              "mma geometry: 8 warps, one operator copy a thread");
+
+// Shared memory of a bfloat16 block, from the wrapper: the band's Canny plane
+// (K1: kBandRows x lde floats, the edge map; K2: rows of kBandRows floats, one
+// per image row, the Canny branch's dx) at 0; at byte t, first the Canny
+// strips, then T (2 kBandRows x ldt bfloat16, np columns used); a ring of
+// `depth` stages of kMmaStage bfloat16 at byte `stages` (K1's T stage runs
+// on all of them, the tensor-core products on the first two). Operators: L
+// (lr, li) of bands x kBandRows rows by kp (K1: float32, K2: bfloat16); R
+// (rr, ri: bfloat16) of np x np; zeros outside; wt: the columns of T that K1
+// computes.
+struct MmaLayout {
+  int kp, np, wt, lde, ldt, t, stages, depth;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bfloat16 matrices from shared memory, lane i giving the address
+// of row i % 8 of matrix i / 8; .trans hands each thread the transposed
+// pairs.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b on the tensor cores: a 16 x 16 and b 16 x 8 of bfloat16, d 16 x 8
+// of float32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// lo and hi rounded to bfloat16, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Element j of 8 bfloat16 held in a uint4, as float32.
+__device__ __forceinline__ float bf16_at(const uint4& v, int j) {
+  const unsigned w = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
+  return (j & 1) ? bf16_hi(w) : bf16_lo(w);
+}
+
+// The 8 bfloat16 at p as raw bits: one 16-byte load when `vec` (and n = 8),
+// else the first n (up to 8) one by one and zeros after.
+__device__ __forceinline__ uint4 load8(const bf16* p, bool vec, int n) {
+  if (vec && n >= 8) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+  unsigned v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned lo = 2 * i < n ? s[2 * i] : 0u, hi = 2 * i + 1 < n ? s[2 * i + 1] : 0u;
+    v[i] = lo | (hi << 16);
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// v rounded to bfloat16 into p[0 .. 7]: one 16-byte store when `vec` (and
+// n = 8), else the first n one by one.
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8], bool vec, int n) {
+  if (vec && n >= 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                              pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    return;
+  }
+  for (int j = 0; j < n && j < 8; ++j) p[j] = __float2bfloat16_rn(v[j]);
+}
+
+// A ring of `depth` stages of kMmaStage bfloat16 (2 to 4, the wrapper's
+// choice): chunk t in stage t % depth, depth - 1 chunks in flight. issue(t,
+// stage) starts chunk t's copies (one commit group a chunk); once chunk t has
+// landed, land(t, stage) lets each thread finish its own copies (it may read
+// them before any barrier); then one barrier, the copies of chunk
+// t + depth - 1 into the stage that chunk t - 1 held, and compute(t, stage).
+// Ends with every copy landed and a barrier.
+template <class Issue, class Land, class Compute>
+__device__ __forceinline__ void ring(int nk, int depth, bf16* stages, Issue issue, Land land,
+                                     Compute compute) {
+  for (int s = 0; s < depth - 1; ++s) {
+    if (s < nk) issue(s, stages + s * kMmaStage);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    bf16* cur = stages + (t % depth) * kMmaStage;
+    // chunk t has landed once at most depth - 2 later groups are in flight
+    if (depth >= 4)
+      asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+    else if (depth == 3)
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else
+      cp_async_wait_all();
+    land(t, cur);
+    __syncthreads();
+    const int next = t + depth - 1;
+    if (next < nk) issue(next, stages + (next % depth) * kMmaStage);
+    cp_async_commit();
+    compute(t, cur);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// The bfloat16 K2's plane: U = u clip'(y) of one channel, 0 off the plane,
+// on the transposed problem, whose contraction rows k are image columns and
+// its columns n image rows. A chunk of kMmaChunk rows at k0 by kMmaPanel
+// columns at n0 is 512 segments of 8 pixels of an image row, two a thread:
+// load() reads a thread's segments of u and y into registers (16 bytes at
+// once where `vec` holds), store() forms U and writes it to the chunk, which
+// is U's own [column][k] (plain ldmatrix gives the B fragments of U^T).
+struct CotangentMma {
+  const bf16 *u, *y;
+  int H, W;
+  bool vec;
+  uint4 vu[2], vy[2];
+  int n[2];
+  __device__ __forceinline__ void load(int k0, int n0) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int e = threadIdx.x + q * kBandThreads;
+      const int h = n0 + e / (kMmaChunk / 8), w = k0 + 8 * (e % (kMmaChunk / 8));
+      n[q] = h < H ? min(8, W - w) : 0;
+      vu[q] = load8(u + (size_t)h * W + w, vec, n[q]);
+      vy[q] = load8(y + (size_t)h * W + w, vec, n[q]);
+    }
+  }
+  __device__ __forceinline__ void store(bf16* chunk) const {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int e = threadIdx.x + q * kBandThreads;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = j < n[q] ? BF16::r(bf16_at(vu[q], j) * clip_mask(bf16_at(vy[q], j))) : 0.f;
+      *reinterpret_cast<uint4*>(chunk + (e / (kMmaChunk / 8)) * kLdK +
+                                8 * (e % (kMmaChunk / 8))) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                     pack_bf16(v[6], v[7]));
+    }
+  }
+};
+
+// The lane's row and column in the four 8 x 8 matrices of an ldmatrix, for
+// the fragments of mma m16n8k16: A tiles stored [row][k]; B tiles stored
+// [k][n] (ldmatrix.trans) or [n][k].
+struct Frag {
+  int a_r, a_c, bt_k, bt_n, bn_n, bn_k;
+  __device__ __forceinline__ explicit Frag(int lane)
+      : a_r(lane % 16), a_c(8 * (lane / 16)), bt_k(lane % 8 + 8 * ((lane / 8) & 1)),
+        bt_n(8 * (lane / 16)), bn_n(lane % 8 + 8 * (lane / 16)), bn_k(8 * ((lane / 8) & 1)) {}
+  // the B fragments of the 4 n8 tiles at columns c0 .. c0 + 31, contraction
+  // rows k .. k + 15, of a [k][n] tile (TRANS, row stride ld) or an [n][k] one
+  template <bool TRANS>
+  __device__ __forceinline__ void b4(unsigned (&b)[4][2], const bf16* tile, int ld, int k,
+                                     int c0) const {
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      unsigned r[4];
+      if constexpr (TRANS)
+        ldsm4_trans(r, tile + (k + bt_k) * ld + c0 + 16 * jj + bt_n);
+      else
+        ldsm4(r, tile + (c0 + 16 * jj + bn_n) * ld + k + bn_k);
+      b[2 * jj][0] = r[0];
+      b[2 * jj][1] = r[1];
+      b[2 * jj + 1][0] = r[2];
+      b[2 * jj + 1][1] = r[3];
+    }
+  }
+};
+
+// The bfloat16 K2's T = [Lr; Li] X on the tensor cores, for the band of
+// kBandRows product rows at band0, into T's tile (2 kBandRows x ldt), each
+// float32 sum rounded to bfloat16 once; pass by pass of kMmaPanel columns,
+// chunk by chunk of kMmaChunk on two stages: the operator rows by cp.async,
+// the plane through registers. 8 warps, 2 x 4: a warp owns 32 rows (wm = 0:
+// Lr / Tr, wm = 1: Li / Ti) by 32 columns of a pass, 2 x 4 mma tiles; a warp
+// whose columns lie past np (a multiple of 32) skips its mma. Ends with a
+// barrier.
+template <class Plane>
+__device__ __forceinline__ void mma_t(const MmaLayout& L, int band0,
+                                      const bf16* __restrict__ lr,
+                                      const bf16* __restrict__ li, char* smem, Plane& plane) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, tg = lane % 4;
+  const Frag f(lane);
+  bf16* sT = reinterpret_cast<bf16*>(smem + L.t);
+  bf16* stages = reinterpret_cast<bf16*>(smem + L.stages);
+  float acc[2][4][4];
+  for (int n0 = 0; n0 < L.np; n0 += kMmaPanel) {
+    const bool active = n0 + 32 * wn < L.np;
+    auto issue = [&](int t, bf16* st) {
+      const int i = tid / (kMmaChunk / 8), m = tid % (kMmaChunk / 8);
+      cp_async16(st + i * kLdK + 8 * m, (i < kBandRows ? lr : li) +
+                                            (size_t)(band0 + i % kBandRows) * L.kp +
+                                            t * kMmaChunk + 8 * m);
+    };
+    auto fetch = [&](int t) { plane.load(t * kMmaChunk, n0); };
+    auto put = [&](bf16* st) { plane.store(st + 2 * kBandRows * kLdK); };
+    auto compute = [&](int, const bf16* st) {
+      if (!active) return;
+#pragma unroll
+      for (int ks = 0; ks < kMmaChunk; ks += 16) {
+        unsigned a[2][4], b[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldsm4(a[mi], st + (32 * wm + 16 * mi + f.a_r) * kLdK + ks + f.a_c);
+        f.b4<false>(b, st + 2 * kBandRows * kLdK, kLdK, ks, 32 * wn);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[mi][j], a[mi], b[j][0], b[j][1]);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    pipeline(L.kp / kMmaChunk, stages, kMmaStage, issue, fetch, put, compute);
+    if (active) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bf16* d = sT + (32 * wm + 16 * mi + g) * L.ldt + n0 + 32 * wn + 8 * j + 2 * tg;
+          *reinterpret_cast<unsigned*>(d) = pack_bf16(acc[mi][j][0], acc[mi][j][1]);
+          *reinterpret_cast<unsigned*>(d + 8 * L.ldt) = pack_bf16(acc[mi][j][2], acc[mi][j][3]);
+        }
+    }
+  }
+  __syncthreads();
+}
+
+// hfs = Tr Rr - Ti Ri on the tensor cores from T's tile (2 kBandRows x ldt
+// bfloat16), the two float32 sums in one warp's registers and their
+// difference rounded to bfloat16 once, a pass of kMmaPanel columns at a
+// time, into a result tile in the first stage, handed to out(tile, n0). The
+// tile is [band row][column] (kLdN apart), or with TRANSPOSED [column][band
+// row] (kLdK apart), so that `out` writes row segments of the image either
+// way. 8 warps, 2 x 4: a warp owns 16 rows by 32 columns of a pass.
+//
+// EXACT (K1): the result is what a plain float32 product gives, sums as FMA
+// chains from zero in k order, bit for bit: `out` and `y` of K1 are held to
+// one bf16 ulp of the plain version, and where hfs is small beside its terms
+// any other order moves it by more. So each k16 step's mma starts from zero
+// and is added to an IEEE float32 total, and beside the sums an mma of the
+// magnitudes gives S = sum |Tr||Rr| + |Ti||Ri|; both orders' sums lie within
+// (np + np / 16 + 66) u S of the exact one (u = 2^-24: the FMA chain's
+// gamma_np, 64 u for each k16 step inside the tensor core and the totals'
+// additions), and that with a factor 2 of margin bounds how far the plain
+// hfs can be from this one. Where the bound's ends round to two bfloat16
+// values (rows of the band in the image only), the block recomputes the
+// pair as FMA chains from T's tile and R (a few % of the outputs).
+template <bool TRANSPOSED, bool EXACT, class Out>
+__device__ __forceinline__ void mma_hfs(const MmaLayout& L, int rows, int cols,
+                                        const bf16* __restrict__ rr,
+                                        const bf16* __restrict__ ri, char* smem, Out out) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, tg = lane % 4;
+  const Frag f(lane);
+  const bf16* sT = reinterpret_cast<const bf16*>(smem + L.t);
+  bf16* stages = reinterpret_cast<bf16*>(smem + L.stages);
+  // the outputs to recompute (EXACT): packed band row * kMmaPanel + column
+  __shared__ int n_exact;
+  unsigned short* exact = reinterpret_cast<unsigned short*>(stages + kMmaStage);
+  const float margin = 2.f * (L.np + L.np / 16 + 66) * 0x1p-24f * (1.f + 0x1p-8f);
+  float acc[3][4][4];  // Tr Rr, Ti Ri, and (EXACT) S
+  for (int n0 = 0; n0 < L.np; n0 += kMmaPanel) {
+    const bool active = n0 + 32 * wn < L.np;
+    auto issue = [&](int t, bf16* st) {
+      constexpr int kSegs = kMmaChunk * (kMmaPanel / 8);
+      for (int e = tid; e < 2 * kSegs; e += kBandThreads) {
+        const int s = e / kSegs, k = (e % kSegs) / (kMmaPanel / 8), m = e % (kMmaPanel / 8);
+        if (n0 + 8 * m >= L.np) continue;
+        cp_async16(st + s * kMmaChunk * kLdN + k * kLdN + 8 * m,
+                   (s ? ri : rr) + (size_t)(t * kMmaChunk + k) * L.np + n0 + 8 * m);
+      }
+    };
+    auto compute = [&](int t, const bf16* st) {
+      if (!active) return;
+#pragma unroll
+      for (int ks = 0; ks < kMmaChunk; ks += 16) {
+        const int kk = t * kMmaChunk + ks;
+        unsigned a[2][4], b[2][4][2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          ldsm4(a[s], sT + (s * kBandRows + 16 * wm + f.a_r) * L.ldt + kk + f.a_c);
+          f.b4<true>(b[s], st + s * kMmaChunk * kLdN, kLdN, ks, 32 * wn);
+        }
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if constexpr (EXACT) {
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(part, a[s], b[s][j][0], b[s][j][1]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[s][j][q] = __fadd_rn(acc[s][j][q], part[q]);
+              unsigned m[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) m[q] = a[s][q] & 0x7fff7fffu;
+              mma_bf16(acc[2][j], m, b[s][j][0] & 0x7fff7fffu, b[s][j][1] & 0x7fff7fffu);
+            } else {
+              mma_bf16(acc[s][j], a[s], b[s][j][0], b[s][j][1]);
+            }
+          }
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    if (EXACT && tid == 0) n_exact = 0;
+    pipeline(L.np / kMmaChunk, stages, kMmaStage, issue, [](int) {}, [](bf16*) {}, compute);
+    bf16* tile = stages;
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = 16 * wm + g + 8 * (q / 2), c = 32 * wn + 8 * j + 2 * tg + q % 2;
+          const float hfs = __fsub_rn(acc[0][j][q], acc[1][j][q]);
+          tile[TRANSPOSED ? c * kLdK + r : r * kLdN + c] = __float2bfloat16_rn(hfs);
+          if constexpr (EXACT) {
+            const float d = __fmaf_ru(margin, acc[2][j][q], 0x1p-22f * fabsf(hfs));
+            if (r < rows && n0 + c < cols &&
+                __bfloat16_as_ushort(__float2bfloat16_rn(__fsub_rd(hfs, d))) !=
+                    __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_ru(hfs, d))))
+              exact[atomicAdd(&n_exact, 1)] = r * kMmaPanel + c;
+          }
+        }
+    }
+    __syncthreads();
+    if constexpr (EXACT) {
+      for (int e = tid; e < n_exact; e += kBandThreads) {
+        const int r = exact[e] / kMmaPanel, c = exact[e] % kMmaPanel;
+        const bf16 *tr = sT + r * L.ldt, *ti = sT + (kBandRows + r) * L.ldt;
+        const bf16 *br = rr + n0 + c, *bi = ri + n0 + c;  // column n0 + c of R
+        float pr = 0.f, pi = 0.f;
+        for (int k = 0; k < L.np; k += 8) {
+          const uint4 vtr = *reinterpret_cast<const uint4*>(tr + k);
+          const uint4 vti = *reinterpret_cast<const uint4*>(ti + k);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const size_t q = (size_t)(k + j) * L.np;
+            pr = fmaf(bf16_at(vtr, j), __bfloat162float(__ldg(br + q)), pr);
+            pi = fmaf(bf16_at(vti, j), __bfloat162float(__ldg(bi + q)), pi);
+          }
+        }
+        tile[TRANSPOSED ? c * kLdK + r : r * kLdN + c] = __float2bfloat16_rn(__fsub_rn(pr, pi));
+      }
+      __syncthreads();
+    }
+    out(tile, n0);
+    __syncthreads();
+  }
+}
+
+// The bfloat16 K1's T = [Lr; Li] xs on the FP32 pipes, for the band
+// [h0, h0 + kBandRows), on band_hfs's tiles, chunks and FMA order (each sum a
+// chain of FMAs from zero in k order, the order of a plain float32 matrix
+// product), so that T rounds to bfloat16 where the plain version's does.
+// The chunks stream on the ring: the operator rows (float32) by cp.async, and
+// xs = add_square(x) from x and sq_delta copied raw by cp.async, 8 pixels a
+// segment, turned into float32 by the thread that copied them (a segment off
+// the plane, or not on 16 bytes, is formed from loads as it is issued).
+// Hands store(r, c, v) the sums of product row r at columns c .. c + 3 of
+// every panel of kPanel columns up to wt.
+constexpr int kTX = kChunkOps + kChunkPlane;    // floats before raw x (then raw sq_delta)
+constexpr int kTSegs = kChunkPlane / 8;         // segments of 8 pixels a chunk
+static_assert((kTX + kChunkPlane) * sizeof(float) <= kMmaStage * sizeof(bf16) &&
+                  2 * kBandRows * (kChunk / 4) == kBandThreads && kTSegs <= kBandThreads,
+              "K1's T stage");
+
+template <class Store>
+__device__ __forceinline__ void band_t_ring(const MmaLayout& L, int h0,
+                                            const float* __restrict__ lr,
+                                            const float* __restrict__ li,
+                                            const bf16* __restrict__ x,
+                                            const bf16* __restrict__ st,
+                                            const bf16* __restrict__ sqd, const Params& p,
+                                            bool vec, char* smem, Store store) {
+  // threads as in band_hfs: a 4 x 4 tile, rows half kBandRows + rq + kRowStep i
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int WPH = kBandThreads / 64;
+  const int half = warp / WPH, wh = warp % WPH;
+  const int rq = 4 * (wh / kWarpsAcross) + lane / 8;
+  const int cg = 8 * (wh % kWarpsAcross) + lane % 8;
+  const int row0 = half * kBandRows + rq;
+  const int H = p.H, W = p.W;
+  // this thread's segment: chunk row sk, columns 8 sc .. 8 sc + 7 of a panel
+  const int sk = tid / (kPanel / 8), sc = 8 * (tid % (kPanel / 8));
+  bf16* stages = reinterpret_cast<bf16*>(smem + L.stages);
+  float acc[4][4];
+  for (int pc0 = 0; pc0 < L.wt; pc0 += kPanel) {
+    const int w = pc0 + sc;
+    uint4 vs{};
+    if (p.square && tid < kTSegs) vs = load8(st + w, vec, W - w);
+    auto raw = [&](int h) { return vec && h < H && w + 8 <= W; };
+    auto form = [&](float* d, const uint4& vx, const uint4& vd, int n) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xv = bf16_at(vx, j);
+        v[j] = j >= n       ? 0.f
+               : p.square ? square_fwd<BF16>(xv, bf16_at(vs, j), bf16_at(vd, j), p.eps)
+                          : xv;
+      }
+      *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(d + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    };
+    auto issue = [&](int t, bf16* stage) {
+      float* f = reinterpret_cast<float*>(stage);
+      const int k0 = t * kChunk, i = tid / (kChunk / 4), m = tid % (kChunk / 4);
+      cp_async16(f + i * kLdL + 4 * m,
+                 (i < kBandRows ? lr : li) + (size_t)(h0 + i % kBandRows) * L.kp + k0 + 4 * m);
+      if (tid >= kTSegs) return;
+      const int h = k0 + sk;
+      const size_t q = (size_t)h * W + w;
+      bf16* xr = reinterpret_cast<bf16*>(f + kTX) + tid * 8;
+      if (raw(h)) {
+        cp_async16(xr, x + q);
+        if (p.square) cp_async16(xr + kChunkPlane, sqd + q);
+        return;
+      }
+      const int n = h < H ? min(8, W - w) : 0;
+      form(f + kChunkOps + sk * kPanel + sc, load8(x + q, false, n),
+           p.square ? load8(sqd + q, false, n) : uint4{}, n);
+    };
+    auto land = [&](int t, bf16* stage) {
+      float* f = reinterpret_cast<float*>(stage);
+      if (tid >= kTSegs || !raw(t * kChunk + sk)) return;
+      const bf16* xr = reinterpret_cast<const bf16*>(f + kTX) + tid * 8;
+      form(f + kChunkOps + sk * kPanel + sc, *reinterpret_cast<const uint4*>(xr),
+           p.square ? *reinterpret_cast<const uint4*>(xr + kChunkPlane) : uint4{}, 8);
+    };
+    auto compute = [&](int, const bf16* stage) {
+      const float* f = reinterpret_cast<const float*>(stage);
+      fma_chunk<kPanel>(acc, f + row0 * kLdL, kRowStep * kLdL, f + kChunkOps + 4 * cg);
+    };
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    ring(L.kp / kChunk, L.depth, stages, issue, land, compute);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      store(row0 + kRowStep * i, pc0 + 4 * cg,
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  }
+}
+
+// K1 in bfloat16: row bands. T = A X on the FP32 pipes in the plain
+// version's order (band_t_ring), hfs on the tensor cores, exactly
+// (mma_hfs<EXACT>). The wrapper gives it A (lr, li) as float32 holding
+// bfloat16 values, bands x kBandRows rows by kp = H padded to kChunk; R = B^T
+// (rr, ri) as bfloat16 in mma_geometry's layout; and the taps, eps and w
+// rounded to bfloat16.
+__global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
+ee_fused_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ stripes,
+                         const bf16* __restrict__ sq_delta, const float* __restrict__ lr,
+                         const float* __restrict__ li, const bf16* __restrict__ rr,
+                         const bf16* __restrict__ ri, const float* __restrict__ gtaps,
+                         bf16* __restrict__ out, bf16* __restrict__ y, Params p, MmaLayout L) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* sE = reinterpret_cast<float*>(smem);
+  const int C = p.C, H = p.H, W = p.W, HW = H * W;
+  const int b = blockIdx.y, h0 = blockIdx.x * kBandRows;
+  float g[9];
+  load_taps(gtaps, g);
+  const bf16* xb = x + (size_t)b * C * HW;
+  band_edge<BF16>(xb, g, p, h0, W % 4 == 0 && aligned16(x),
+                  reinterpret_cast<float*>(smem + L.t), sE, L.lde);
+  // x, sq_delta and stripes in 16-byte segments: W % 8 == 0 and each on 16
+  // bytes (out and y are the wrapper's own)
+  const bool vec = W % 8 == 0 && aligned16(x) &&
+                   (!p.square || (aligned16(stripes) && aligned16(sq_delta)));
+  bf16* sT = reinterpret_cast<bf16*>(smem + L.t);
+
+  for (int c = 0; c < C; ++c) {
+    const size_t off = ((size_t)b * C + c) * HW;
+    band_t_ring(L, h0, lr, li, xb + (size_t)c * HW,
+                p.square ? stripes + ((size_t)b * C + c) * W : nullptr,
+                p.square ? sq_delta + (size_t)c * HW : nullptr, p, vec, smem,
+                [&](int r, int c4, float4 v) {
+                  if (c4 >= L.np) return;
+                  *reinterpret_cast<uint2*>(sT + r * L.ldt + c4) =
+                      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+                });
+    __syncthreads();
+    bf16* yc = y + off;
+    bf16* oc = out + off;
+    mma_hfs<false, true>(L, H - h0, W, rr, ri, smem, [&](const bf16* tile, int n0) {
+      for (int e = threadIdx.x; e < kBandRows * (kMmaPanel / 8); e += kBandThreads) {
+        const int r = e / (kMmaPanel / 8), s = 8 * (e % (kMmaPanel / 8));
+        const int h = h0 + r, w = n0 + s;
+        if (h >= H || w >= W) continue;
+        const uint4 hv = *reinterpret_cast<const uint4*>(tile + r * kLdN + s);
+        const float* edge = sE + r * L.lde + w;
+        float yv[8], ov[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          yv[j] = BF16::r(__fadd_rn(bf16_at(hv, j), BF16::r(__fmul_rn(p.w, edge[j]))));
+          ov[j] = clip01(yv[j]);
+        }
+        store8(yc + (size_t)h * W + w, yv, W % 8 == 0, W - w);
+        store8(oc + (size_t)h * W + w, ov, W % 8 == 0, W - w);
+      }
+    });
+  }
+}
+
+// K2 in bfloat16: column bands of the transposed problem dx^T = R^T U^T L,
+// both products on the tensor cores (its limits allow their sums' order).
+// The wrapper gives it L = B^T and R = A as bfloat16 in mma_geometry's
+// layout.
+__global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
+ee_fused_bwd_bf16_kernel(const bf16* __restrict__ u, const bf16* __restrict__ x,
+                         const bf16* __restrict__ stripes, const bf16* __restrict__ sq_delta,
+                         const bf16* __restrict__ y, const bf16* __restrict__ lr,
+                         const bf16* __restrict__ li, const bf16* __restrict__ rr,
+                         const bf16* __restrict__ ri, const float* __restrict__ gtaps,
+                         bf16* __restrict__ dx, Params p, MmaLayout L) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* sE = reinterpret_cast<float*>(smem);
+  const int C = p.C, H = p.H, W = p.W, HW = H * W;
+  const int b = blockIdx.y, band0 = blockIdx.x * kBandRows;
+  float g[9];
+  load_taps(gtaps, g);
+  const size_t img = (size_t)b * C * HW;
+  band_canny_adjoint<true, BF16>(x + img, u + img, y + img, g, p, band0,
+                                 W % 4 == 0 && aligned16(x),
+                                 reinterpret_cast<float*>(smem + L.t), sE, L.lde);
+  // rows of 16-byte segments: W % 8 == 0 and every tensor on 16 bytes (dx is
+  // the wrapper's own)
+  const bool vec = W % 8 == 0 && aligned16(u) && aligned16(x) && aligned16(y) &&
+                   (!p.square || (aligned16(stripes) && aligned16(sq_delta)));
+
+  for (int c = 0; c < C; ++c) {
+    const size_t off = img + (size_t)c * HW;
+    CotangentMma plane{u + off, y + off, H, W, vec};
+    mma_t(L, band0, lr, li, smem, plane);
+    const bf16* xc = x + off;
+    const bf16* st = p.square ? stripes + ((size_t)b * C + c) * W : nullptr;
+    const bf16* sqd = p.square ? sq_delta + (size_t)c * HW : nullptr;
+    bf16* dxc = dx + off;
+    // the tile holds image rows n0 .. n0 + kMmaPanel - 1 of the band's columns
+    mma_hfs<true, false>(L, W - band0, H, rr, ri, smem, [&](const bf16* tile, int n0) {
+      for (int e = threadIdx.x; e < kMmaPanel * (kBandRows / 8); e += kBandThreads) {
+        const int hr = e / (kBandRows / 8), s = 8 * (e % (kBandRows / 8));
+        const int h = n0 + hr, w = band0 + s, n = W - w;
+        if (h >= H || w >= W) continue;
+        const uint4 dv = *reinterpret_cast<const uint4*>(tile + hr * kLdK + s);
+        const float* canny = sE + h * L.lde + s;
+        const size_t q = (size_t)h * W + w;
+        uint4 vx{}, vs{}, vd{};
+        if (p.square) {
+          vx = load8(xc + q, vec, n);
+          vs = load8(st + w, vec, n);
+          vd = load8(sqd + q, vec, n);
+        }
+        float d[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float dxs = bf16_at(dv, j);
+          d[j] = (p.square ? square_bwd<BF16>(dxs, bf16_at(vx, j), bf16_at(vs, j),
+                                              bf16_at(vd, j), p.eps)
+                           : dxs) +
+                 canny[j];
+        }
+        store8(dxc + q, d, vec, n);
+      }
+    });
   }
 }
 
@@ -1046,32 +1762,9 @@ BandLayout band_layout(const int* layout) {
                     layout[4], layout[5], layout[6]};
 }
 
-template <class P>
-int fused_fwd(const void* x, const void* stripes, const void* sq_delta, const float* lr,
-              const float* li, const float* rr, const float* ri, const float* gtaps,
-              void* out, void* y, int B, int C, int H, int W, float eps, float w,
-              float alpha, float high, int square, const int* layout, int bands,
-              size_t smem_bytes, void* stream, size_t* done) {
-  using T = typename P::T;
-  return launch(ee_fused_fwd_kernel<P>, done, dim3(bands, B), kBandThreads, smem_bytes,
-                stream, static_cast<const T*>(x), static_cast<const T*>(stripes),
-                static_cast<const T*>(sq_delta), lr, li, rr, ri, gtaps, static_cast<T*>(out),
-                static_cast<T*>(y), Params{B, C, H, W, eps, w, alpha, high, square},
-                band_layout(layout));
-}
-
-template <class P, bool COLUMNS>
-int fused_bwd(const void* u, const void* x, const void* stripes, const void* sq_delta,
-              const void* y, const float* lr, const float* li, const float* rr,
-              const float* ri, const float* gtaps, void* dx, int B, int C, int H, int W,
-              float eps, float w, float alpha, float high, int square, const int* layout,
-              int bands, size_t smem_bytes, void* stream, size_t* done) {
-  using T = typename P::T;
-  return launch(ee_fused_bwd_kernel<P, COLUMNS>, done, dim3(bands, B), kBandThreads,
-                smem_bytes, stream, static_cast<const T*>(u), static_cast<const T*>(x),
-                static_cast<const T*>(stripes), static_cast<const T*>(sq_delta),
-                static_cast<const T*>(y), lr, li, rr, ri, gtaps, static_cast<T*>(dx),
-                Params{B, C, H, W, eps, w, alpha, high, square}, band_layout(layout));
+MmaLayout mma_layout(const int* layout) {
+  return MmaLayout{layout[0], layout[1], layout[2], layout[3],
+                   layout[4], layout[5], layout[6], layout[7]};
 }
 
 }  // namespace
@@ -1080,12 +1773,13 @@ extern "C" {
 
 // Each entry point returns a cudaError_t: 0 when the launch was accepted.
 // K1/K2 take the block geometry that the wrapper computed: `layout` holds
-// BandLayout's seven fields in order, `bands` the blocks per image and
-// `smem_bytes` a block's dynamic shared memory; and the operators it padded
-// to layout's shapes (lr, li: bands x band rows by hk; rr, ri: wk x wt).
-// The _bf16 forms take bfloat16 tensors, and the operators, taps, eps and w
-// rounded to bfloat16; K2's operators and layout are those of its column
-// bands (L = B^T, R = A).
+// BandLayout's seven fields in order (the _bf16 forms: MmaLayout's six),
+// `bands` the blocks per image and `smem_bytes` a block's dynamic shared
+// memory; and the operators it padded to layout's shapes (lr, li: bands x
+// band rows by hk; rr, ri: wk x wt; the _bf16 forms: bfloat16, bands x band
+// rows by kp and np x np). The _bf16 forms take bfloat16 tensors, and the
+// taps, eps and w rounded to bfloat16; K2's operators and layout are those
+// of its column bands (L = B^T, R = A).
 // K3a/K3b take the tiles across and down an image and a block's dynamic
 // shared memory from the wrapper's canny_geometry.
 int ee_fused_fwd(const float* x, const float* stripes, const float* sq_delta,
@@ -1094,8 +1788,9 @@ int ee_fused_fwd(const float* x, const float* stripes, const float* sq_delta,
                  int B, int C, int H, int W, float eps, float w, float alpha,
                  float high, int square, const int* layout, int bands,
                  size_t smem_bytes, void* stream) {
-  return fused_fwd<F32>(x, stripes, sq_delta, lr, li, rr, ri, gtaps, out, y, B, C, H, W, eps,
-                        w, alpha, high, square, layout, bands, smem_bytes, stream, g_fwd_smem);
+  return launch(ee_fused_fwd_kernel, g_fwd_smem, dim3(bands, B), kBandThreads, smem_bytes,
+                stream, x, stripes, sq_delta, lr, li, rr, ri, gtaps, out, y,
+                Params{B, C, H, W, eps, w, alpha, high, square}, band_layout(layout));
 }
 
 int ee_fused_bwd(const float* u, const float* x, const float* stripes,
@@ -1104,30 +1799,34 @@ int ee_fused_bwd(const float* u, const float* x, const float* stripes,
                  const float* gtaps, float* dx, int B, int C, int H, int W,
                  float eps, float w, float alpha, float high, int square,
                  const int* layout, int bands, size_t smem_bytes, void* stream) {
-  return fused_bwd<F32, false>(u, x, stripes, sq_delta, y, lr, li, rr, ri, gtaps, dx, B, C, H,
-                               W, eps, w, alpha, high, square, layout, bands, smem_bytes,
-                               stream, g_bwd_smem);
+  return launch(ee_fused_bwd_kernel, g_bwd_smem, dim3(bands, B), kBandThreads, smem_bytes,
+                stream, u, x, stripes, sq_delta, y, lr, li, rr, ri, gtaps, dx,
+                Params{B, C, H, W, eps, w, alpha, high, square}, band_layout(layout));
 }
 
 int ee_fused_fwd_bf16(const void* x, const void* stripes, const void* sq_delta,
-                      const float* lr, const float* li, const float* rr, const float* ri,
+                      const float* lr, const float* li, const void* rr, const void* ri,
                       const float* gtaps, void* out, void* y, int B, int C, int H, int W,
                       float eps, float w, float alpha, float high, int square,
                       const int* layout, int bands, size_t smem_bytes, void* stream) {
-  return fused_fwd<BF16>(x, stripes, sq_delta, lr, li, rr, ri, gtaps, out, y, B, C, H, W,
-                         eps, w, alpha, high, square, layout, bands, smem_bytes, stream,
-                         g_fwd_bf16_smem);
+  auto in = [](const void* t) { return static_cast<const bf16*>(t); };
+  return launch(ee_fused_fwd_bf16_kernel, g_fwd_bf16_smem, dim3(bands, B), kBandThreads,
+                smem_bytes, stream, in(x), in(stripes), in(sq_delta), lr, li, in(rr), in(ri),
+                gtaps, static_cast<bf16*>(out), static_cast<bf16*>(y),
+                Params{B, C, H, W, eps, w, alpha, high, square}, mma_layout(layout));
 }
 
 int ee_fused_bwd_bf16(const void* u, const void* x, const void* stripes,
-                      const void* sq_delta, const void* y, const float* lr,
-                      const float* li, const float* rr, const float* ri,
+                      const void* sq_delta, const void* y, const void* lr,
+                      const void* li, const void* rr, const void* ri,
                       const float* gtaps, void* dx, int B, int C, int H, int W, float eps,
                       float w, float alpha, float high, int square, const int* layout,
                       int bands, size_t smem_bytes, void* stream) {
-  return fused_bwd<BF16, true>(u, x, stripes, sq_delta, y, lr, li, rr, ri, gtaps, dx, B, C, H,
-                               W, eps, w, alpha, high, square, layout, bands, smem_bytes,
-                               stream, g_bwd_bf16_smem);
+  auto in = [](const void* t) { return static_cast<const bf16*>(t); };
+  return launch(ee_fused_bwd_bf16_kernel, g_bwd_bf16_smem, dim3(bands, B), kBandThreads,
+                smem_bytes, stream, in(u), in(x), in(stripes), in(sq_delta), in(y), in(lr),
+                in(li), in(rr), in(ri), gtaps, static_cast<bf16*>(dx),
+                Params{B, C, H, W, eps, w, alpha, high, square}, mma_layout(layout));
 }
 
 int canny_fused_fwd(const float* x, const float* gtaps, float* out, float* mag,

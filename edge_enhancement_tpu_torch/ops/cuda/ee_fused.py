@@ -21,7 +21,9 @@ Source and design notes: edge_enhancement_tpu_torch/csrc/ee_fused.cu.
 
 K1/K2 take (B, C, H, W) float32 or bfloat16 (the bf16 policy: the JAX
 kernels compute in x's dtype, rounding where it is bfloat16; the square
-draws come in x's dtype too); K3a/K3b float32, and raise on another dtype
+draws come in x's dtype too; the bfloat16 forms run their HFS products on
+the tensor cores, with their own block geometry, mma_geometry); K3a/K3b
+float32, and raise on another dtype
 (JAX's Canny-only pair in bfloat16 is not ported). On a CPU tensor the
 wrappers run the plain versions; on a CUDA tensor they launch the kernel
 or raise, and never convert a tensor to reach another form. The plain
@@ -49,8 +51,10 @@ from ..ste import to_compare
 LAUNCHES = {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
             "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
             "canny_fused_fwd": 0, "canny_fused_bwd": 0}
-# Largest dynamic shared memory a Hopper block may opt into (232,448 bytes).
-MAX_SMEM_BYTES = 232448
+# Largest dynamic shared memory a Hopper block may opt into (232,448 bytes);
+# an SM's 233,472 bytes of shared memory and the 1,024 the card keeps for
+# each resident block.
+MAX_SMEM_BYTES, SM_SMEM_BYTES, BLOCK_RESERVED_BYTES = 232448, 233472, 1024
 # K1/K2's block geometry. This module owns the layout of a block and passes
 # it to the launch; the four constants are csrc/ee_fused.cu's kBandRows,
 # kBandThreads, kChunk and kStripW, which the kernels are compiled with (a
@@ -60,6 +64,14 @@ MAX_SMEM_BYTES = 232448
 BAND_ROWS, BAND_THREADS, CHUNK, STRIP_W = 32, 256, 16, 64
 # columns of one product panel: 4 columns a thread, BAND_ROWS / 2 row groups
 PANEL = 4 * BAND_THREADS // (BAND_ROWS // 2)
+# The bfloat16 K1/K2's products on the tensor cores (csrc/ee_fused.cu's
+# kMmaChunk, kMmaPanel and kMmaPad; the CPU test holds these too): chunks
+# MMA_CHUNK deep, passes of MMA_PANEL columns, MMA_PAD bfloat16 after each
+# staged row; a stage holds the largest chunk, R's (Rr, Ri, each MMA_CHUNK x
+# (MMA_PANEL + MMA_PAD) bfloat16); the tensor-core products run on two
+# stages, K1's first product on a ring of 2 to MMA_DEPTH.
+MMA_CHUNK, MMA_PANEL, MMA_PAD, MMA_DEPTH = 32, 128, 8, 4
+MMA_STAGE_BYTES = 2 * 2 * MMA_CHUNK * (MMA_PANEL + MMA_PAD)
 # K3a/K3b's tile: a block owns CANNY_ROWS x CANNY_COLS pixels of one image;
 # csrc/ee_fused.cu's kCannyRows and kCannyCols (the CPU test holds these too).
 CANNY_ROWS, CANNY_COLS = 16, 32
@@ -84,10 +96,8 @@ class BandGeometry:
     band's Canny plane of BAND_ROWS x wq at 0, T = [Lr; Li] P of
     2 BAND_ROWS x ld_t at t, of which wt columns are computed, and at s the
     region the Canny strips, then the HFS stages and the exchange share);
-    the padded operators' inner sizes hk (L) and wk (R); and the bytes.
-    With `columns` (the bfloat16 K2) the bands are of image columns and the
-    products those of the transposed problem: H and W trade places, and the
-    Canny strips are STRIP_W rows by BAND_ROWS columns."""
+    the padded operators' inner sizes hk (L) and wk (R); and the bytes. The
+    float32 forms' geometry (the bfloat16 forms': MmaGeometry)."""
     bands: int
     wq: int
     wt: int
@@ -115,16 +125,11 @@ class BandGeometry:
 
 
 @functools.lru_cache(maxsize=None)
-def band_geometry(c: int, h: int, w: int, backward: bool,
-                  columns: bool = False) -> BandGeometry:
-    """K1's (backward=False) or K2's block geometry for C channels of H x W;
-    `columns`: K2 on column bands (the bfloat16 K2)."""
+def band_geometry(c: int, h: int, w: int, backward: bool) -> BandGeometry:
+    """The float32 K1's (backward=False) or K2's block geometry for C
+    channels of H x W."""
     bh, sw = BAND_ROWS, STRIP_W
-    if columns:
-        h, w = w, h
-        tile = functools.partial(_tile_floats, sw, bh)
-    else:
-        tile = functools.partial(_tile_floats, bh, sw)
+    tile = functools.partial(_tile_floats, bh, sw)
     wq, wt = _round_up(w, 4), _round_up(w, PANEL)
     ld_t = wt + 4              # 4 more than a multiple of 64: T's rows on distinct banks
     if backward:               # x (4-pixel halo), summed blur (3), u_gx, u_gy (2), u_summed (1)
@@ -139,6 +144,78 @@ def band_geometry(c: int, h: int, w: int, backward: bool,
     return BandGeometry(bands=-(-h // bh), wq=wq, wt=wt, ld_t=ld_t,
                         hk=_round_up(h, CHUNK), wk=_round_up(w, CHUNK), t=t, s=s,
                         smem_bytes=4 * (s + max(canny, hfs)))
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaGeometry:
+    """Where the bfloat16 K1/K2 put a (C, H, W) problem (csrc/ee_fused.cu's
+    MmaLayout). K1 on row bands: band i owns image rows [i * BAND_ROWS,
+    (i + 1) * BAND_ROWS); T = A X contracts over H and is W wide. K2 on
+    column bands of the transposed problem dx^T = B^T U^T A: band i owns
+    image columns, T = B^T U^T contracts over W and is H wide. kp: the first
+    contraction padded, L's row length (K1: to CHUNK, float32 L for the FP32
+    pipes; K2: to MMA_CHUNK, bfloat16 L); np: T's width, the second
+    contraction and the result's width, padded to 32 (R is np x np); wt: the
+    columns of T that K1 computes, whole PANELs (K2: 0). The block's shared
+    memory, in bytes: the band's Canny plane at 0 (K1: BAND_ROWS rows of lde
+    floats; K2: a row of lde = BAND_ROWS floats for each image row); at t the
+    Canny strips, then T (2 BAND_ROWS x ldt bfloat16); `depth` stages of
+    MMA_STAGE_BYTES at `stages`: K1's the deepest ring, up to MMA_DEPTH, that
+    still lets two blocks share an SM (2 where none does), K2's 2."""
+    bands: int
+    kp: int
+    np: int
+    wt: int
+    lde: int
+    ldt: int
+    t: int
+    stages: int
+    depth: int
+    smem_bytes: int
+
+    @property
+    def layout(self) -> tuple:
+        """MmaLayout's fields, in the order the launch takes them."""
+        return (self.kp, self.np, self.wt, self.lde, self.ldt, self.t, self.stages,
+                self.depth)
+
+    @property
+    def l_shape(self) -> tuple:
+        """Shape of the padded Lr, Li (K1: Ar, Ai; K2: Br^T, Bi^T)."""
+        return (self.bands * BAND_ROWS, self.kp)
+
+    @property
+    def r_shape(self) -> tuple:
+        """Shape of the padded Rr, Ri (K1: Br^T, Bi^T; K2: Ar, Ai)."""
+        return (self.np, self.np)
+
+
+@functools.lru_cache(maxsize=None)
+def mma_geometry(c: int, h: int, w: int, backward: bool) -> MmaGeometry:
+    """The bfloat16 K1's (backward=False) or K2's block geometry for C
+    channels of H x W."""
+    bh, sw = BAND_ROWS, STRIP_W
+    if backward:               # column bands: H and W trade places
+        h, w = w, h
+        tile = functools.partial(_tile_floats, sw, bh)
+        # x (4-pixel halo), summed blur (3), u_gx, u_gy (2), u_summed (1)
+        canny = c * tile(4) + tile(3) + 2 * tile(2) + tile(1)
+    else:                      # x (2-pixel halo), summed blur (1)
+        tile = functools.partial(_tile_floats, bh, sw)
+        canny = c * tile(2) + tile(1)
+    np_ = _round_up(w, 32)
+    ldt = np_ + MMA_PAD        # rows 16 bytes past a multiple of 32: ldmatrix without conflicts
+    t = 4 * bh * _round_up(w, 8)
+    stages = t + _round_up(2 * 2 * bh * ldt, 128)
+    need = lambda depth: max(t + 4 * canny, stages + depth * MMA_STAGE_BYTES)
+    # two blocks an SM, 128 bytes each left for the kernels' static shared memory
+    two_a_sm = (SM_SMEM_BYTES - 2 * BLOCK_RESERVED_BYTES) // 2 - 128
+    depth = max([d for d in range(2, MMA_DEPTH + 1)
+                 if not backward and need(d) <= two_a_sm] or [2])
+    return MmaGeometry(bands=-(-h // bh), kp=_round_up(h, MMA_CHUNK if backward else CHUNK),
+                       np=np_, wt=0 if backward else _round_up(w, PANEL),
+                       lde=bh if backward else _round_up(w, 8), ldt=ldt, t=t,
+                       stages=stages, depth=depth, smem_bytes=need(depth))
 
 
 def reset_launches() -> None:
@@ -162,19 +239,14 @@ _OPERATORS: dict = {}
 _TAPS: dict = {}
 
 
-def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
-    """float32 `t` with its values rounded to `dtype` (the JAX kernel's
-    operators and taps in x's dtype; the kernels read them as float32)."""
-    return t if dtype == torch.float32 else t.to(dtype).float()
-
-
 def gaussian_taps(sigma: float, device, dtype=torch.float32) -> torch.Tensor:
-    """The 3x3 Gaussian's taps (9,) on `device` as float32, rounded to
-    `dtype`, built once per key."""
+    """The 3x3 Gaussian's taps (9,) on `device` as float32, their values
+    rounded to `dtype` (the JAX kernel's taps in x's dtype), built once per
+    key."""
     key = (sigma, str(device), dtype)
     if key not in _TAPS:
         taps = gaussian_kernel(3, 0.0, sigma).reshape(9).copy()
-        _TAPS[key] = _rounded(torch.from_numpy(taps), dtype).to(device)
+        _TAPS[key] = torch.from_numpy(taps).to(dtype).float().to(device)
     return _TAPS[key]
 
 
@@ -190,20 +262,23 @@ def operators(h: int, w: int, r: int, sigma: float, device) -> tuple:
 
 def band_operators(h: int, w: int, r: int, backward: bool, device,
                    dtype=torch.float32) -> tuple:
-    """K1's (Ar, Ai, Br^T, Bi^T) or K2's (Ar^T, Ai^T, Br, Bi), contiguous and
-    zero-padded to band_geometry's shapes, as float32 with their values
-    rounded to `dtype`, built once per key on `device`. The bfloat16 K2
-    works on column bands: (Br^T, Bi^T, Ar, Ai)."""
+    """The operators (Lr, Li, Rr, Ri) that K1 (K2 with `backward`) reads for
+    `dtype`, contiguous and zero-padded to its geometry's shapes, built once
+    per key on `device`. float32: K1's (Ar, Ai, Br^T, Bi^T), K2's (Ar^T,
+    Ai^T, Br, Bi), padded to band_geometry's. bfloat16: rounded to bfloat16,
+    padded to mma_geometry's: K1's (Ar, Ai) as float32 for its FP32 first
+    product and (Br^T, Bi^T) as bfloat16; K2's (Br^T, Bi^T, Ar, Ai), those
+    of its column bands, as bfloat16."""
     key = ("band", h, w, r, backward, str(device), dtype)
     if key not in _OPERATORS:
-        columns = backward and dtype != torch.float32
-        geo = band_geometry(1, h, w, backward, columns)
-        ar, ai, br, bi = (_rounded(torch.from_numpy(m), dtype).to(device)
+        ar, ai, br, bi = (torch.from_numpy(m).to(dtype).to(device)
                           for m in _hfs_axis_operators(h, w, r))
-        if columns:
-            mats = (br.T, bi.T, ar, ai)
-        else:
+        if dtype == torch.float32:
+            geo = band_geometry(1, h, w, backward)
             mats = (ar.T, ai.T, br, bi) if backward else (ar, ai, br.T, bi.T)
+        else:
+            geo = mma_geometry(1, h, w, backward)
+            mats = (br.T, bi.T, ar, ai) if backward else (ar.float(), ai.float(), br.T, bi.T)
 
         def padded(m, shape):
             out = m.new_zeros(shape)
@@ -384,13 +459,16 @@ def _library():
     return lib
 
 
-def kernel_geometry(c: int, h: int, w: int, backward: bool, dtype) -> BandGeometry:
+def kernel_geometry(c: int, h: int, w: int, backward: bool, dtype):
     """The block geometry that K1 (K2 with `backward`) launches with for a
-    (B, C, H, W) tensor of `dtype`: the bfloat16 K2 on column bands."""
-    return band_geometry(c, h, w, backward, columns=backward and dtype == torch.bfloat16)
+    (B, C, H, W) tensor of `dtype`: band_geometry's for float32,
+    mma_geometry's for bfloat16."""
+    if dtype == torch.bfloat16:
+        return mma_geometry(c, h, w, backward)
+    return band_geometry(c, h, w, backward)
 
 
-def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x) -> BandGeometry:
+def _check(x, stripes, sq_delta, k: FusedConsts, *same_as_x):
     """Raise on what K1 (K2 with u and y given) does not take; return the
     block geometry."""
     if x.device.type != "cuda":
@@ -425,7 +503,7 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _band_args(geo: BandGeometry) -> tuple:
+def _band_args(geo) -> tuple:
     """(layout, bands, bytes) as K1/K2's entry points take them."""
     return (_I * len(geo.layout))(*geo.layout), geo.bands, geo.smem_bytes
 

@@ -28,9 +28,10 @@ FWD_TOL, BWD_TOL = 2e-5, 1e-4
 # (and the edge maps exact). dx = dx_hfs + dx_canny rounds once, so one ulp
 # of the HFS part can be more ulps of a small dx: at most BF16_DX_SHARE of
 # dx more than one ulp off, and none more than BF16_DX_REL of the largest
-# |dx|. Measured on an H100: bit for bit at 64, 128 and 224 px (cuBLAS sums
-# in the kernel's order there); at 24 x 40 0.16% of dx more than one ulp
-# off, at most 1.95e-3 with |dx| up to 1.86.
+# |dx|. K1 computes its sums in the plain version's order where the order
+# can change the rounding, so it gives the plain version's bits; K2's sums
+# run on the tensor cores in their own order (on an H100, 0.005-0.02% of dx
+# more than one ulp off at 64 to 288 px).
 BF16_DX_REL, BF16_DX_SHARE = 2.0 ** -7, 1e-2
 
 
@@ -102,11 +103,9 @@ def test_kernels_match_plain(cuda, shape, square, dtype):
     assert dx_k.abs().max() > 0.1
 
 
-def _check_bf16(x, st, sqd, u, square):
-    """K1/K2 in bfloat16 against their plain versions (the limits above),
-    then through the autograd.Function: one launch of each bfloat16 form."""
-    k = _consts(square)
-    F.reset_launches()
+def _bf16_pair(x, st, sqd, u, k):
+    """K1 and K2 in bfloat16 against their plain versions, within the limits
+    above; K2 on the plain forward's y, so both see the same clip mask."""
     out_k, y_k = F.ee_fused_fwd(x, st, sqd, k)
     out_p, y_p = F.ee_fused_fwd_plain(x, st, sqd, k)
     assert out_k.dtype == y_k.dtype == torch.bfloat16
@@ -119,11 +118,38 @@ def _check_bf16(x, st, sqd, u, square):
     assert (F.bf16_ulps(dx_k, dx_p) > 1).float().mean() <= BF16_DX_SHARE
     assert ((dx_k.float() - dx_p.float()).abs().max()
             <= BF16_DX_REL * dx_p.float().abs().max())
+
+
+def _check_bf16(x, st, sqd, u, square):
+    """K1/K2 in bfloat16 against their plain versions (the limits above),
+    then through the autograd.Function: one launch of each bfloat16 form."""
+    k = _consts(square)
+    F.reset_launches()
+    _bf16_pair(x, st, sqd, u, k)
     xa = x.clone().requires_grad_()
     (g,) = torch.autograd.grad((F.ee_fused(xa, st, sqd, k) * u).sum(), [xa])
     assert g.dtype == torch.bfloat16
     assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
                           "ee_fused_fwd_bf16": 2, "ee_fused_bwd_bf16": 2,
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+
+
+# The bfloat16 K1/K2 (products on the tensor cores, in passes of 128
+# columns; bands of 32 rows, or columns for K2) at fast-AT's 224 and 288 px
+# (7 and 9 bands; 224 = 128 + 96 and 288 = 2 x 128 + 32 columns, last passes
+# with idle warps), one partial band (30: W % 8 != 0, the element-by-element
+# loads and stores), and ragged last bands (72 = 2 x 32 + 8; 100 = 3 x 32 + 4,
+# also W % 8 != 0), square on and off: one launch of each entry point
+@pytest.mark.parametrize("shape", [(1, 3, 224, 224), (1, 3, 288, 288), (2, 3, 30, 30),
+                                   (2, 3, 72, 72), (1, 3, 100, 100)])
+@pytest.mark.parametrize("square", [True, False])
+def test_bf16_kernels_at_fast_at_and_ragged_sizes(cuda, shape, square):
+    x, st, sqd, u = (None if t is None else t.to(torch.bfloat16)
+                     for t in _operands(shape, square, cuda, seed=7))
+    F.reset_launches()
+    _bf16_pair(x, st, sqd, u, _consts(square))
+    assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
+                          "ee_fused_fwd_bf16": 1, "ee_fused_bwd_bf16": 1,
                           "canny_fused_fwd": 0, "canny_fused_bwd": 0}
 
 

@@ -222,38 +222,80 @@ def test_the_shared_memory_holds_the_kernel_sources_tiles(c, h, w):
 
 
 # ---- the bfloat16 forms ----------------------------------------------------
-# K1 bf16 stages its planes as float32, so its geometry is K1's; K2 bf16
-# works on column bands of the transposed problem (dx^T = B^T U^T A: JAX
-# contracts its adjoint over W first), its Canny strips STRIP_W rows by
-# BAND_ROWS columns.
+# The bfloat16 K1/K2 run their HFS products on the tensor cores, on operators
+# and tiles held as bfloat16 (mma_geometry). K1 on row bands; K2 on column
+# bands of the transposed problem (dx^T = B^T U^T A: JAX contracts its
+# adjoint over W first), its Canny strips STRIP_W rows by BAND_ROWS columns.
+
+HALF = sorted({n for name, c, n in STEP125 if c == 3 and n >= 128})
+
+
+def _two_a_sm(smem_bytes):
+    """Whether two blocks of `smem_bytes` dynamic shared memory (and up to
+    128 bytes of static) share an SM."""
+    return 2 * (smem_bytes + 128 + F.BLOCK_RESERVED_BYTES) <= F.SM_SMEM_BYTES
+
+
+def test_the_half_configs_are_the_imagenet_sizes():
+    """Every shipped `half: true` config with an edge-enhancement front-end
+    is an ImageNet recipe at 128, 224 or 288 px on the fused step125 Canny
+    (the others are plain ResNet-50s)."""
+    half = []
+    for path in sorted(glob.glob(os.path.join(CONFIGS, "*", "*.yml"))):
+        with open(path) as f:
+            cfg = yaml.safe_load(f) or {}
+        if cfg.get("half"):
+            half.append((cfg["arch"], cfg.get("type_canny"), int(cfg["cize"])))
+    ee = [(t, n) for arch, t, n in half if arch.endswith("_EE")]
+    assert len(ee) == 8 and all(t is None for arch, t, _ in half if not arch.endswith("_EE"))
+    assert {t for t, _ in ee} == {"CannyFilter_step125_1"}
+    assert {n for _, n in ee} == set(HALF) == {128, 224, 288}
+
 
 @pytest.mark.parametrize("name,channels,cize", STEP125, ids=[n for n, _, _ in STEP125])
 def test_bf16_geometry_fits_and_tiles_every_column(name, channels, cize):
     k1 = F.kernel_geometry(channels, cize, cize, False, torch.bfloat16)
-    assert k1 == F.band_geometry(channels, cize, cize, False)
+    assert k1 == F.mma_geometry(channels, cize, cize, False)
     geo = F.kernel_geometry(channels, cize, cize, True, torch.bfloat16)
-    assert geo == F.band_geometry(channels, cize, cize, True, columns=True)
-    assert 0 < geo.smem_bytes <= F.MAX_SMEM_BYTES
-    cols = np.zeros(cize, int)
-    for band in range(geo.bands):
-        cols[band * F.BAND_ROWS:(band + 1) * F.BAND_ROWS] += 1
-    assert (cols == 1).all()
+    assert geo == F.mma_geometry(channels, cize, cize, True)
+    # K1's ring: the deepest that keeps two blocks an SM (2 where none does);
+    # K2 runs its products on two stages
+    assert 2 <= k1.depth <= F.MMA_DEPTH and geo.depth == 2
+    assert (k1.depth == F.MMA_DEPTH
+            or not _two_a_sm(k1.stages + (k1.depth + 1) * F.MMA_STAGE_BYTES))
+    for g in (k1, geo):
+        assert 0 < g.smem_bytes <= F.MAX_SMEM_BYTES
+        if cize in HALF:                      # two blocks an SM at fast-AT's sizes
+            assert _two_a_sm(g.smem_bytes)
+        cols = np.zeros(cize, int)
+        for band in range(g.bands):
+            cols[band * F.BAND_ROWS:(band + 1) * F.BAND_ROWS] += 1
+        assert (cols == 1).all()
+        # whole chunks of the first contraction (K1's on the FP32 pipes, K2's
+        # on the tensor cores), whole 32-column warp tiles, K1's whole panels
+        assert g.kp % (F.MMA_CHUNK if g is geo else F.CHUNK) == 0 and g.kp >= cize
+        assert g.np % 32 == 0 and g.np >= cize
+    assert k1.wt % F.PANEL == 0 and k1.wt >= k1.np
 
 
 @pytest.mark.parametrize("h,w", [(24, 40), (30, 30), (128, 128)])
 def test_bf16_operators_are_rounded_and_transposed(h, w):
     """K1 bf16 gets (Ar, Ai, Br^T, Bi^T), K2 bf16 (Br^T, Bi^T, Ar, Ai): the
-    values rounded to bfloat16, held as float32, zero-padded to its column
-    geometry's shapes."""
-    ar, ai, br, bi = (torch.from_numpy(m).to(torch.bfloat16).float().numpy()
+    values rounded to bfloat16, zero-padded to its mma_geometry's shapes (L:
+    bands x BAND_ROWS by kp; R: np x np), held as bfloat16 but for K1's A,
+    float32 for its first product on the FP32 pipes."""
+    ar, ai, br, bi = (torch.from_numpy(m).to(torch.bfloat16)
                       for m in _hfs_axis_operators(h, w, 8))
     for backward, want in ((False, (ar, ai, br.T, bi.T)), (True, (br.T, bi.T, ar, ai))):
         geo = F.kernel_geometry(3, h, w, backward, torch.bfloat16)
         got = F.band_operators(h, w, 8, backward, "cpu", torch.bfloat16)
-        for g, m, shape in zip(got, want, (geo.l_shape,) * 2 + (geo.r_shape,) * 2):
-            g = g.numpy().copy()
-            assert g.dtype == np.float32 and g.shape == shape
-            np.testing.assert_array_equal(g[:m.shape[0], :m.shape[1]], m)
+        for i, (g, m, shape) in enumerate(zip(got, want,
+                                              (geo.l_shape,) * 2 + (geo.r_shape,) * 2)):
+            dtype = torch.float32 if i < 2 and not backward else torch.bfloat16
+            assert g.dtype == dtype and tuple(g.shape) == shape
+            assert g.is_contiguous()
+            assert torch.equal(g[:m.shape[0], :m.shape[1]], m.to(dtype))
+            g = g.clone()
             g[:m.shape[0], :m.shape[1]] = 0
             assert not g.any()
 
@@ -262,7 +304,7 @@ def test_bf16_operators_are_rounded_and_transposed(h, w):
                                    (1, 28, 28), (3, 288, 288)])
 def test_the_column_bands_hold_the_kernel_sources_tiles(c, h, w):
     """band_canny_adjoint<COLUMNS> walks strips of kStripW rows by
-    kBandRows columns; its tiles fit the region column geometry gives it."""
+    kBandRows columns; its tiles fit the region mma_geometry gives it."""
     with open(SOURCE) as f:
         src = f.read()
     body = _body(src, "band_canny_adjoint")
@@ -271,11 +313,108 @@ def test_the_column_bands_hold_the_kernel_sources_tiles(c, h, w):
     halos = _tiles(body)
     (pad,) = re.findall(r"kLd = COLS \+ (\d+);", src)
     tile = lambda halo: (F.STRIP_W + 2 * halo) * (F.BAND_ROWS + int(pad))
-    geo = F.band_geometry(c, h, w, True, columns=True)
+    geo = F.mma_geometry(c, h, w, True)
     need = c * tile(halos["X"]) + tile(halos["S"]) + 2 * tile(halos["G"]) + tile(1)
-    assert geo.smem_bytes >= 4 * (geo.s + need)
-    # T and the Canny plane of a column band: H takes W's place
-    assert geo.wq >= h and geo.wt >= h and geo.hk >= w and geo.bands * F.BAND_ROWS >= w
+    assert geo.smem_bytes >= geo.t + 4 * need
+    # T and the Canny plane of a column band: H takes W's place; the plane
+    # holds a row of BAND_ROWS floats for each image row
+    assert geo.lde == F.BAND_ROWS and geo.t >= 4 * F.BAND_ROWS * h
+    assert geo.np >= h and geo.kp >= w and geo.bands * F.BAND_ROWS >= w
+
+
+def test_the_mma_constants_and_layout_are_the_kernel_sources():
+    """The wrapper lays a bfloat16 block out with the tile constants and the
+    MmaLayout fields that the kernels are compiled with."""
+    with open(SOURCE) as f:
+        src = f.read()
+    found = {name: int(v) for name, v in
+             re.findall(r"constexpr int (kMmaChunk|kMmaPanel|kMmaPad) = (\d+);", src)}
+    assert found == {"kMmaChunk": F.MMA_CHUNK, "kMmaPanel": F.MMA_PANEL,
+                     "kMmaPad": F.MMA_PAD}
+    # a stage: R's chunk, Rr and Ri, of kMmaChunk rows of kLdN bfloat16
+    assert "constexpr int kLdN = kMmaPanel + kMmaPad;" in src
+    assert "constexpr int kMmaStage = 2 * kMmaChunk * kLdN;" in src
+    assert F.MMA_STAGE_BYTES == 2 * 2 * F.MMA_CHUNK * (F.MMA_PANEL + F.MMA_PAD)
+    (fields,) = re.findall(r"struct MmaLayout \{\s*int ([\w, ]+);", src)
+    assert tuple(f.strip() for f in fields.split(",")) == (
+        "kp", "np", "wt", "lde", "ldt", "t", "stages", "depth")
+    geo = F.mma_geometry(3, 128, 128, False)
+    assert geo.layout == (geo.kp, geo.np, geo.wt, geo.lde, geo.ldt, geo.t, geo.stages,
+                          geo.depth)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("c,h,w", [(3, 30, 30), (1, 28, 28), (3, 24, 40), (3, 72, 72),
+                                   (3, 100, 100), (3, 128, 128), (3, 224, 224),
+                                   (3, 288, 288)])
+def test_bf16_layout_is_aligned_and_disjoint(c, h, w, backward):
+    """The band's Canny plane, T and the two stages follow one another
+    without overlap, on 128 bytes; the Canny strips fit between t and the
+    end; T's row stride is 16 bytes past a multiple of 32, so the 8 rows of
+    an ldmatrix fall on distinct banks, and 16-byte aligned."""
+    geo = F.mma_geometry(c, h, w, backward)
+    width = h if backward else w              # T's width, the result's
+    plane = 4 * F.BAND_ROWS * (-(-width // 8) * 8)
+    assert geo.t >= plane and geo.t % 128 == 0
+    assert geo.lde * 4 % 16 == 0
+    assert geo.ldt >= geo.np and (2 * geo.ldt) % 32 == 16
+    assert geo.stages >= geo.t + 2 * 2 * F.BAND_ROWS * geo.ldt and geo.stages % 128 == 0
+    assert geo.smem_bytes >= geo.stages + geo.depth * F.MMA_STAGE_BYTES
+    assert geo.smem_bytes % 16 == 0 and len(geo.layout) == 8
+
+
+def _round_bf16(t):
+    return t.to(torch.bfloat16).double()
+
+
+@pytest.mark.parametrize("h,w", [(24, 40), (30, 30), (72, 72)])
+def test_bf16_operators_compute_the_hfs_products_in_the_kernels_frame(h, w):
+    """The kernels' arithmetic on their padded operators, band by band, with
+    float64 sums: K1's T = bf16(L P) and bf16(Tr Rr - Ti Ri) are the HFS
+    sandwich's A X and Ar X Br^T - Ai X Bi^T; K2's, on the transposed
+    problem with P = U^T, are JAX's dt = bf16(U B) and Ar^T dt_r - Ai^T dt_i,
+    transposed. Zero padding changes nothing."""
+    rng = np.random.default_rng(0)
+    plane = torch.from_numpy(rng.random((h, w))).to(torch.bfloat16).double()
+    ar, ai, br, bi = (torch.from_numpy(m).to(torch.bfloat16).double()
+                      for m in _hfs_axis_operators(h, w, 8))
+    for backward in (False, True):
+        geo = F.mma_geometry(1, h, w, backward)
+        lr, li, rr, ri = (m.double() for m in
+                          F.band_operators(h, w, 8, backward, "cpu", torch.bfloat16))
+        p = plane.T if backward else plane                  # (first contraction, T's width)
+        pad = torch.zeros(geo.kp, geo.np, dtype=torch.float64)
+        pad[:p.shape[0], :p.shape[1]] = p
+        t_r, t_i, out = [], [], []
+        for band in range(geo.bands):
+            rows = slice(band * F.BAND_ROWS, (band + 1) * F.BAND_ROWS)
+            tr, ti = _round_bf16(lr[rows] @ pad), _round_bf16(li[rows] @ pad)
+            t_r.append(tr)
+            t_i.append(ti)
+            out.append(_round_bf16(tr @ rr - ti @ ri))
+        n_rows, n_cols = p.shape[1], p.shape[0]             # the result's frame
+        t_r = torch.cat(t_r)[:n_cols, :n_rows]
+        t_i = torch.cat(t_i)[:n_cols, :n_rows]
+        out = torch.cat(out)[:n_cols, :n_rows]
+        if backward:                                        # dt^T and dx_hfs^T
+            dt_r, dt_i = _round_bf16(plane @ br), _round_bf16(plane @ bi)
+            assert torch.equal(t_r, dt_r.T) and torch.equal(t_i, dt_i.T)
+            assert torch.equal(out, _round_bf16(ar.T @ dt_r - ai.T @ dt_i).T)
+        else:
+            x_r, x_i = _round_bf16(ar @ plane), _round_bf16(ai @ plane)
+            assert torch.equal(t_r, x_r) and torch.equal(t_i, x_i)
+            assert torch.equal(out, _round_bf16(x_r @ br.T - x_i @ bi.T))
+        assert out.abs().max() > 0
+
+
+def test_the_profile_tool_marks_every_phase_of_the_source():
+    """tools/profile_ee_fused.py instruments csrc/ee_fused.cu by anchors: each
+    is found once, and every phase gets its mark."""
+    from edge_enhancement_tpu_torch.tools import profile_ee_fused as prof
+    src = prof.instrumented_source()
+    marks = {int(i) for i in re.findall(r"prof_mark\((-?\d+)\);", src)}
+    assert marks == set(range(-1, len(prof.PHASES)))
+    assert src.count("prof_init();") == 2 and src.count("prof_flush(stripes);") == 2
 
 
 def test_bf16_and_float32_entry_points():
