@@ -24,7 +24,8 @@
    SMs) and with free-AT's batch of 256, K3a/K3b also with ImageNet's batch
    of 128 at 224 px, each beside its bound and its plain version's time;
    K1/K2 in bfloat16 at fast-AT's three phases, 256 x 3 x 128 x 128,
-   128 x 3 x 224 x 224 and 96 x 3 x 288 x 288, at 8 x 3 x 224 x 224 and at
+   128 x 3 x 224 x 224 and 96 x 3 x 288 x 288, at the evaluate config's
+   128 x 3 x 288 x 288, at 8 x 3 x 224 x 224 and at
    100 x 3 x 64 x 64, square on and off (the edge maps exact, out and y
    within one bf16 ulp, dx within the limits below), each beside its bound
    and its share of it; K4 forward and
@@ -53,7 +54,21 @@
    e. the GEMM-conv op (forward and its autograd backward, float32 and
       bfloat16) and the bench entry point tools/bench_gemm_conv over its
       three shapes, in bfloat16 and in float32: exact K4 counts; K4's and
-      cuDNN's device times at each shape beside the bound.
+      cuDNN's device times at each shape beside the bound;
+   f. fast-AT phase 2 (`configs/fast_imagenet/fast_2px_phase2_ee.yml`:
+      resnet50_EE, 224 px, batch 128, bf16) by --resume of d's checkpoint,
+      one epoch of 2 train steps and 1 validation batch: the restored
+      weights and momentum equal the file's bit for bit before the first
+      step, the first logged epoch is the checkpoint's, K1/K2 bfloat16
+      counts exact; ms/step, peak memory, the front-end's share;
+   g. --evaluate of `configs/fast_imagenet/fast_2px_evaluate_ee.yml`
+      (resnet50_EE, 288 px, batch 128, bf16, PGD-50) resumed from f's
+      checkpoint, one validation batch: K1/K2 bfloat16 52 and 50 launches;
+      ms per attack iteration;
+   h. the port's eval.py (`--suite pgd,fgsm,cw`) on a's checkpoint, one
+      batch of 100: PGD-10, PGD-50, PGD-100, FGSM and CW-20, K1/K2 float32
+      12 + 52 + 102 + 3 + 23 and 10 + 50 + 100 + 1 + 20 launches; each
+      battery's ms per attack iteration.
 5. The reference, for slices a to d: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -71,6 +86,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -89,6 +105,16 @@ IMAGENET_SLICES = (
      "ee_fused_fwd_bf16", "ee_fused_bwd_bf16", (2, 1)))
 IMAGENET_ARGS = dict(data="synthetic", synthetic_size=512, epochs=1,
                      limit_batches=2, device="cuda")
+# f and g: fast-AT phase 2 at bs128 on 256 synthetic images (2 train batches,
+# a validation split of 128, 1 batch), then the evaluate config on its
+# validation split of 128 (1 batch of PGD-50)
+PHASE2 = os.path.join(CONFIGS, "fast_imagenet", "fast_2px_phase2_ee.yml")
+EVALUATE = os.path.join(CONFIGS, "fast_imagenet", "fast_2px_evaluate_ee.yml")
+RESUME_ARGS = dict(data="synthetic", synthetic_size=256, limit_batches=2,
+                   device="cuda")
+# h: eval.py's suite on the flagship's validation split of 100 (1 batch)
+EVAL_ARGS = dict(data="synthetic", synthetic_size=200, limit_batches=1,
+                 device="cuda", suite="pgd,fgsm,cw")
 # K1's outputs: the edge maps agree exactly (same rounding order), the HFS
 # products sum 64 FP32 terms in another order than cuBLAS: ~1e-6 on values
 # of order 1. K2: the same sums, scaled by at most 1/|g| < 1/high = 3.4.
@@ -131,10 +157,11 @@ BENCH_REPS = 5
 # take, on a few images and at free-AT's batch
 LARGE_SHAPES = ((8, 3, 224, 224), (256, 3, 224, 224))
 # K1/K2 bfloat16: fast-AT's phase 1 (128 px, its slice's shape) first, then
-# phases 2 and 3 (fast_*_phase2_ee.yml, fast_*_phase3_ee.yml), a few images
-# at 224 px, and 64 px
+# phases 2 and 3 (fast_*_phase2_ee.yml, fast_*_phase3_ee.yml), the evaluate
+# config's batch at 288 px (fast_*_evaluate_ee.yml), a few images at 224 px,
+# and 64 px
 BF16_SHAPES = ((256, 3, 128, 128), (128, 3, 224, 224), (96, 3, 288, 288),
-               (8, 3, 224, 224), (100, 3, 64, 64))
+               (128, 3, 288, 288), (8, 3, 224, 224), (100, 3, 64, 64))
 # K3a/K3b's further check: ImageNet's batch at 224 px, 180 MB a launch
 CANNY_LARGE_SHAPES = ((128, 3, 224, 224),)
 
@@ -577,8 +604,7 @@ def slice_phase(torch, kernels, device_line, gf: bool):
     from edge_enhancement_tpu_torch.utils.config import load_config
 
     tag = "gf" if gf else "flagship"
-    cfg = load_config(CONFIG, dict(SLICE_ARGS, gf=gf, output=os.path.join(
-        ROOT, "output", "chip_smoke", tag)))
+    cfg = load_config(CONFIG, dict(SLICE_ARGS, gf=gf, output=_out_dir(tag)))
     _reset_counts()
     summary = run(cfg)
     torch.cuda.synchronize()
@@ -609,24 +635,32 @@ def slice_phase(torch, kernels, device_line, gf: bool):
     return cfg, summary["checkpoint"]
 
 
-def _kernel_ms(kernels, name: str, at: str = "") -> float:
-    """A kernel's device ms per launch: its first row, or the one at `at`."""
+def _kernel_ms(kernels, name: str, at: str) -> float:
+    """A kernel's device ms per launch: its row at `at` where it has one,
+    else its first row."""
     kern = next(k for k in kernels if k["name"] == name)
-    return (kern[at] if at else kern)["ms"]
+    return kern.get(at, kern)["ms"]
+
+
+def _out_dir(tag: str) -> str:
+    """A phase's output root, emptied first, so its log is this run's."""
+    out = os.path.join(ROOT, "output", "chip_smoke", tag)
+    shutil.rmtree(out, ignore_errors=True)
+    return out
 
 
 def imagenet_slice_phase(torch, kernels, device_line, tag: str, path: str,
-                         fwd: str, bwd: str, per_step: tuple):
+                         fwd: str, bwd: str, per_step: tuple, args=IMAGENET_ARGS):
     """An ImageNet recipe through the port's driver at full width
-    (resnet50_EE, 1000 classes, batch 256): 2 train steps, 1 validation
-    batch, exact launch counts of its front-end pair, a finite loss;
-    ms/step, peak device memory and the front-end kernels' share of the
-    step (launches a step times their device ms, over the step's ms)."""
+    (resnet50_EE, 1000 classes): 2 train steps, 1 validation batch, exact
+    launch counts of its front-end pair, a finite loss; ms/step, peak
+    device memory and the front-end kernels' share of the step (launches a
+    step times their device ms, over the step's ms). Returns the config and
+    the run's summary."""
     from edge_enhancement_tpu_torch.train.driver import run
     from edge_enhancement_tpu_torch.utils.config import load_config
 
-    cfg = load_config(path, dict(IMAGENET_ARGS, output=os.path.join(
-        ROOT, "output", "chip_smoke", tag)))
+    cfg = load_config(path, dict(args, output=_out_dir(tag)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -653,14 +687,14 @@ def imagenet_slice_phase(torch, kernels, device_line, tag: str, path: str,
     secs = summary["step_seconds"]
     ms = 1000.0 * sorted(secs[1:])[len(secs[1:]) // 2]
     shape = f"at_{cfg['batch_size']}x3x{cfg['cize']}x{cfg['cize']}"
-    front = (per_step[0] * _kernel_ms(kernels, fwd, "" if fwd.endswith("bf16") else shape)
-             + per_step[1] * _kernel_ms(kernels, bwd, "" if bwd.endswith("bf16") else shape))
+    front = (per_step[0] * _kernel_ms(kernels, fwd, shape)
+             + per_step[1] * _kernel_ms(kernels, bwd, shape))
     print(f"[slice {tag}] train step ms: {[round(1000 * s, 1) for s in secs]}; "
           f"after the first {ms:.1f} ms/step = {int(cfg['batch_size']) / ms * 1000:.1f} "
           f"img/s; peak device memory {peak_gb:.2f} GB; front-end kernels "
           f"{front:.2f} ms a step ({per_step[0]} x {fwd}, {per_step[1]} x {bwd}), "
           f"{100 * front / ms:.2f}% of the step; on {device_line}", flush=True)
-    return cfg, summary["checkpoint"]
+    return cfg, summary
 
 
 def conv_path_phase(torch, kernels):
@@ -717,6 +751,137 @@ def conv_path_phase(torch, kernels):
                                     else "bfloat16"]
 
 
+def _check_launches(tag: str, launches: dict, want: dict) -> None:
+    want = {**{k: 0 for k in launches}, **want}
+    print(f"[slice {tag}] launches {launches}, expected {want}", flush=True)
+    if launches != want:
+        fail(f"the {tag} path's kernel launch counts differ from its passes")
+
+
+def resume_phase(torch, kernels, device_line, checkpoint: str) -> str:
+    """f. Fast-AT phase 2 (224 px, batch 128) by --resume of the fast_at
+    slice's checkpoint, for one epoch: the weights and momentum the driver
+    restores must equal the file's bit for bit before the first step (a
+    wrapper around the driver's restore_into_state reads them), and the
+    first logged epoch must be the checkpoint's. Returns its checkpoint
+    directory."""
+    from edge_enhancement_tpu_torch.train import driver
+
+    saved = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    restored = []
+    real = driver.restore_into_state
+
+    def checked(state, payload):
+        out = real(state, payload)
+        sd = state.model.state_dict()
+        bufs = payload["optimizer"]["state"]
+        restored.append((
+            sorted(sd) == sorted(saved["state_dict"]) and all(
+                torch.equal(sd[k].cpu(), v) for k, v in saved["state_dict"].items()),
+            len(bufs) == len(state.momentum_buf) and all(
+                torch.equal(b.cpu(), bufs[i]["momentum_buffer"])
+                for i, b in enumerate(state.momentum_buf))))
+        return out
+
+    driver.restore_into_state = checked
+    try:
+        cfg, summary = imagenet_slice_phase(
+            torch, kernels, device_line, "fast_at_phase2", PHASE2,
+            "ee_fused_fwd_bf16", "ee_fused_bwd_bf16", (2, 1),
+            dict(RESUME_ARGS, resume=os.path.dirname(checkpoint),
+                 epochs=saved["epoch"] + 1))
+    finally:
+        driver.restore_into_state = real
+    with open(os.path.join(summary["out_dir"], "log", "log.txt")) as f:
+        lines = f.read().splitlines()
+    epochs = [int(ln[len("Epoch: ["):].split("]")[0]) for ln in lines
+              if ln.startswith("Epoch: [")]
+    notes = [ln for ln in lines if ln.startswith(("=> resumed", "=> restored", "WARNING"))]
+    print(f"[slice fast_at_phase2] {cfg['cize']} px from the {saved['epoch']}-epoch "
+          f"checkpoint; restored state_dict and momentum equal the file's: "
+          f"{restored}; logged epochs {sorted(set(epochs))}; {notes}", flush=True)
+    if restored != [(True, True)]:
+        fail("the resumed state differs from the checkpoint's")
+    if not epochs or epochs[0] != saved["epoch"] or summary["start_epoch"] != saved["epoch"]:
+        fail(f"the resumed run did not start at the checkpoint's epoch {saved['epoch']}")
+    return os.path.dirname(summary["checkpoint"])
+
+
+def evaluate_phase(torch, kernels, device_line, ckpt_dir: str) -> None:
+    """g. --evaluate of the fast-AT evaluate config (288 px, batch 128,
+    bf16, PGD-50) resumed from f's checkpoint: one validation batch, K1
+    bf16 K + 2 and K2 bf16 K launches, finite accuracies, no checkpoint."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    cfg = load_config(EVALUATE, dict(RESUME_ARGS, resume=ckpt_dir,
+                                     output=_out_dir("evaluate")))
+    if not cfg.get("evaluate"):
+        fail(f"{EVALUATE} no longer sets evaluate")
+    _reset_counts()
+    summary = run(cfg)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    (tier,) = summary["tiers"]
+    k, n = tier["num_steps"], tier["batches"]
+    at = f"at_{cfg['batch_size']}x3x{cfg['cize']}x{cfg['cize']}"
+    front = n * ((k + 2) * _kernel_ms(kernels, "ee_fused_fwd_bf16", at)
+                 + k * _kernel_ms(kernels, "ee_fused_bwd_bf16", at))
+    print(f"[slice evaluate] {cfg['arch']} {cfg['cize']} px bs{cfg['batch_size']} bf16, "
+          f"PGD-{k}, {n} batch: clean Prec@1 {tier['clean_top1']:.3f}, adv Prec@1 "
+          f"{tier['adv_top1']:.3f}; {tier['seconds']:.3f} s, "
+          f"{1e3 * tier['seconds'] / (n * k):.2f} ms per attack iteration (the clean "
+          f"and adversarial forwards included); front-end kernels {front:.1f} ms, "
+          f"{100 * front / (1e3 * tier['seconds']):.2f}% of it; on {device_line}",
+          flush=True)
+    _check_launches("evaluate", launches, {"ee_fused_fwd_bf16": n * (k + 2),
+                                           "ee_fused_bwd_bf16": n * k})
+    if (n != 1 or k != 50 or "checkpoint" in summary
+            or not all(math.isfinite(tier[m]) for m in ("clean_top1", "adv_top1"))):
+        fail(f"the evaluate run is not one finite PGD-50 batch: {tier}")
+    _record_launches(kernels, "evaluate", launches)
+
+
+def eval_entry_phase(torch, kernels, device_line, ckpt_dir: str) -> None:
+    """h. The port's eval.py with --suite pgd,fgsm,cw on the flagship's
+    checkpoint, one batch of 100: PGD-10/50/100, FGSM and CW-20, each K1
+    float32 K + 2 times (CW: K + 3, its prediction forward) and K2 K
+    times; finite accuracies."""
+    from edge_enhancement_tpu_torch import eval as port_eval
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG, dict(EVAL_ARGS, resume=ckpt_dir))
+    _reset_counts()
+    results = port_eval.run(cfg)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    labels = [r["label"] for r in results]
+    k1, k2 = (_kernel_ms(kernels, name, "") for name in ("ee_fused_fwd", "ee_fused_bwd"))
+    want = {"ee_fused_fwd": 0, "ee_fused_bwd": 0}
+    for r in results:
+        # K1: the clean and adversarial forwards and one an iteration (CW:
+        # and its prediction forward); K2: one an iteration
+        fwd = r["batches"] * (r["iterations"] + (3 if r["label"].startswith("CW") else 2))
+        bwd = r["batches"] * r["iterations"]
+        want["ee_fused_fwd"] += fwd
+        want["ee_fused_bwd"] += bwd
+        front = fwd * k1 + bwd * k2
+        print(f"[slice eval.py] {r['label']}: clean Prec@1 {r['clean_top1']:.3f}, adv "
+              f"Prec@1 {r['adv_top1']:.3f}; {r['batches']} batch of "
+              f"{cfg['batch_size']}, {r['seconds']:.3f} s, "
+              f"{1e3 * r['seconds'] / (r['batches'] * r['iterations']):.2f} ms per "
+              f"attack iteration; front-end kernels {front:.2f} ms, "
+              f"{100 * front / (1e3 * r['seconds']):.2f}% of it; on {device_line}",
+              flush=True)
+    _check_launches("eval.py", launches, want)
+    if labels != ["PGD-10", "PGD-50", "PGD-100", "FGSM", "CW-Linf-20"]:
+        fail(f"eval.py ran {labels}")
+    if not all(r["batches"] == 1 and math.isfinite(r["adv_top1"])
+               and math.isfinite(r["clean_top1"]) for r in results):
+        fail(f"eval.py's batteries are not one finite batch each: {results}")
+    _record_launches(kernels, "eval_py", launches)
+
+
 def reference_phase(torch, cfg, checkpoint):
     """The trained model's eval-mode logits on a small batch: the card's
     path against the CPU's, on the same weights and square draws."""
@@ -765,14 +930,18 @@ def main():
     kernels += bf16_kernel_phase(torch)
     kernels += canny_kernel_phase(torch)
     kernels += conv_kernel_phase(torch)
+    checkpoints = {}
     for gf in (False, True):
-        cfg, checkpoint = slice_phase(torch, kernels, smi, gf)
-        reference_phase(torch, cfg, checkpoint)
+        cfg, checkpoints[gf] = slice_phase(torch, kernels, smi, gf)
+        reference_phase(torch, cfg, checkpoints[gf])
     for tag, path, fwd, bwd, per_step in IMAGENET_SLICES:
-        cfg, checkpoint = imagenet_slice_phase(torch, kernels, smi, tag, path,
-                                               fwd, bwd, per_step)
-        reference_phase(torch, cfg, checkpoint)
+        cfg, summary = imagenet_slice_phase(torch, kernels, smi, tag, path,
+                                            fwd, bwd, per_step)
+        reference_phase(torch, cfg, summary["checkpoint"])
     conv_path_phase(torch, kernels)
+    phase2_ckpt = resume_phase(torch, kernels, smi, summary["checkpoint"])
+    evaluate_phase(torch, kernels, smi, phase2_ckpt)
+    eval_entry_phase(torch, kernels, smi, os.path.dirname(checkpoints[False]))
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):

@@ -47,18 +47,25 @@ def load_config(path: str, cli_overrides: Optional[Mapping[str, Any]] = None) ->
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
-    """The JAX trainer's flags that the port's driver reads (--evaluate and
-    --resume only to refuse them)."""
+    """The JAX trainer's flags that the port's drivers read (the JAX-only
+    --steps-per-dispatch, --profile and --platform are left out)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", required=True, help="YAML config path")
     p.add_argument("--data", default=None,
                    help="dataset root dir, 'synthetic' or 'synthetic-hard'")
     p.add_argument("--evaluate", action="store_true", default=None)
-    p.add_argument("--resume", default=None, help="checkpoint dir to resume")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint dir (or .pth file) to resume")
+    p.add_argument("--pretrained", default=None,
+                   help="warm-start the backbone from a torchvision-format "
+                        "torch state_dict (.pth); shape-mismatched heads "
+                        "keep their fresh init")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", dest="batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--restarts", type=int, default=None,
+                   help="PGD restarts for the validation battery")
     p.add_argument("--limit-batches", dest="limit_batches", type=int, default=None,
                    help="cap batches per epoch (smoke testing)")
     p.add_argument("--synthetic-size", dest="synthetic_size", type=int,

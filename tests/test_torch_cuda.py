@@ -387,3 +387,116 @@ def test_conv_f32_refuses_unsplit_weights(cuda):
     with pytest.raises(ValueError):
         G.conv_cgemm_packed(x, G.pack_weights(torch.zeros(3, 3, 8, 8, device=cuda)))
     assert all(v == 0 for v in G.LAUNCHES.values())
+
+
+
+# The eval battery (train/trainer.py::build_eval_step) on the card against
+# the CPU path, one batch of resnet18_EE_square at 64 px on the same weights
+# and draws (the square draws replayed per forward, the PGD and CW starts
+# and the target offsets fixed), with TF32 off so that cuDNN computes in
+# float32 as the CPU does (with cuDNN's default TF32 convolutions 2-13% of
+# x_adv differed on an H100; with it off, none did). The card's x_adv may
+# differ where a float32 input gradient changes sign between cuDNN and the
+# CPU (the limit tests/test_torch_eval.py holds the port to JAX with); the
+# card then goes on with the CPU's x_adv, so the adversarial metrics
+# compare on one input.
+# Launches: each forward runs K1 once, each input gradient K2 once.
+EVAL_SHAPE, EVAL_XADV_SHARE = (4, 64, 64, 3), 0.01
+EVAL_EE = dict(r=8, w=1.0, low=38.0, high=76.0, alpha=0.0, sigma=1.0, gf=False,
+               type_canny="CannyFilter_step125_1", epsilon=EPS, n_queries=1)
+EVAL_BRANCHES = {   # fields, (K1, K2) launches of the batch
+    "pgd": (dict(attack_method="PGD", num_steps=2), (4, 2)),
+    "pgd_restarts": (dict(attack_method="PGD", num_steps=2, restarts=2), (7, 4)),
+    "pgd_targeted": (dict(attack_method="PGD", num_steps=1, targeted=True), (3, 1)),
+    "fgsm": (dict(attack_method="FGSM"), (3, 1)),
+    "cw": (dict(attack_method="CW", cw_iters=2), (5, 2)),
+    "pre_square": (dict(attack_method="PGD", num_steps=1, pre_square=True), (3, 1)),
+    "none": (dict(attack_method="none"), (1, 0)),
+}
+
+
+def _eval_model(dev, model_sd, source):
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    model = build_model("resnet18_EE_square", EVAL_EE, 200, square_source=source)
+    model.load_state_dict(model_sd)
+    return model.to(dev)
+
+
+def _eval_run(dev, fields, model_sd, x, y, draws, start, offset, replace=None):
+    """One eval step on `dev`, the draws taken in turn by pre_square and
+    the forwards; returns (metrics, each attack call's x_adv). With
+    `replace`, attack call i returns replace[i] in place of its x_adv."""
+    from edge_enhancement_tpu_torch.attacks import cw as tcw
+    from edge_enhancement_tpu_torch.attacks import pgd as tpgd
+    from edge_enhancement_tpu_torch.train import trainer as T
+    from edge_enhancement_tpu_torch.train.modelops import ModelOps
+
+    seq = iter(draws)
+    source = lambda shape: tuple(t.to(dev) for t in next(seq))
+    model = _eval_model(dev, model_sd, source)
+    captured = []
+
+    def spy(fn, pair):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            captured.append((out[0] if pair else out).cpu())
+            if replace is None:
+                return out
+            r = replace[len(captured) - 1].to(dev)
+            return (r, out[1]) if pair else r
+        return run
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tpgd, "uniform_init_noise", lambda xx, e, g: start.to(dev))
+        mp.setattr(tcw, "uniform_start", lambda xx, m, g: start.to(dev))
+        real = T.random_targets
+        mp.setattr(T, "random_targets",
+                   lambda lab, n, g: real(lab, n, offset=offset.to(dev)))
+        for name, pair in (("pgd_linf", False), ("fgsm", False), ("cw_linf", True)):
+            mp.setattr(T, name, spy(getattr(T, name), pair))
+        step = T.build_eval_step(ModelOps(model), T.EvalAttackConfig(
+            epsilon=EPS, step_size=2 / 255, num_classes=200, square_epsilon=EPS,
+            **fields), square_source=source)
+        m = step(T.create_train_state(model), x.to(dev), y.to(dev))
+    return {k: float(v) for k, v in m.items()}, captured
+
+
+@pytest.mark.parametrize("branch", list(EVAL_BRANCHES))
+def test_eval_battery_on_the_card_matches_the_cpu(cuda, branch, monkeypatch):
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    from edge_enhancement_tpu_torch.ops.square import add_square
+    fields, (n_fwd, n_bwd) = EVAL_BRANCHES[branch]
+    gen = torch.Generator().manual_seed(0)
+    model = build_model("resnet18_EE_square", EVAL_EE, 200, generator=gen)
+    model_sd = model.state_dict()
+    x = torch.rand(EVAL_SHAPE, generator=gen)
+    draws = [add_square_draws(EVAL_SHAPE, gen) for _ in range(n_fwd + 1)]
+    start = torch.rand(EVAL_SHAPE, generator=gen) * (2 * EPS) - EPS
+    offset = torch.randint(1, 200, (EVAL_SHAPE[0],), generator=gen)
+    # the labels: the CPU model's clean predictions, so every sample starts
+    # correct (the pre-square draw first, then the clean forward's)
+    pre = bool(fields.get("pre_square"))
+    xc = add_square(x, draws[0], epsilon=EPS) if pre else x
+    model.square_source = lambda shape: draws[int(pre)]
+    with torch.no_grad():
+        y = model.eval()(xc).argmax(-1)
+    m_cpu, cap_cpu = _eval_run("cpu", fields, model_sd, x, y, draws, start, offset)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    F.reset_launches()
+    m_gpu, cap_gpu = _eval_run(cuda, fields, model_sd, x, y, draws, start, offset,
+                               replace=cap_cpu)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == {"ee_fused_fwd": n_fwd, "ee_fused_bwd": n_bwd,
+                          "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+    assert m_gpu["clean_top1"] == m_cpu["clean_top1"] == 100.0
+    np.testing.assert_allclose(m_gpu["clean_loss"], m_cpu["clean_loss"], rtol=1e-4)
+    assert len(cap_gpu) == len(cap_cpu) == (0 if branch == "none"
+                                            else fields.get("restarts", 1))
+    for got, want in zip(cap_gpu, cap_cpu):
+        share = ((got - want).abs() > 1e-6).float().mean().item()
+        assert share <= EVAL_XADV_SHARE, share
+    if branch != "none":
+        assert m_gpu["adv_top1"] == m_cpu["adv_top1"]
+        np.testing.assert_allclose(m_gpu["adv_loss"], m_cpu["adv_loss"], rtol=1e-4)

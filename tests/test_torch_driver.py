@@ -58,11 +58,9 @@ def test_driver_runs_gf_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
-    ({"attack_method": "FGSM"}, NotImplementedError),
     ({"method_name": "TRADES"}, NotImplementedError),
     ({"awp_gamma": 0.01}, NotImplementedError),
-    ({"evaluate": True}, NotImplementedError),
-    ({"resume": "ckpt"}, NotImplementedError),
+    ({"attack_method": "AA"}, NotImplementedError),
 ])
 def test_driver_refuses(override, error):
     from edge_enhancement_tpu_torch.train.driver import run
@@ -84,7 +82,8 @@ IMAGENET = os.path.join(REPO, "edge_enhancement_tpu", "configs")
 def test_driver_runs_free_and_fast_at_on_cpu(tmp_path, config, method, dtype):
     """The ImageNet recipes (resnet50_EE, 1000 classes) through run() at a
     tiny size: one train step, one validation batch, the log, the
-    checkpoint and the replay noise beside it; --resume still raises."""
+    checkpoint and the replay noise beside it; then --resume of that
+    checkpoint runs the next epoch on the restored replay noise."""
     from edge_enhancement_tpu_torch.train.driver import run
     from edge_enhancement_tpu_torch.utils.config import load_config
     over = dict(data="synthetic", synthetic_size=4, batch_size=2, cize=32,
@@ -110,8 +109,167 @@ def test_driver_runs_free_and_fast_at_on_cpu(tmp_path, config, method, dtype):
     from edge_enhancement_tpu_torch.models.registry import build_model
     assert build_model(cfg["arch"], cfg, 1000).dtype == (None if dtype == torch.float32
                                                           else dtype)
-    with pytest.raises(NotImplementedError):
-        run(load_config(os.path.join(IMAGENET, config), {**over, "resume": "ckpt"}))
+    # free-AT's epochs count replays: ceil(5 / 4) = 2 takes one more epoch
+    more = dict(over, epochs=5 if method == "free_AT" else 2,
+                resume=os.path.dirname(summary["checkpoint"]),
+                output=str(tmp_path / "resumed"))
+    resumed = run(load_config(os.path.join(IMAGENET, config), more))
+    assert resumed["start_epoch"] == 1 and resumed["train_steps"] == [1]
+    assert torch.load(resumed["checkpoint"])["epoch"] == 2
+    log = open(os.path.join(resumed["out_dir"], "log", "log.txt")).read()
+    for line in ("=> resumed from", "=> restored free-AT replay noise shard "
+                 f"(2, 32, 32, 3) (max |n| = {noise.abs().max().item():.4f})",
+                 "Epoch: [1][0/2]"):
+        assert line in log, log
+    assert "Epoch: [0]" not in log
+
+
+SMALL = dict(data="synthetic", synthetic_size=8, batch_size=4, limit_batches=1,
+             device="cpu", num_steps_1=1, num_steps_2=1, num_steps_3=1)
+
+
+@pytest.fixture(scope="module")
+def flagship_ckpt(tmp_path_factory):
+    """One epoch of the flagship config at a tiny size; its ckpt dir."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    out = tmp_path_factory.mktemp("flagship")
+    summary = run(load_config(CONFIG, dict(SMALL, epochs=1, output=str(out))))
+    return os.path.dirname(summary["checkpoint"])
+
+
+def _small_config(tmp_path, drop=(), **over):
+    """The flagship YAML with SMALL's tiers, less the keys in `drop`."""
+    import yaml
+    with open(CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update({k: v for k, v in SMALL.items() if k.startswith("num_steps")}, **over)
+    for k in drop:
+        del cfg[k]
+    path = tmp_path / "small.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def test_driver_resume_continues_at_the_checkpoint_epoch(tmp_path, flagship_ckpt):
+    """--resume: the run starts at the checkpoint's epoch, with its weights,
+    momentum and best_prec1 (set here out of reach, so the resumed run
+    keeps it and writes no best copy)."""
+    from edge_enhancement_tpu_torch.train import checkpoint as ckpt
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    payload = ckpt.load_checkpoint(flagship_ckpt)
+    payload["best_prec1"] = 150.0
+    src = tmp_path / "ckpt"
+    src.mkdir()
+    torch.save(payload, src / "checkpoint.pth.tar")
+    summary = run(load_config(CONFIG, dict(SMALL, epochs=2, resume=str(src),
+                                           output=str(tmp_path / "out"))))
+    assert summary["start_epoch"] == 1 and summary["train_steps"] == [1]
+    assert summary["best_prec1"] == 150.0
+    saved = torch.load(summary["checkpoint"])
+    assert saved["epoch"] == 2 and saved["best_prec1"] == 150.0
+    assert not os.path.exists(os.path.join(os.path.dirname(summary["checkpoint"]),
+                                           "model_best.pth.tar"))
+    log = open(os.path.join(summary["out_dir"], "log", "log.txt")).read()
+    assert f"=> resumed from {src} (epoch 1)" in log and "Epoch: [1][0/2]" in log
+    assert "Epoch: [0]" not in log and "best robust-eval Prec@1 150.000" in log
+
+
+def test_free_at_noise_resets_on_a_shape_mismatch(tmp_path):
+    """The replay noise of another batch size is not restored: JAX's
+    warning, and the run goes on from zero noise."""
+    from edge_enhancement_tpu_torch.train import checkpoint as ckpt
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    config = os.path.join(IMAGENET, "free_imagenet", "free_at_ee.yml")
+    src = tmp_path / "ckpt"
+    ckpt.save_noise(str(src), torch.full((3, 32, 32, 3), 0.01))
+    summary = run(load_config(config, dict(
+        data="synthetic", synthetic_size=4, batch_size=2, cize=32, epochs=1,
+        limit_batches=1, num_steps_1=1, device="cpu", resume=str(src),
+        output=str(tmp_path / "out"))))
+    log = open(os.path.join(summary["out_dir"], "log", "log.txt")).read()
+    assert (f"WARNING: free-AT noise in {src} has shard (3, 32, 32, 3), expected "
+            "(2, 32, 32, 3) (process count / batch size changed?); replay noise "
+            "resets to zeros") in log
+    assert "restored free-AT replay noise" not in log
+    # no checkpoint to resume: the run starts at the config's epoch
+    assert "=> no checkpoint at" in log and summary["train_steps"] == [1]
+    assert torch.load(summary["noise"]).shape == (2, 32, 32, 3)
+
+
+def test_driver_evaluate_runs_each_declared_tier(tmp_path, flagship_ckpt):
+    """--evaluate: one battery per num_steps_k/step_size_k pair (tier 3
+    without its step size is left out), on the resumed weights, and no
+    checkpoint written."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    config = _small_config(tmp_path, drop=("step_size_3",))
+    summary = run(load_config(config, dict(SMALL, evaluate=True, resume=flagship_ckpt,
+                                           num_steps_2=2, output=str(tmp_path / "out"))))
+    assert summary["eval_batches"] == [1, 1] and summary["train_steps"] == []
+    assert [t["num_steps"] for t in summary["tiers"]] == [1, 2]
+    assert not os.path.exists(os.path.join(summary["out_dir"], "ckpt"))
+    log = open(os.path.join(summary["out_dir"], "log", "log.txt")).read()
+    assert log.count("=> evaluate num_steps:") == 2 and log.count(" * Adv Prec@1") == 2
+    assert "=> evaluate num_steps:2, step_size:0.003921568627451" in log
+    assert "ms per attack iteration" in log and "Epoch:" not in log
+
+
+def test_driver_pretrained_warm_start_and_resume_wins(tmp_path, flagship_ckpt):
+    """--pretrained loads a torchvision-format file (the head of another
+    class count skipped and logged); with --resume as well, the
+    checkpoint's weights are the ones evaluated."""
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    tv = build_model("resnet18", {}, 1000, generator=torch.Generator().manual_seed(7))
+    pth = tmp_path / "tv.pth"
+    torch.save(tv.state_dict(), pth)
+    seen = []
+    real = driver.run_evaluate
+    over = dict(SMALL, evaluate=True, pretrained=str(pth), output=str(tmp_path / "out"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(driver, "run_evaluate",
+                   lambda cfg, ops, state, *a: seen.append(state.model.state_dict())
+                   or real(cfg, ops, state, *a))
+        summary = driver.run(load_config(CONFIG, over))
+        driver.run(load_config(CONFIG, dict(over, resume=flagship_ckpt)))
+    log = open(os.path.join(summary["out_dir"], "log", "log.txt")).read()
+    n = len(tv.state_dict()) - 2
+    assert (f"=> warm-started {n} tensors from torch weights {pth}\n"
+            "   skipped fc.weight (torch (1000, 512) vs ours (200, 512))") in log
+    assert torch.equal(seen[0]["layer2.0.conv1.weight"], tv.state_dict()["layer2.0.conv1.weight"])
+    want = torch.load(os.path.join(flagship_ckpt, "checkpoint.pth.tar"))["state_dict"]
+    assert all(torch.equal(seen[1][k], v) for k, v in want.items())
+
+
+def test_eval_entry_point_prints_the_jax_tags(tmp_path, flagship_ckpt):
+    config = _small_config(tmp_path, cw_iters=1)
+    proc = subprocess.run(
+        [sys.executable, "-m", "edge_enhancement_tpu_torch.eval", "--config", config,
+         "--data", "synthetic", "--synthetic-size", "8", "--batch-size", "4",
+         "--limit-batches", "1", "--resume", flagship_ckpt,
+         "--suite", "pgd,fgsm,cw", "--device", "cpu"],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert "=> loaded checkpoint (epoch 1)" in lines
+    tags = [ln.split(":")[0] for ln in lines if "clean Prec@1" in ln and "adv Prec@1" in ln]
+    assert tags == ["PGD-1", "PGD-1", "PGD-1", "FGSM", "CW-Linf-1"], proc.stdout
+
+
+@pytest.mark.parametrize("suite,error", [("pgd,aa", NotImplementedError),
+                                         ("pgd", FileNotFoundError)])
+def test_eval_refuses(tmp_path, suite, error):
+    """AutoAttack is not ported (M18); a --resume with no checkpoint under
+    it raises, as the JAX eval.py does."""
+    from edge_enhancement_tpu_torch import eval as port_eval
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    over = dict(SMALL, resume=str(tmp_path / "absent"), suite=suite)
+    with pytest.raises(error, match="M18" if "aa" in suite else "absent"):
+        port_eval.run(load_config(CONFIG, over))
 
 
 def test_port_imports_no_jax():
