@@ -69,6 +69,18 @@
       batch of 100: PGD-10, PGD-50, PGD-100, FGSM and CW-20, K1/K2 float32
       12 + 52 + 102 + 3 + 23 and 10 + 50 + 100 + 1 + 20 launches; each
       battery's ms per attack iteration.
+   i. the training objectives of objectives/methods.py through the driver
+      at full width (ResNet-18, 200 classes, bs100, 64 px, f32, PGD-10,
+      eps 16/255), 2 train steps and 1 validation batch each on 200
+      synthetic images: first the 9 Tiny-ImageNet configs of the other
+      kinds (ST, ALP, AVmixup, pre_square AT, targeted AT, tarALP,
+      tarAVmixup, targeted EE AT, TRADES), then every new kind on the
+      flagship's resnet18_EE_square (its method name swapped); TF32 set on
+      before each run and found off after it (a float32 recipe computes in
+      float32), a finite loss, and K1/K2's exact counts a step: K + 1 / K
+      for the AT family and AVmixup, K + 2 / K for ALP, K + 3 / K for
+      TRADES, 1 / 0 for ST, and K + 2 / K a validation batch (none where
+      the model has no front-end); each run's ms/step and peak memory.
 5. The reference, for slices a to d: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -150,6 +162,19 @@ PEAK_BYTES, PEAK_F32, PEAK_BF16, PEAK_TF32 = 3.35e12, 67e12, 989e12, 494.7e12
 # order 10; float32 within 1e-3, not K4's 1e-4, because cuDNN may pick a
 # Winograd or FFT algorithm that carries its own ~1e-4 error.
 BENCH_BF16_DIFF, BENCH_F32_DIFF = 0.5, 1e-3
+# i: the Tiny-ImageNet configs of the other objective kinds, then the new
+# kinds on the flagship config (method name and the shipped configs' keys),
+# each at full width for 2 train steps and 1 validation batch of 100
+OBJECTIVE_CONFIGS = ("standard_training", "alp_training", "avmixup_training",
+                     "ee_at_bpda3_pre_square", "targeted_adversarial_training",
+                     "targeted_alp_training", "targeted_avmixup_training",
+                     "targeted_ee_at_bpda3_square", "trades_training")
+FLAGSHIP_KINDS = (("ST", {}), ("tarEE_BPDA3_AT_square", {}),
+                  ("tarEE_trick", dict(label_smooth=0.1, prob_start_from_clean=0.2)),
+                  ("ALP", dict(beta=1.0)), ("tarALP", dict(beta=1.0)),
+                  ("TRADES", dict(beta=6.0)), ("AVmixup", {}), ("tarAVmixup", {}))
+OBJECTIVE_ARGS = dict(data="synthetic", synthetic_size=200, epochs=1,
+                      limit_batches=2, device="cuda")
 # the K4 check's shape (ResNet-50 layer1), and the bench's repetitions
 CONV_SHAPE = (128, 56, 56, 64, 64)
 BENCH_REPS = 5
@@ -882,6 +907,71 @@ def eval_entry_phase(torch, kernels, device_line, ckpt_dir: str) -> None:
     _record_launches(kernels, "eval_py", launches)
 
 
+def step_launches(kind: str, k: int) -> tuple:
+    """K1's and K2's launches in one train step of an objective kind with a
+    K-step attack: a forward each attack step, the clean forward of ALP and
+    TRADES, ALP's eval-mode `out`, TRADES' metric and train-mode
+    adversarial forwards; an input gradient each attack step (the
+    parameter backward reaches no K2: the front-end has no parameters)."""
+    fwd = {"st": 1, "alp": k + 2, "tar_alp": k + 2, "trades": k + 3}.get(kind, k + 1)
+    return fwd, 0 if kind == "st" else k
+
+
+def objectives_phase(torch, kernels, device_line) -> None:
+    """i. The objective kinds through the port's driver at full width: the
+    Tiny-ImageNet configs, then the new kinds on the flagship config."""
+    from edge_enhancement_tpu_torch.objectives.methods import canonical_method
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    runs = [(name, os.path.join(CONFIGS, "tiny_imagenet", f"{name}.yml"), {})
+            for name in OBJECTIVE_CONFIGS]
+    runs += [(f"flagship_{method}", CONFIG, dict(extra, method_name=method))
+             for method, extra in FLAGSHIP_KINDS]
+    total = {}
+    for tag, path, over in runs:
+        cfg = load_config(path, dict(OBJECTIVE_ARGS, **over,
+                                     output=_out_dir(f"objectives/{tag}")))
+        kind, k = canonical_method(cfg["method_name"]), int(cfg["num_steps_1"])
+        if (int(cfg["batch_size"]) != 100 or k != 10 or cfg.get("half")
+                or not cfg["arch"].startswith("resnet18")):
+            fail(f"{tag} is not the full-width recipe: {cfg['arch']} "
+                 f"bs{cfg['batch_size']} K {k}")
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        summary = run(cfg)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+        fwd, bwd = step_launches(kind, k)
+        want = ({"ee_fused_fwd": steps * fwd + evals * (k + 2),
+                 "ee_fused_bwd": steps * bwd + evals * k}
+                if "_EE" in cfg["arch"] else {})
+        secs = summary["step_seconds"]
+        print(f"[slice objectives] {tag}: {cfg['method_name']} (kind {kind}) on "
+              f"{cfg['arch']}, bs{cfg['batch_size']}, PGD-{k}: {steps} train steps, "
+              f"{evals} eval batch; loss {summary['loss']:.4f}; train step ms "
+              f"{[round(1000 * s_, 1) for s_ in secs]}, {1000 * secs[-1]:.1f} ms/step "
+              f"after the first; peak device memory {peak_gb:.2f} GB; TF32 after the "
+              f"run (cudnn, matmul) {tf32}; on {device_line}", flush=True)
+        _check_launches(f"objectives {tag}", launches, want)
+        if steps != 2 or evals != 1:
+            fail(f"{tag}: expected 2 train steps and 1 eval batch, got {steps}, {evals}")
+        if not math.isfinite(summary["loss"]):
+            fail(f"{tag}: loss {summary['loss']} is not finite")
+        if tf32 != (False, False):
+            fail(f"{tag}: a float32 recipe left TF32 on: {tf32}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        shutil.rmtree(cfg["output"])          # two checkpoints a run
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    _record_launches(kernels, "objectives", total)
+
+
 def reference_phase(torch, cfg, checkpoint):
     """The trained model's eval-mode logits on a small batch: the card's
     path against the CPU's, on the same weights and square draws."""
@@ -942,6 +1032,7 @@ def main():
     phase2_ckpt = resume_phase(torch, kernels, smi, summary["checkpoint"])
     evaluate_phase(torch, kernels, smi, phase2_ckpt)
     eval_entry_phase(torch, kernels, smi, os.path.dirname(checkpoints[False]))
+    objectives_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):

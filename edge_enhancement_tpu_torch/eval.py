@@ -19,7 +19,7 @@ import time
 
 from .train.checkpoint import load_checkpoint, restore_into_state
 from .train.driver import (Logger, build, eval_attack, load_datasets,
-                           run_device, run_validation)
+                           pin_precision, run_device, run_validation)
 from .train.driver import parser as train_parser
 from .train.trainer import build_eval_step
 from .utils.config import load_config
@@ -33,9 +33,11 @@ def run(cfg) -> list:
         raise NotImplementedError("the AutoAttack suite (aa) is not ported "
                                   "(ROADMAP Queue 1, M18)")
     device = run_device(cfg)
+    precision = pin_precision(cfg)
     _, val_ds, spec = load_datasets(cfg, train=False)
     ops, state, gen = build(cfg, spec.num_classes, device)
     log = Logger(None)
+    log(f"=> {cfg['arch']} on {device}, {precision}")
     if cfg.get("resume"):
         payload = (load_checkpoint(cfg["resume"], "best")
                    or load_checkpoint(cfg["resume"], "last"))

@@ -25,7 +25,7 @@ def _ee_from_args(a: Mapping[str, Any], square: bool) -> EEConfig:
         n_queries=int(a.get("n_queries", 1)))
 
 
-def _dtype_from_args(a: Mapping[str, Any]) -> Optional[torch.dtype]:
+def dtype_from_args(a: Mapping[str, Any]) -> Optional[torch.dtype]:
     """The mixed-precision policy: `dtype: bf16|bfloat16` or the fast-AT
     key `half: true` select bfloat16 compute (parameters stay float32)."""
     if a.get("half") or str(a.get("dtype", "")).lower() in ("bf16", "bfloat16"):
@@ -45,4 +45,4 @@ def build_model(arch: str, args: Mapping[str, Any], num_classes: int, *,
     ee = _ee_from_args(a, square=suffix == "_EE_square") if suffix else None
     return resnet(int(m.group(1)), num_classes=num_classes, ee=ee,
                   square_source=square_source, generator=generator,
-                  dtype=_dtype_from_args(a))
+                  dtype=dtype_from_args(a))

@@ -1,5 +1,5 @@
 """Training driver of the port, as the repo-root train.py of the JAX package,
-for the generic AT epoch loop:
+for the generic epoch loop of every objective (objectives/methods.py):
 
     python -m edge_enhancement_tpu_torch.train \\
         --config edge_enhancement_tpu/configs/tiny_imagenet/ee_at_bpda3_square.yml \\
@@ -16,7 +16,9 @@ train.py's): the ImageNet recipes, e.g.
         --config edge_enhancement_tpu/configs/free_imagenet/free_at_ee.yml \
         --data synthetic --device cuda
 
-`--resume <ckpt dir or .pth>` continues at the checkpoint's epoch (with
+A float32 recipe computes in float32 (`pin_precision`: TF32 off for cuDNN
+and matmuls), as the JAX package's does; the bf16 policy leaves TF32 as it
+is. `--resume <ckpt dir or .pth>` continues at the checkpoint's epoch (with
 free-AT's replay noise), `--pretrained <torchvision .pth>` warm-starts the
 backbone, and `--evaluate` runs the PGD tiers num_steps_k/step_size_k
 (k = 1, 2, 3) of the config and returns. AWP is not ported and raises.
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..data.datasets import get_dataset
-from ..models.registry import build_model
+from ..models.registry import build_model, dtype_from_args
 from ..objectives.free_fast import (FreeFastConfig, build_fast_train_step,
                                    build_free_train_step, init_noise)
 from ..objectives.methods import MethodConfig
@@ -65,14 +67,22 @@ class Logger:
                 print(msg, file=f)
 
 
-def make_method_config(cfg) -> MethodConfig:
+def make_method_config(cfg, num_classes: int) -> MethodConfig:
+    """The objective's config from the keys the JAX train.py reads (its
+    TPU scheduling knob `attack_unroll` aside)."""
     return MethodConfig(
         method_name=cfg["method_name"],
         epsilon=float(cfg.get("epsilon", 8 / 255)),
         num_steps=int(cfg.get("num_steps_1", 10)),
         step_size=float(cfg.get("step_size_1", 2 / 255)),
         random=bool(cfg.get("random", True)),
-        pre_square="pre_square" in cfg["method_name"])
+        beta=float(cfg.get("beta", 1.0)),
+        num_classes=num_classes,
+        label_smooth=float(cfg.get("label_smooth", 0.0)),
+        prob_start_from_clean=float(cfg.get("prob_start_from_clean", 0.0)),
+        pre_square="pre_square" in cfg["method_name"],
+        square_epsilon=float(cfg.get("epsilon", 0.05)),
+        square_n_queries=int(cfg.get("n_queries", 1)))
 
 
 def epoch_lr(cfg, epoch: float) -> float:
@@ -113,6 +123,20 @@ def run_device(cfg) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available")
     return device
+
+
+def pin_precision(cfg) -> str:
+    """A float32 recipe computes in float32, as the JAX package's does: TF32
+    off for cuDNN's convolutions and for matmuls. The bf16 policy leaves
+    both as they are. Returns the setting, for the run's first log line."""
+    if dtype_from_args(cfg) is None:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        policy = "float32"
+    else:
+        policy = "bf16 policy"
+    return (f"{policy}, TF32 cudnn {torch.backends.cudnn.allow_tf32} matmul "
+            f"{torch.backends.cuda.matmul.allow_tf32}")
 
 
 def eval_attack(cfg, num_classes: int, **over) -> EvalAttackConfig:
@@ -245,6 +269,7 @@ def run(cfg) -> dict:
     (with --evaluate: the tiers' eval batches and seconds, no checkpoint)."""
     _check_ported(cfg)
     device = run_device(cfg)
+    precision = pin_precision(cfg)
     dataset_name = cfg["dataset"]
     seed = int(cfg.get("seed", 1))
     evaluate = bool(cfg.get("evaluate"))
@@ -261,7 +286,8 @@ def run(cfg) -> dict:
     log = Logger(os.path.join(out_dir, "log"))
     log(f"=> dataset {dataset_name}, arch {cfg['arch']}, method "
         f"{cfg['method_name']}, device {device}"
-        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+        + f", {precision}")
     if cfg.get("pretrained"):
         # torchvision-format warm start; --resume below still wins
         n_loaded, skipped = load_pretrained(state.model, cfg["pretrained"])
@@ -289,7 +315,8 @@ def run(cfg) -> dict:
 
     opt = OptimConfig(momentum=float(cfg.get("momentum", 0.9)),
                       weight_decay=float(cfg.get("weight_decay", 0.0)))
-    train_step = build_train_step(ops, make_method_config(cfg), opt, run_gen)
+    train_step = build_train_step(ops, make_method_config(cfg, num_classes), opt,
+                                  run_gen)
     eval_step = build_eval_step(ops, eval_attack(cfg, num_classes), run_gen)
 
     batch_size = int(cfg["batch_size"])

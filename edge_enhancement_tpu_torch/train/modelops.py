@@ -1,4 +1,5 @@
-"""Train- and eval-mode forwards and the losses, as
+"""Train- and eval-mode forwards and the losses (cross-entropy, the soft
+and label-smoothed cross-entropies, batch-mean KL), as
 edge_enhancement_tpu/train/modelops.py.
 
 Train mode normalises with batch statistics and moves the running
@@ -30,6 +31,32 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   reduction: str = "mean") -> torch.Tensor:
     """CE on integer labels."""
     return F.cross_entropy(logits, labels.long(), reduction=reduction)
+
+
+def soft_cross_entropy_sum(logits: torch.Tensor,
+                           soft_targets: torch.Tensor) -> torch.Tensor:
+    """-sum(log_softmax(logits) * targets), the AVmixup loss."""
+    return -torch.sum(F.log_softmax(logits, dim=-1) * soft_targets)
+
+
+def label_smooth_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      smoothing: float) -> torch.Tensor:
+    """The trick's label smoothing: weight (1 - s) on the true class,
+    s / (n - 1) elsewhere, mean over the batch."""
+    n = logits.shape[-1]
+    logp = F.log_softmax(logits, dim=-1)
+    weight = torch.full_like(logp, smoothing / (n - 1.0))
+    one_hot = F.one_hot(labels.long(), n).to(logits.dtype)
+    weight = weight * (1.0 - one_hot) + one_hot * (1.0 - smoothing)
+    return torch.mean(torch.sum(-weight * logp, dim=-1))
+
+
+def kl_div_batchmean(log_q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """KL(p || q) summed and divided by the batch, from log q, with
+    0 log 0 := 0 written out (value and gradient), as the JAX function."""
+    logp = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-38)),
+                       torch.zeros_like(p))
+    return torch.sum(p * (logp - log_q)) / log_q.shape[0]
 
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,

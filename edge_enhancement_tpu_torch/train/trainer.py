@@ -1,8 +1,8 @@
 """Train state and the train/eval steps, as
-edge_enhancement_tpu/train/trainer.py: one train step is the PGD attack,
-the objective's loss, the parameter gradient and the SGD update; the eval
-step is the reference validate(): clean accuracy and one attack battery
-(PGD, FGSM or CW) in eval mode.
+edge_enhancement_tpu/train/trainer.py: one train step is the objective's
+loss (its attack included), the parameter gradient and the SGD update;
+the eval step is the reference validate(): clean accuracy and one attack
+battery (PGD, FGSM or CW) in eval mode.
 PyTorch runs eagerly, so a step is a plain function of the state."""
 
 from __future__ import annotations

@@ -58,7 +58,7 @@ def test_driver_runs_gf_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
-    ({"method_name": "TRADES"}, NotImplementedError),
+    ({"type_canny": "CannyFilter"}, NotImplementedError),
     ({"awp_gamma": 0.01}, NotImplementedError),
     ({"attack_method": "AA"}, NotImplementedError),
 ])

@@ -3,6 +3,9 @@ draws made with numpy and replayed on both sides, the JAX ResNet's
 weights carried into the port, and one train step run on both sides and
 compared."""
 
+import copy
+import functools
+
 import numpy as np
 import torch
 import jax
@@ -97,15 +100,25 @@ def to_numpy_tree(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
 
-def jax_and_port_models(shape, arch="resnet18_EE_square", seed=0, ee_args=None):
-    """(jax ModelOps, params, batch_stats, port model with those weights)."""
-    ee_args = EE_ARGS if ee_args is None else ee_args
-    ops = JaxModelOps(jax_build_model(arch, ee_args, 200))
+@functools.lru_cache(maxsize=None)
+def _jax_init(image_shape, arch, seed, ee_items):
+    """The JAX model's ModelOps and its initial variables, and the port's
+    state_dict of them, made once a process (JAX arrays are immutable)."""
+    ops = JaxModelOps(jax_build_model(arch, dict(ee_items), 200))
     params, batch_stats = jax.jit(ops.init)(jax.random.PRNGKey(seed),
-                                   jnp.zeros((1,) + tuple(shape[1:]), jnp.float32))
+                                            jnp.zeros((1,) + image_shape, jnp.float32))
+    sd = state_dict_from_jax(to_numpy_tree(params), to_numpy_tree(batch_stats))
+    return ops, params, batch_stats, sd
+
+
+def jax_and_port_models(shape, arch="resnet18_EE_square", seed=0, ee_args=None):
+    """(jax ModelOps, params, batch_stats, a fresh port model with those
+    weights)."""
+    ee_args = EE_ARGS if ee_args is None else ee_args
+    ops, params, batch_stats, sd = _jax_init(tuple(shape[1:]), arch, seed,
+                                             tuple(sorted(ee_args.items())))
     model = build_model(arch, ee_args, 200)
-    model.load_state_dict(state_dict_from_jax(to_numpy_tree(params),
-                                              to_numpy_tree(batch_stats)))
+    model.load_state_dict(sd)
     return ops, params, batch_stats, model
 
 
@@ -129,36 +142,88 @@ def _jax_spy(captured):
 def _port_spy(captured, replacement):
     """Runs the port's attack (its draws and BatchNorm updates happen) and
     returns `replacement['x_adv']` in place of its result."""
-    real = tmethods.pgd_linf
+    real = tpgd.pgd_linf
 
     def spy(*args, **kwargs):
         captured["x_adv"] = real(*args, **kwargs).numpy()
-        return torch.from_numpy(replacement["x_adv"].copy())
+        return torch.from_numpy(replacement["x_adv"].copy()).to(args[1].dtype)
     return spy
 
 
-def train_step_pair(monkeypatch, ee_args=None):
-    """One EE_BPDA3_AT_square train step of the JAX package and one of the
-    port on carried weights, with the square draws and the PGD start noise
-    made with numpy and replayed on both sides. The port's attack runs, but
-    the port takes JAX's x_adv for the update. Returns the port's
-    (metrics, state, model, x_adv) and JAX's (metrics, state, x_adv)."""
-    ops_j, params, bs, model = jax_and_port_models(STEP_SHAPE, ee_args=ee_args)
+def port_forwards(kind, k):
+    """(the port's forwards in one train step of `kind` with a K-step
+    attack, and for each forward of the JAX trace the port forward whose
+    square draw it takes). Each forward draws one square and, on the card,
+    launches K1 once. JAX runs ALP's and TRADES' clean train-mode forward
+    twice on one key, so both of its passes take the port's one draw."""
+    if kind == "st":
+        return 1, [0]
+    if kind in ("alp", "tar_alp"):          # clean, K attack steps, out
+        return k + 2, list(range(k + 1)) + [0, k + 1]
+    if kind == "trades":                    # clean, K steps, metric, adv
+        return k + 3, list(range(k + 2)) + [0, k + 2]
+    return k + 1, list(range(k + 1))        # K steps, the trained forward
+
+
+def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
+                    arch="resnet18_EE_square", float64=False, **fields):
+    """One train step of `method` (MethodConfig `fields` beside the
+    flagship's) in the JAX package and in the port on carried weights, with
+    every draw made with numpy and replayed on both sides: the square
+    draws, the PGD start (uniform, Gaussian, the trick's gate), the target
+    offsets, tarAVmixup's offsets, AVmixup's weights and pre_square's
+    square. The port's attack runs, but the port takes JAX's x_adv for the
+    update. Returns the port's (metrics, state, model, x_adv) and JAX's
+    (metrics, state, x_adv); x_adv is None for ST, which runs no attack.
+    With `float64`, also the port's step in float64 on the same draws (its
+    own attack, then JAX's x_adv for the update) as a third such tuple."""
+    ops_j, params, bs, model = jax_and_port_models(STEP_SHAPE, arch=arch,
+                                                   ee_args=ee_args)
+    model64 = copy.deepcopy(model).double() if float64 else None
     rng = np.random.default_rng(0)
     x = rng.random(STEP_SHAPE).astype(np.float32)
     y = rng.integers(0, 200, STEP_SHAPE[0]).astype(np.int32)
     noise = rng.uniform(-EPS, EPS, STEP_SHAPE).astype(np.float32)
-    draws = square_draws(PGD_STEPS + 1, STEP_SHAPE)
-    cap_j, cap_t = {}, {}
+    b = STEP_SHAPE[0]
+    kind = jmethods.canonical_method(method)
+    n_port, jax_order = port_forwards(kind, PGD_STEPS)
+    draws = square_draws(n_port if arch.endswith("_square") else 0, STEP_SHAPE)
+    drng = np.random.default_rng(1)
+    gauss = drng.standard_normal(STEP_SHAPE).astype(np.float32)
+    gate = np.float32(drng.random())
+    tgt_offs = drng.integers(1, 200, b).astype(np.int32)
+    mix_offs = drng.integers(1, 200, (b, 200)).astype(np.int32)
+    w = drng.random((b, 1, 1, 1)).astype(np.float32)
+    pre = square_draws(1, STEP_SHAPE, seed=8)
+    cap_j = {}
 
     # ---- JAX: the jitted step; the fakes trace once per (unrolled) call ----
-    monkeypatch.setattr(jee, "add_square", JaxSquareReplay(draws))
-    monkeypatch.setattr(jpgd, "_init_perturbation",
-                        lambda cfg, key, xx: jnp.clip(xx + noise, 0.0, 1.0))
+    sq_j = JaxSquareReplay([draws[i] for i in jax_order] if draws else [])
+    pre_j = JaxSquareReplay(pre)
+    monkeypatch.setattr(jee, "add_square", sq_j)
+    monkeypatch.setattr(jmethods, "add_square", pre_j)
+
+    def init(cfg, key, xx):
+        if cfg.random_init == "gaussian":
+            return xx + 0.001 * gauss
+        if cfg.random_init == "trick":
+            use = (gate > cfg.prob_start_from_clean).astype(np.float32)
+            return jnp.clip(xx + use * noise, 0.0, 1.0)
+        return jnp.clip(xx + noise, 0.0, 1.0)
+    real_uniform = jax.random.uniform
+
+    def uniform(key, shape=(), *a, **k):     # AVmixup's w; others real
+        if tuple(shape) == w.shape:
+            return jnp.asarray(w)
+        return real_uniform(key, shape, *a, **k)
+    monkeypatch.setattr(jpgd, "_init_perturbation", init)
+    monkeypatch.setattr(jax.random, "randint", lambda key, shape, *a, **k: jnp.asarray(
+        {(b,): tgt_offs, (b, 200): mix_offs}[tuple(shape)]))
+    monkeypatch.setattr(jax.random, "uniform", uniform)
     monkeypatch.setattr(jmethods, "pgd_linf", _jax_spy(cap_j))
-    mcfg_j = jmethods.MethodConfig("EE_BPDA3_AT_square", epsilon=EPS,
-                                   num_steps=PGD_STEPS, step_size=STEP_SIZE,
-                                   num_classes=200)
+    common = dict(epsilon=EPS, num_steps=PGD_STEPS, step_size=STEP_SIZE,
+                  num_classes=200, **fields)
+    mcfg_j = jmethods.MethodConfig(method, **common)
     step_j = jtrainer.build_train_step(ops_j, mcfg_j, jtrainer.OptimConfig(MOMENTUM, WD))
     state_j = jtrainer.TrainState(params=params, batch_stats=bs,
                                   momentum_buf=init_momentum(params),
@@ -166,52 +231,99 @@ def train_step_pair(monkeypatch, ee_args=None):
     state_j, m_j = step_j(state_j, jnp.asarray(x), jnp.asarray(y),
                           jax.random.PRNGKey(0), jnp.float32(LR))
     jax.block_until_ready(state_j)
+    assert sq_j.calls == len(sq_j.draws)
+    assert pre_j.calls == int(bool(fields.get("pre_square")))
 
     # ---- the port ----------------------------------------------------------
-    model.square_source = TorchSquareReplay(draws)
-    monkeypatch.setattr(tpgd, "uniform_init_noise",
-                        lambda xx, eps, gen: torch.from_numpy(noise))
-    monkeypatch.setattr(tmethods, "pgd_linf", _port_spy(cap_t, cap_j))
-    mcfg = tmethods.MethodConfig("EE_BPDA3_AT_square", epsilon=EPS,
-                                 num_steps=PGD_STEPS, step_size=STEP_SIZE)
-    state = ttrainer.create_train_state(model)
-    step = ttrainer.build_train_step(ModelOps(model), mcfg,
-                                     ttrainer.OptimConfig(MOMENTUM, WD))
-    m = step(state, torch.from_numpy(x), torch.from_numpy(y).long(), LR)
-    return (m, state, model, cap_t["x_adv"]), (m_j, state_j, cap_j["x_adv"])
+    t = torch.from_numpy
+    monkeypatch.setattr(tpgd, "uniform_init_noise", lambda xx, eps, gen: t(noise))
+    monkeypatch.setattr(tpgd, "gaussian_init_noise", lambda xx, gen: t(gauss))
+    monkeypatch.setattr(tpgd, "trick_gate", lambda xx, gen: torch.tensor(gate))
+    obj = tmethods.Objective
+    monkeypatch.setattr(obj, "target_offsets", lambda self, yy: t(tgt_offs))
+    monkeypatch.setattr(obj, "avmixup_offsets", lambda self, oh: t(mix_offs))
+    monkeypatch.setattr(obj, "mix_weights", lambda self, xx: t(w))
+    mcfg = tmethods.MethodConfig(method, **common)
+
+    def port_step(model, dtype):
+        sq_t = model.square_source = TorchSquareReplay(draws)
+        pre_t = TorchSquareReplay(pre)
+        cap_t = {}
+        monkeypatch.setattr(obj, "square_draws", lambda self, shape: pre_t(shape))
+        monkeypatch.setattr(tmethods, "pgd_linf", _port_spy(cap_t, cap_j))
+        state = ttrainer.create_train_state(model)
+        step = ttrainer.build_train_step(ModelOps(model), mcfg,
+                                         ttrainer.OptimConfig(MOMENTUM, WD))
+        m = step(state, t(x).to(dtype), t(y).long(), LR)
+        assert sq_t.calls == len(draws) and pre_t.calls == pre_j.calls
+        return m, state, model, cap_t.get("x_adv")
+
+    out = (port_step(model, torch.float32), (m_j, state_j, cap_j.get("x_adv")))
+    return out + (port_step(model64, torch.float64),) if float64 else out
 
 
-def assert_train_steps_agree(port, jax_side):
-    """The comparison of `train_step_pair`'s two steps (the tolerances are
-    explained in tests/test_torch_train_step.py)."""
-    (m, state, model, x_adv), (m_j, state_j, x_adv_j) = port, jax_side
-    assert state.step == 1
-    # the port's own x_adv: the share of pixels off JAX's
-    differ = np.abs(x_adv - x_adv_j) > 1e-6
-    assert differ.mean() <= 0.05, differ.mean()
-    # from here both sides hold the same x_adv: loss and top-1 (measured
-    # 2.4e-6 relative), then the update
-    np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]), rtol=2e-5)
-    assert float(m["top1"]) == float(m_j["top1"])
+# The comparison's tolerances against JAX (tests/test_torch_train_step.py
+# explains them): the share of x_adv pixels off JAX's, then on the same
+# x_adv the parameters, the running statistics and the momentum.
+JAX_TOL = dict(share=0.05, params=1e-4, running=2e-3, momentum=1e-3)
 
+
+def _state_dicts(state, model, want_params, want_stats, want_mom):
     sd = model.state_dict()
-    want = state_dict_from_jax(to_numpy_tree(state_j.params),
-                               to_numpy_tree(state_j.batch_stats))
     mom = dict(zip((n for n, _ in model.named_parameters()), state.momentum_buf))
-    want_mom = state_dict_from_jax(to_numpy_tree(state_j.momentum_buf),
-                                   to_numpy_tree(state_j.batch_stats))
+    want = state_dict_from_jax(want_params, want_stats)
     assert sorted(want) == sorted(sd)
+    return sd, mom, want, state_dict_from_jax(want_mom, want_stats)
+
+
+def _assert_states_close(sd, mom, want, want_mom, tol):
     for k in sd:
         if k.endswith(("running_mean", "running_var")):
-            # the attack forwards ran on each side's own x_adv (measured
-            # 8.4e-4 on values of order 1)
             np.testing.assert_allclose(sd[k].numpy(), want[k].numpy(),
-                                       atol=2e-3, err_msg=k)
+                                       atol=tol["running"], err_msg=k)
         else:
-            # p - lr * buf: float32 parameter gradients of two libraries
             np.testing.assert_allclose(sd[k].numpy(), want[k].numpy(),
-                                       atol=1e-4, rtol=1e-4, err_msg=k)
+                                       atol=tol["params"], rtol=tol["params"], err_msg=k)
     for k, b in mom.items():
-        # buf = g + wd * p after one step (measured 3.3e-4 on |buf| ~ 7)
         np.testing.assert_allclose(b.numpy(), want_mom[k].numpy(),
-                                   atol=1e-3, rtol=1e-3, err_msg=k)
+                                   atol=tol["momentum"], rtol=tol["momentum"], err_msg=k)
+
+
+def assert_train_steps_agree(port, jax_side, tol=None):
+    """The comparison of `train_step_pair`'s two steps, with JAX_TOL's
+    tolerances unless `tol` replaces some."""
+    tol = {**JAX_TOL, **(tol or {})}
+    (m, state, model, x_adv), (m_j, state_j, x_adv_j) = port, jax_side
+    assert state.step == 1
+    if x_adv_j is not None:
+        # the port's own x_adv: the share of pixels off JAX's
+        differ = np.abs(x_adv - x_adv_j) > 1e-6
+        assert differ.mean() <= tol["share"], differ.mean()
+    # from here both sides hold the same x_adv: loss and top-1 (measured
+    # 2.4e-6 relative), then the update: p - lr * buf from float32
+    # parameter gradients of two libraries (measured 2.9e-5); the running
+    # statistics, whose attack forwards ran on each side's own x_adv
+    # (measured 8.4e-4 on values of order 1); buf = g + wd * p after one
+    # step (measured 3.3e-4 on |buf| ~ 7)
+    np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]), rtol=2e-5)
+    assert float(m["top1"]) == float(m_j["top1"])
+    tree = to_numpy_tree
+    _assert_states_close(*_state_dicts(state, model, tree(state_j.params),
+                                       tree(state_j.batch_stats),
+                                       tree(state_j.momentum_buf)), tol)
+
+
+def assert_matches_float64(port, port64, tol):
+    """The port's float32 step against its float64 step on the same draws:
+    both attacks' x_adv (share of pixels off by > 1e-6), then, both on
+    JAX's x_adv, the loss and the update."""
+    (m, state, model, x_adv), (m64, state64, model64, x_adv64) = port, port64
+    if x_adv is not None:
+        differ = np.abs(x_adv - x_adv64) > 1e-6
+        assert differ.mean() <= tol["share"], differ.mean()
+    np.testing.assert_allclose(float(m["loss"]), float(m64["loss"]), rtol=2e-6)
+    sd64 = {k: v.float() for k, v in model64.state_dict().items()}
+    mom64 = [b.float() for b in state64.momentum_buf]
+    names = [n for n, _ in model.named_parameters()]
+    _assert_states_close(model.state_dict(), dict(zip(names, state.momentum_buf)),
+                         sd64, dict(zip(names, mom64)), tol)
