@@ -81,6 +81,20 @@
       for the AT family and AVmixup, K + 2 / K for ALP, K + 3 / K for
       TRADES, 1 / 0 for ST, and K + 2 / K a validation batch (none where
       the model has no front-end); each run's ms/step and peak memory.
+   j. AutoAttack and restart PGD on the flagship's checkpoint at 64 px:
+      j1. the port's eval.py with --suite aa on one batch of 100 at the
+      standard defaults (APGD-CE, APGD-T and FAB-T with 100 steps and 9
+      target classes, Square with 1000 queries): K1/K2 float32 exactly
+      5734 and 1900 launches, finite accuracies with robust <= clean, the
+      batch's wall seconds, the front-end's share of them and the peak
+      memory; j2. APGD-CE, APGD-T, FAB-T (5 steps) and Square (20 queries)
+      on 8 images on the card and on the CPU path, TF32 off on both, with
+      the same replayed draws: each forward's logits and the front-end's
+      input gradient of the card's runs held in lockstep against the CPU
+      path, the results compared sample by sample, within the limits
+      below; j3.
+      restart PGD (attacks/restart_pgd.py), l_inf and l_2, 2 restarts x 10
+      iterations on j1's batch: K1 22 and K2 20 launches a norm, its time.
 5. The reference, for slices a to d: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -175,6 +189,41 @@ FLAGSHIP_KINDS = (("ST", {}), ("tarEE_BPDA3_AT_square", {}),
                   ("TRADES", dict(beta=6.0)), ("AVmixup", {}), ("tarAVmixup", {}))
 OBJECTIVE_ARGS = dict(data="synthetic", synthetic_size=200, epochs=1,
                       limit_batches=2, device="cuda")
+# j: eval.py --suite aa at the standard defaults (APGD 100 steps, FAB 100,
+# Square 1000 queries, 9 target classes) on the flagship's checkpoint, one
+# batch of 100
+AA_ARGS = dict(EVAL_ARGS, suite="aa", aa_batches=1)
+AA_STANDARD = dict(apgd=100, fab=100, queries=1000, n_tc=9)
+# j2: the attacks on 8 images, card against CPU (TF32 off on both), on the
+# same draws. Five APGD steps, five FAB steps or twenty Square queries take
+# discrete decisions (a step halving, the max-loss point, an accepted
+# square, FAB's backward step) on values that can tie to float32 rounding,
+# and a sample whose decision differs follows another trajectory from
+# there: tools/attack_split.py --sets 10 shows the port's own float32 and
+# float64 runs on the CPU part so on 0-2 samples of an attack's 8, and the
+# card's runs parted from the CPU's on up to 5 of 8 (APGD-CE on an H100).
+# So whole trajectories are printed, not held. What is held is each call
+# of the card's runs against the CPU path at the same input and draws
+# (tools/attack_split.py::Lockstep): the logits within REF_TOL of
+# max(1, max |logit|), as in the reference phase, and the front-end's
+# input gradient (K2 against the plain adjoint, through the same autograd
+# wiring as the model) within AA_FRONTEND_TOL of its norm: both sides sum
+# in float32 in other orders (~1e-6). The whole model's input gradient is
+# printed, not held: it jumps where the backbone sits on a tie (equal
+# convolution outputs over a saturated patch, which a pooling window
+# routes by position and the two libraries round apart), by up to ~1e-2
+# of its norm on an H100. A parted trajectory may end on the other side
+# of the boundary (1 of 8 in one H100 run); a fault of the attacks' own
+# arithmetic on the card would flip most, so at most AA_FLIP_SAMPLES (half)
+# may end misclassified on one side only.
+AA_CMP_N, AA_CMP_STEPS, AA_CMP_QUERIES = 8, 5, 20
+AA_FRONTEND_TOL, AA_FLIP_SAMPLES = 1e-4, AA_CMP_N // 2
+# j3: restart PGD (the AWP drivers' attack_pgd), 2 restarts x 10 iterations,
+# at the AWP drivers' radii: l_inf 16/255 (the flagship's eps) with steps
+# of 2/255, l_2 128/255 with steps of 15/255
+RESTART_PGD = (dict(norm="l_inf", epsilon=16 / 255, alpha=2 / 255),
+               dict(norm="l_2", epsilon=128 / 255, alpha=15 / 255))
+RESTART_PGD_ITERS, RESTART_PGD_RESTARTS = 10, 2
 # the K4 check's shape (ResNet-50 layer1), and the bench's repetitions
 CONV_SHAPE = (128, 56, 56, 64, 64)
 BENCH_REPS = 5
@@ -907,6 +956,191 @@ def eval_entry_phase(torch, kernels, device_line, ckpt_dir: str) -> None:
     _record_launches(kernels, "eval_py", launches)
 
 
+def aa_launches(apgd: int, fab: int, queries: int, n_tc: int) -> tuple:
+    """K1's and K2's launches in one batch of eval.py's AA battery: the
+    suite's first prediction, APGD-CE (2N + 1 forwards) and its merge
+    prediction, the target order, APGD-T 2N + 2 and FAB-T 3N + 1 (two
+    decisions and the gradient's forward a step, the merge) a target, Square
+    Q + 1 (the init is query 1), then the clean and the robust scoring; an
+    input gradient each APGD and FAB step."""
+    fwd = (1 + (2 * apgd + 2) + 1 + n_tc * (2 * apgd + 2) + n_tc * (3 * fab + 1)
+           + queries + 1 + 2)
+    return fwd, apgd + n_tc * (apgd + fab)
+
+
+def aa_phase(torch, kernels, device_line, ckpt_dir: str) -> None:
+    """j1. eval.py --suite aa on the flagship's checkpoint, one batch of 100
+    at the standard defaults: exact K1/K2 counts (5734 / 1900), finite
+    accuracies with robust <= clean, the batch's wall seconds, K1/K2's share
+    of them and the peak device memory."""
+    from edge_enhancement_tpu_torch import eval as port_eval
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    from edge_enhancement_tpu_torch.attacks import autoattack as aa
+
+    cfg = load_config(CONFIG, dict(AA_ARGS, resume=ckpt_dir))
+    # each attack's seconds: a device sync at its start and end (a few
+    # dozen a batch, in a suite that syncs nowhere else)
+    spent = {}
+    real = {n: getattr(aa, n) for n in ("apgd", "fab_targeted", "square_attack")}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            tag = ("apgd-t" if kw.get("y_target") is not None else "apgd-ce") \
+                if name == "apgd" else name
+            spent[tag] = spent.get(tag, 0.0) + time.time() - t0
+            return out
+        return run
+
+    for n, f in real.items():
+        setattr(aa, n, timed(n, f))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    try:
+        (res,) = port_eval.run(cfg)
+    finally:
+        for n, f in real.items():
+            setattr(aa, n, f)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = aa_launches(**AA_STANDARD)
+    k1, k2 = (_kernel_ms(kernels, name, "") for name in ("ee_fused_fwd", "ee_fused_bwd"))
+    front = res["batches"] * (fwd * k1 + bwd * k2)
+    print(f"[slice aa] {res['label']}: clean Prec@1 {res['clean_top1']:.3f}, robust "
+          f"Prec@1 {res['adv_top1']:.3f}; {res['batches']} batch of {cfg['batch_size']}, "
+          f"{res['seconds']:.3f} s wall, {1e3 * res['seconds'] / res['iterations']:.2f} ms "
+          f"per attack iteration ({res['iterations']} a batch); K1/K2 {fwd} / {bwd} "
+          f"launches a batch, {front:.1f} ms, {100 * front / (1e3 * res['seconds']):.2f}% "
+          f"of it; peak device memory {peak_gb:.2f} GB; on {device_line}", flush=True)
+    print("[slice aa] seconds by attack: " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / res['seconds']:.1f}%)" for k, v in spent.items()),
+        flush=True)
+    _check_launches("aa", launches, {"ee_fused_fwd": res["batches"] * fwd,
+                                     "ee_fused_bwd": res["batches"] * bwd})
+    a = AA_STANDARD
+    if (res["batches"] != 1
+            or res["iterations"] != a["apgd"] * (1 + a["n_tc"]) + a["fab"] * a["n_tc"]
+            + a["queries"]
+            or not all(math.isfinite(res[m]) for m in ("clean_top1", "adv_top1"))
+            or res["adv_top1"] > res["clean_top1"]):
+        fail(f"the AA battery is not one finite batch with robust <= clean: {res}")
+    _record_launches(kernels, "aa", launches)
+
+
+def aa_card_vs_cpu_phase(torch, checkpoint: str) -> None:
+    """j2. APGD-CE, APGD-T (one target), FAB-T and Square on 8 noise images
+    through the flagship's checkpoint, on the card and on the CPU, with the
+    same draws (tools/attack_split.py: the attacks' draw functions and the
+    model's square source replay one seeded CPU sequence each, moved to the
+    device); each forward's logits and the front-end's input gradient of
+    the card's runs held in lockstep against the CPU path, and the results
+    compared sample by sample, within the limits above."""
+    import numpy as np
+
+    from edge_enhancement_tpu_torch.ops.square import add_square_draws
+    from edge_enhancement_tpu_torch.tools.attack_split import (agrees, clean_top2,
+                                                               model_from_state,
+                                                               replayed_attacks,
+                                                               sample_diffs)
+    from edge_enhancement_tpu_torch.train.modelops import ModelOps
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG)
+    eps = float(cfg["epsilon"])
+    state = torch.load(checkpoint, map_location="cpu")["state_dict"]
+    size = int(cfg["cize"])
+    x = torch.from_numpy(np.random.default_rng(2).random(
+        (AA_CMP_N, size, size, 3)).astype(np.float32))
+    fixed = add_square_draws(x.shape, torch.Generator().manual_seed(6))
+    y, target = clean_top2(state, cfg, x, fixed)
+    kw = dict(steps=AA_CMP_STEPS, queries=AA_CMP_QUERIES)
+    card = replayed_attacks(state, cfg, x, y, target, fixed, "cuda",
+                            reference=ModelOps(model_from_state(state, cfg)), **kw)
+    cpu = replayed_attacks(state, cfg, x, y, target, fixed, "cpu", **kw)
+    for name in card:
+        (xa, wa, step), (xb, wb, _) = card[name], cpu[name]
+        share, worst = sample_diffs(xa, xb)
+        agree = agrees(name, share, worst)
+        split = [i for i in range(AA_CMP_N) if not agree[i]]
+        flips = [i for i in range(AA_CMP_N) if wa[i] != wb[i]]
+        moved = (xa - x.double()).abs().max().item()
+        print(f"[aa card vs cpu] {name} ({AA_CMP_N} images, {AA_CMP_STEPS} steps / "
+              f"{AA_CMP_QUERIES} queries): in lockstep, {step.forwards} forwards' logits "
+              f"within {step.logits_err:.3e} (limit {REF_TOL}), {step.gradients} input "
+              f"gradients: the front-end's within {step.frontend_err:.3e} of their norm "
+              f"(limit {AA_FRONTEND_TOL}), the model's {step.grad_norm_err:.3e}; "
+              f"results: "
+              f"{100 * share.mean().item():.4f}% of x_adv more than 1e-6 apart, per "
+              f"sample {[round(v, 4) for v in share.tolist()]}, max |diff| "
+              f"{[float(f'{v:.3e}') for v in worst.tolist()]}; trajectories parted on "
+              f"{split}; misclassification differs on {flips} (limit {AA_FLIP_SAMPLES}); "
+              f"misclassified card {int(wa.sum())} cpu {int(wb.sum())}; max |x_adv - x| "
+              f"{moved:.4f}", flush=True)
+        if (step.logits_err > REF_TOL or step.frontend_err > AA_FRONTEND_TOL
+                or step.forwards < AA_CMP_STEPS
+                or (name != "square" and step.gradients < AA_CMP_STEPS)
+                or len(flips) > AA_FLIP_SAMPLES or moved > eps + 1e-6
+                or not bool(torch.isfinite(xa).all())):
+            fail(f"{name} on the card disagrees with the CPU path")
+
+
+def restart_pgd_phase(torch, kernels, device_line, checkpoint: str) -> None:
+    """j3. The restart PGD of attacks/restart_pgd.py on the flagship's
+    checkpoint and j1's batch of 100, l_inf and l_2, 2 restarts x 10
+    iterations: one forward with its input gradient an iteration (its
+    early-stop logits and gradient share a key in JAX) and one a restart,
+    so K1 restarts x (iters + 1) and K2 restarts x iters a norm."""
+    from edge_enhancement_tpu_torch.attacks.restart_pgd import (RestartPGDConfig,
+                                                                attack_pgd)
+    from edge_enhancement_tpu_torch.train.driver import build, load_datasets
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG, AA_ARGS)
+    _, val_ds, spec = load_datasets(cfg, train=False)
+    ops, state, gen = build(cfg, spec.num_classes, torch.device("cuda"))
+    state.model.load_state_dict(torch.load(checkpoint, map_location="cuda")["state_dict"])
+    x, y = next(val_ds.batches(int(cfg["batch_size"]), shuffle=False, seed=0))
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda().long()
+    total = {}
+    for over in RESTART_PGD:
+        rcfg = RestartPGDConfig(attack_iters=RESTART_PGD_ITERS,
+                                restarts=RESTART_PGD_RESTARTS, **over)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        delta = attack_pgd(ops.logits_eval, x, y, rcfg, gen, draw=ops.square_draws)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = _read_counts()
+        with torch.no_grad():
+            draws = ops.square_draws(x)
+            clean = (ops.logits_eval(x, draws).argmax(-1) == y).float().mean().item()
+            adv = (ops.logits_eval(torch.clamp(x + delta, 0, 1), draws).argmax(-1)
+                   == y).float().mean().item()
+        flat = delta.reshape(len(y), -1)
+        size = (flat.abs().amax(1) if rcfg.norm == "l_inf"
+                else torch.linalg.vector_norm(flat, dim=1)).max().item()
+        r, k = rcfg.restarts, rcfg.attack_iters
+        print(f"[slice restart_pgd] {rcfg.norm} eps {rcfg.epsilon:.4f}, {r} restarts x "
+              f"{k} iterations on {len(y)} images: {secs:.3f} s, "
+              f"{1e3 * secs / (r * k):.2f} ms per iteration; clean {100 * clean:.1f}%, "
+              f"adversarial {100 * adv:.1f}%; largest delta {size:.4f}; on "
+              f"{device_line}", flush=True)
+        _check_launches(f"restart_pgd {rcfg.norm}", launches,
+                        {"ee_fused_fwd": r * (k + 1), "ee_fused_bwd": r * k})
+        if not math.isfinite(size) or size > rcfg.epsilon * (1 + 1e-5) or adv > clean:
+            fail(f"restart PGD {rcfg.norm} left its ball or raised the accuracy")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    _record_launches(kernels, "restart_pgd", total)
+
+
 def step_launches(kind: str, k: int) -> tuple:
     """K1's and K2's launches in one train step of an objective kind with a
     K-step attack: a forward each attack step, the clean forward of ALP and
@@ -1033,6 +1267,9 @@ def main():
     evaluate_phase(torch, kernels, smi, phase2_ckpt)
     eval_entry_phase(torch, kernels, smi, os.path.dirname(checkpoints[False]))
     objectives_phase(torch, kernels, smi)
+    aa_phase(torch, kernels, smi, os.path.dirname(checkpoints[False]))
+    aa_card_vs_cpu_phase(torch, checkpoints[False])
+    restart_pgd_phase(torch, kernels, smi, checkpoints[False])
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):

@@ -172,12 +172,15 @@ class ResNet(nn.Module):
                                       generator=generator)
                 m.bias.zero_()
 
-    def forward(self, x):
-        """x: NHWC float32 in [0, 1] -> float32 logits (B, num_classes)."""
+    def forward(self, x, square_draws=None):
+        """x: NHWC float32 in [0, 1] -> float32 logits (B, num_classes).
+        `square_draws` replaces the square source's fresh draw."""
         if self.dtype is not None:
             x = x.to(self.dtype)
         if self.ee is not None:
-            x = ee_frontend(x, self.ee, self.square_source)
+            source = (self.square_source if square_draws is None
+                      else lambda shape: square_draws)
+            x = ee_frontend(x, self.ee, source)
         x = x.permute(0, 3, 1, 2)
         x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))

@@ -5,7 +5,9 @@ edge_enhancement_tpu/train/modelops.py.
 Train mode normalises with batch statistics and moves the running
 statistics on EVERY forward, including those inside a train-mode attack;
 eval mode uses the running statistics. The square front-end draws fresh
-randomness in both modes.
+randomness in both modes, unless an eval-mode forward is handed draws
+(the attacks of attacks/autoattack.py share one draw between forwards
+that JAX runs under one key).
 """
 
 from __future__ import annotations
@@ -22,9 +24,19 @@ class ModelOps:
         self.model.train()
         return self.model(x)
 
-    def logits_eval(self, x: torch.Tensor) -> torch.Tensor:
+    def logits_eval(self, x: torch.Tensor, draws=None) -> torch.Tensor:
+        """Eval-mode logits; `draws` (from `square_draws`) replaces the
+        square front-end's fresh draw, so two forwards can share one."""
         self.model.eval()
-        return self.model(x)
+        return self.model(x, square_draws=draws)
+
+    def square_draws(self, x: torch.Tensor):
+        """Fresh draws for one forward of x: the square front-end's, from
+        the model's square source; None for a model without a square."""
+        ee = getattr(self.model, "ee", None)
+        if ee is None or not ee.square:
+            return None
+        return self.model.square_source(x.shape)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

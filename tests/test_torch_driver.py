@@ -260,15 +260,16 @@ def test_eval_entry_point_prints_the_jax_tags(tmp_path, flagship_ckpt):
     assert tags == ["PGD-1", "PGD-1", "PGD-1", "FGSM", "CW-Linf-1"], proc.stdout
 
 
-@pytest.mark.parametrize("suite,error", [("pgd,aa", NotImplementedError),
+@pytest.mark.parametrize("suite,error", [("aa", FileNotFoundError),
                                          ("pgd", FileNotFoundError)])
 def test_eval_refuses(tmp_path, suite, error):
-    """AutoAttack is not ported (M18); a --resume with no checkpoint under
-    it raises, as the JAX eval.py does."""
+    """A --resume with no checkpoint under it raises before any battery
+    runs, the PGD battery's and the AutoAttack suite's alike, as the JAX
+    eval.py does."""
     from edge_enhancement_tpu_torch import eval as port_eval
     from edge_enhancement_tpu_torch.utils.config import load_config
     over = dict(SMALL, resume=str(tmp_path / "absent"), suite=suite)
-    with pytest.raises(error, match="M18" if "aa" in suite else "absent"):
+    with pytest.raises(error, match="absent"):
         port_eval.run(load_config(CONFIG, over))
 
 

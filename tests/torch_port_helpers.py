@@ -20,9 +20,10 @@ from edge_enhancement_tpu.train.modelops import ModelOps as JaxModelOps
 from edge_enhancement_tpu.train.sgd import init_momentum
 from edge_enhancement_tpu_torch.attacks import pgd as tpgd
 from edge_enhancement_tpu_torch.convert import state_dict_from_jax
+from edge_enhancement_tpu_torch.models import resnet as tresnet
 from edge_enhancement_tpu_torch.models.registry import build_model
 from edge_enhancement_tpu_torch.objectives import methods as tmethods
-from edge_enhancement_tpu_torch.ops.square import square_side
+from edge_enhancement_tpu_torch.ops.square import add_square_draws, square_side
 from edge_enhancement_tpu_torch.train import trainer as ttrainer
 from edge_enhancement_tpu_torch.train.modelops import ModelOps
 
@@ -74,6 +75,33 @@ class TorchSquareReplay:
         d = self.draws[self.calls]
         self.calls += 1
         return tuple(torch.from_numpy(a.copy()) for a in d)
+
+
+class RecordingSource:
+    """A square source that keeps every fresh draw it makes (the draw
+    sharing tests of tests/test_torch_autoattack.py and
+    test_torch_restart_pgd.py)."""
+
+    def __init__(self):
+        self.gen = torch.Generator().manual_seed(0)
+        self.draws = []
+
+    def __call__(self, shape):
+        self.draws.append(add_square_draws(shape, self.gen))
+        return self.draws[-1]
+
+
+def record_forwards(monkeypatch, source):
+    """The index into source.draws of the draw each front-end call used."""
+    used = []
+    real = tresnet.ee_frontend
+
+    def spy(x, cfg, square_source):
+        d = square_source(x.shape)
+        used.append(next(i for i, r in enumerate(source.draws) if r is d))
+        return real(x, cfg, lambda shape: d)
+    monkeypatch.setattr(tresnet, "ee_frontend", spy)
+    return used
 
 
 def random_variables(shapes, rng, spread: float = 0.0):
