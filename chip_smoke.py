@@ -23,6 +23,8 @@
    ImageNet's 224 px (square on) with 8 images (56 blocks, under half the
    SMs) and with free-AT's batch of 256, K3a/K3b also with ImageNet's batch
    of 128 at 224 px, each beside its bound and its plain version's time;
+   K3a/K3b in bfloat16 at fast-AT phase 1's 256 x 3 x 128 x 128 (all four
+   outputs exactly the plain version's, dx within the bf16 limits below);
    K1/K2 in bfloat16 at fast-AT's three phases, 256 x 3 x 128 x 128,
    128 x 3 x 224 x 224 and 96 x 3 x 288 x 288, at the evaluate config's
    128 x 3 x 288 x 288, at 8 x 3 x 224 x 224 and at
@@ -95,7 +97,20 @@
       below; j3.
       restart PGD (attacks/restart_pgd.py), l_inf and l_2, 2 restarts x 10
       iterations on j1's batch: K1 22 and K2 20 launches a norm, its time.
-5. The reference, for slices a to d: the trained weights on a small
+   k. the rest of the front-end through the driver at full width, 2 train
+      steps and 1 validation batch each: k1. tiny_imagenet/ee_at_training.yml
+      (resnet18_EE, the full CannyFilter, bs100, 64 px, PGD-10, f32), with the
+      share of edge-map pixels that differ between card and CPU on a batch
+      of 100 held to EDGE_FLIP_SHARE; k2. tiny_imagenet/ee_at_u2netp.yml (the
+      U2-NetP edge map), ms/step and peak memory; k3.
+      imagenet/targeted_ee_training.yml (tarEE, resnet18_EE at 224 px,
+      bs256, 1000 classes, the full Canny as the registry's default); k4.
+      the flagship with n_queries: 4 (its edge map on K3a/K3b in float32);
+      k5. fast_2px_phase1_ee.yml with gf: true (the bf16 policy, its edge
+      map on K3a/K3b in bfloat16). Each: a finite loss, exact launch counts
+      (none for k1-k3, whose front-ends are plain PyTorch), ms/step and peak
+      memory, and the reference below.
+5. The reference, for slices a to d and k: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
    the JAX package).
@@ -238,6 +253,32 @@ BF16_SHAPES = ((256, 3, 128, 128), (128, 3, 224, 224), (96, 3, 288, 288),
                (128, 3, 288, 288), (8, 3, 224, 224), (100, 3, 64, 64))
 # K3a/K3b's further check: ImageNet's batch at 224 px, 180 MB a launch
 CANNY_LARGE_SHAPES = ((128, 3, 224, 224),)
+# K3a/K3b bfloat16: fast-AT phase 1's shape (the k5 path's)
+CANNY_BF16_SHAPE = (256, 3, 128, 128)
+# k: (tag, config, keys over the config's, driver arguments, the front-end
+# kernels it runs and their launches a train step, or None for a plain
+# PyTorch front-end). Validation batches run PGD-K: K + 2 forwards and K
+# input gradients.
+VARIANTS = (
+    ("k1_canny", os.path.join(CONFIGS, "tiny_imagenet", "ee_at_training.yml"), {},
+     OBJECTIVE_ARGS, None),
+    ("k2_u2netp", os.path.join(CONFIGS, "tiny_imagenet", "ee_at_u2netp.yml"), {},
+     OBJECTIVE_ARGS, None),
+    ("k3_imagenet_canny", os.path.join(CONFIGS, "imagenet", "targeted_ee_training.yml"),
+     {}, IMAGENET_ARGS, None),
+    ("k4_queries", CONFIG, dict(n_queries=4), OBJECTIVE_ARGS,
+     ("canny_fused_fwd", "canny_fused_bwd", (11, 10))),
+    ("k5_fast_gf", os.path.join(CONFIGS, "fast_imagenet", "fast_2px_phase1_ee.yml"),
+     dict(gf=True), IMAGENET_ARGS, ("canny_fused_fwd_bf16", "canny_fused_bwd_bf16", (2, 1))))
+# k1: the full Canny's edge map, card against CPU, on a batch of 100 at
+# 64 px. Its NMS bins atan(gy / gx), and CUDA's atan is not glibc's: a pixel
+# whose angle sits on a bin's edge can land in the other bin (and the
+# magnitudes of a few pixels in the other rounding order of the Sobel
+# sums are equal on one side), so a few pixels may flip
+EDGE_FLIP_SHARE = 1e-3
+# the reference logits where the card's and the CPU's edge maps differ on
+# the reference batch: one flipped edge pixel moves its image's logits
+REF_TOL_FLIP = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -578,6 +619,78 @@ def canny_kernel_phase(torch):
          "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:149", **k3a},
         {"name": "canny_fused_bwd", "route": "cuda", "source": src,
          "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:166", **k3b},
+    ]
+
+
+def canny_bf16_kernel_phase(torch):
+    """K3a and K3b in bfloat16 at CANNY_BF16_SHAPE against their plain
+    bfloat16 versions: out, mag, gx and gy exactly; dx within the bf16
+    limits of K2 (BF16_DX_SHARE, BF16_DX_REL); the times and the bounds."""
+    from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    x = _patched_input(torch, dev, CANNY_BF16_SHAPE).to(bf16)
+    high, sigma, alpha = 76.0 / 255.0, 1.0, 0.0
+    b, c, h, w = x.shape
+    u = torch.randn((b, 1, h, w), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(bf16)
+    outs_k = F.canny_fused_fwd(x, high, sigma, alpha)
+    torch.cuda.synchronize()
+    outs_p = F.canny_fused_fwd_plain(x, high, sigma, alpha)
+    fwd_err = max((a.float() - p.float()).abs().max().item() for a, p in zip(outs_k, outs_p))
+    _, mag, gx, gy = outs_k
+    dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha)
+    torch.cuda.synchronize()
+    dx_p = F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma, alpha)
+    ulps = F.bf16_ulps(dx_k, dx_p)
+    share, exact = (ulps > 1).float().mean().item(), (ulps == 0).float().mean().item()
+    bwd_err = (dx_k.float() - dx_p.float()).abs().max().item()
+    dx_max = dx_p.float().abs().max().item()
+    edge_share = outs_k[0].float().mean().item()
+    tag = "x".join(map(str, CANNY_BF16_SHAPE))
+    print(f"[kernels] bf16 at ({tag}): K3a vs plain (out, mag, gx, gy): max |err| "
+          f"{fwd_err:.3e} (limit 0), edge share {edge_share:.4f}; K3b vs plain: "
+          f"{100 * exact:.4f}% of dx bit for bit, {100 * share:.4f}% more than one ulp "
+          f"off (limit {100 * BF16_DX_SHARE}%), max |err| {bwd_err:.3e} (limit "
+          f"{BF16_DX_REL * dx_max:.3e}, max |dx| {dx_max:.3f})", flush=True)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*outs_k, dx_k))
+    if (not finite or fwd_err > 0 or share > BF16_DX_SHARE or bwd_err > BF16_DX_REL * dx_max
+            or not 0.0 < edge_share < 1.0 or dx_max == 0.0
+            or {t.dtype for t in (*outs_k, dx_k)} != {bf16}):
+        fail(f"a bfloat16 Canny kernel disagrees with its plain version at {tag}")
+    t3a = _timings(torch, lambda: F.canny_fused_fwd(x, high, sigma, alpha),
+                   lambda: F.canny_fused_fwd_plain(x, high, sigma, alpha))
+    t3b = _timings(torch, lambda: F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha),
+                   lambda: F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma, alpha))
+    # the float32 pair on the same image, beside: twice the bytes
+    from edge_enhancement_tpu_torch.utils.cuda_timing import device_ms
+    x32, u32 = x.float(), u.float()
+    _, mag32, gx32, gy32 = F.canny_fused_fwd(x32, high, sigma, alpha)
+    f32_ms = (device_ms(lambda: F.canny_fused_fwd(x32, high, sigma, alpha)),
+              device_ms(lambda: F.canny_fused_bwd(u32, mag32, gx32, gy32, c, high, sigma,
+                                                  alpha)))
+    # the float32 forms' operation counts (the arithmetic runs on the FP32
+    # pipes, each result rounded to bfloat16); bytes: bfloat16 in and out
+    px = b * h * w
+    b3a = bound(_nbytes(x, *outs_k), px * (18 * c + 29), PEAK_F32)
+    b3b = bound(_nbytes(u, mag, gx, gy, dx_k), px * 54, PEAK_F32)
+    print(f"[kernels] bf16 at ({tag}), ms per launch on the device (eager call in "
+          f"brackets): K3a {t3a['ms']:.4f} ({t3a['call_ms']:.4f}) vs plain "
+          f"{t3a['plain_ms']:.4f}, bound {b3a['bound_us']:.2f} us ({b3a['bound_by']}), "
+          f"{100 * b3a['bound_ms'] / t3a['ms']:.1f}% of it; K3b {t3b['ms']:.4f} "
+          f"({t3b['call_ms']:.4f}) vs plain {t3b['plain_ms']:.4f}, bound "
+          f"{b3b['bound_us']:.2f} us ({b3b['bound_by']}), "
+          f"{100 * b3b['bound_ms'] / t3b['ms']:.1f}% of it; the float32 K3a / K3b on "
+          f"the same image {f32_ms[0]:.4f} / {f32_ms[1]:.4f}", flush=True)
+    src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
+    return [
+        {"name": "canny_fused_fwd_bf16", "route": "cuda", "source": src,
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:149",
+         "max_abs_err": fwd_err, "f32_ms_same_shape": f32_ms[0], **t3a, **b3a},
+        {"name": "canny_fused_bwd_bf16", "route": "cuda", "source": src,
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:166",
+         "max_abs_err": bwd_err, "share_over_1_ulp": share, "share_exact": exact,
+         "f32_ms_same_shape": f32_ms[1], **t3b, **b3b},
     ]
 
 
@@ -1141,6 +1254,76 @@ def restart_pgd_phase(torch, kernels, device_line, checkpoint: str) -> None:
     _record_launches(kernels, "restart_pgd", total)
 
 
+def edge_flip_phase(torch, cfg, n: int = 100) -> float:
+    """k1's check: the config's Canny edge map (the front-end's call) of n
+    images at the config's size on the card and on the CPU; returns and
+    prints the share of pixels that differ."""
+    import numpy as np
+
+    from edge_enhancement_tpu_torch.models.ee_frontend import CANNY_VARIANTS
+    from edge_enhancement_tpu_torch.models.registry import _ee_from_args
+
+    ee = _ee_from_args(cfg, square=False)
+    size = int(cfg["cize"])
+    x = torch.from_numpy(np.random.default_rng(3).random((n, 3, size, size)).astype(np.float32))
+    edges = {dev: CANNY_VARIANTS[ee.type_canny](
+        x.to(dev), ee.low_scaled, ee.high_scaled, hysteresis=True, sigma=ee.sigma,
+        alpha=ee.alpha).cpu() for dev in ("cpu", "cuda")}
+    share = (edges["cuda"] != edges["cpu"]).float().mean().item()
+    print(f"[slice k1] {ee.type_canny} edge map of {n}x3x{size}x{size}, card vs CPU: "
+          f"{100 * share:.5f}% of pixels differ "
+          f"({int((edges['cuda'] != edges['cpu']).sum())} of {edges['cpu'].numel()}; limit "
+          f"{100 * EDGE_FLIP_SHARE}%), edge share {edges['cpu'].mean().item():.4f}",
+          flush=True)
+    if share > EDGE_FLIP_SHARE or not 0 < edges["cpu"].mean().item() < 1:
+        fail(f"the {ee.type_canny} edge map differs between card and CPU")
+    return share
+
+
+def variants_phase(torch, kernels, device_line) -> None:
+    """k. The front-end's other variants through the driver at full width
+    (VARIANTS): launch counts, a finite loss, ms/step and peak memory; the
+    reference of each trained model; k1's edge-map check."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    for tag, path, over, args, pair in VARIANTS:
+        cfg = load_config(path, dict(args, **over, output=_out_dir(tag)))
+        if tag.startswith("k1"):
+            edge_flip_phase(torch, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        summary = run(cfg)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+        k = int(cfg["num_steps_1"])
+        want = {}
+        if pair is not None:
+            fwd, bwd, (f_step, b_step) = pair
+            want = {fwd: steps * f_step + evals * (k + 2), bwd: steps * b_step + evals * k}
+        secs = summary["step_seconds"]
+        ms = 1000.0 * sorted(secs[1:] or secs)[len(secs[1:] or secs) // 2]
+        print(f"[slice {tag}] {cfg['arch']} type_canny {cfg.get('type_canny', 'CannyFilter')} "
+              f"{cfg['method_name']} {cfg['cize']} px bs{cfg['batch_size']} "
+              f"{'bf16' if cfg.get('half') else 'f32'} gf={bool(cfg.get('gf'))} "
+              f"n_queries={cfg.get('n_queries', 1)}, PGD-{k}: {steps} train steps, {evals} "
+              f"eval batch; loss {summary['loss']:.4f}; train step ms "
+              f"{[round(1000 * s_, 1) for s_ in secs]}, {ms:.1f} ms/step after the first "
+              f"= {int(cfg['batch_size']) / ms * 1000:.1f} img/s; peak device memory "
+              f"{peak_gb:.2f} GB; on {device_line}", flush=True)
+        _check_launches(tag, launches, want)
+        if steps != 2 or evals != 1:
+            fail(f"{tag}: expected 2 train steps and 1 eval batch, got {steps}, {evals}")
+        if not math.isfinite(summary["loss"]):
+            fail(f"{tag}: loss {summary['loss']} is not finite")
+        _record_launches(kernels, tag, launches)
+        reference_phase(torch, cfg, summary["checkpoint"])
+        shutil.rmtree(cfg["output"])
+
+
 def step_launches(kind: str, k: int) -> tuple:
     """K1's and K2's launches in one train step of an objective kind with a
     K-step attack: a forward each attack step, the clean forward of ALP and
@@ -1223,11 +1406,25 @@ def reference_phase(torch, cfg, checkpoint):
     tol = REF_TOL_BF16 if cfg.get("half") else REF_TOL
     x = torch.from_numpy(
         np.random.default_rng(1).random((n, size, size, 3)).astype(np.float32))
-    draws = add_square_draws(x.shape, torch.Generator().manual_seed(1))
+    draws = add_square_draws(x.shape, torch.Generator().manual_seed(1),
+                             n_queries=int(cfg.get("n_queries", 1)))
+    if "_EE" in cfg["arch"] and cfg.get("type_canny", "CannyFilter") in (
+            "CannyFilter", "CannyFilter_BPDA"):
+        from edge_enhancement_tpu_torch.models.ee_frontend import CANNY_VARIANTS
+        from edge_enhancement_tpu_torch.models.registry import _ee_from_args
+        ee = _ee_from_args(cfg, square=False)
+        xc = x.permute(0, 3, 1, 2)
+        edges = [CANNY_VARIANTS[ee.type_canny](xc.to(d), ee.low_scaled, ee.high_scaled,
+                                               hysteresis=True, sigma=ee.sigma,
+                                               alpha=ee.alpha).cpu() for d in ("cpu", "cuda")]
+        flips = int((edges[0] != edges[1]).sum())
+        print(f"[reference] {ee.type_canny} edge maps of the reference batch, card vs "
+              f"CPU: {flips} pixels differ", flush=True)
+        tol = REF_TOL if flips == 0 else REF_TOL_FLIP
     logits = {}
     for dev in ("cpu", "cuda"):
         model = build_model(cfg["arch"], cfg, num_classes,
-                            square_source=lambda shape, d=dev: tuple(
+                            square_source=lambda shape, d=dev, **_: tuple(
                                 t.to(d) for t in draws))
         model.load_state_dict(state)
         model.to(dev).eval()
@@ -1236,7 +1433,8 @@ def reference_phase(torch, cfg, checkpoint):
     scale = max(1.0, logits["cpu"].abs().max().item())
     err = (logits["cuda"] - logits["cpu"]).abs().max().item() / scale
     print(f"[reference] {cfg['arch']} {cfg['method_name']} gf={bool(cfg.get('gf'))} "
-          f"half={bool(cfg.get('half'))}: logits {tuple(logits['cuda'].shape)} on "
+          f"half={bool(cfg.get('half'))} type_canny {cfg.get('type_canny', 'CannyFilter')} "
+          f"n_queries {cfg.get('n_queries', 1)}: logits {tuple(logits['cuda'].shape)} on "
           f"{n}x{size}x{size}x3, card vs CPU: max |err| / max(1, max |logit|) "
           f"{err:.3e} (limit {tol}), max |logit| {scale:.3f}", flush=True)
     if (logits["cuda"].shape != (n, num_classes)
@@ -1253,6 +1451,7 @@ def main():
     kernels = kernel_phase(torch)
     kernels += bf16_kernel_phase(torch)
     kernels += canny_kernel_phase(torch)
+    kernels += canny_bf16_kernel_phase(torch)
     kernels += conv_kernel_phase(torch)
     checkpoints = {}
     for gf in (False, True):
@@ -1270,6 +1469,7 @@ def main():
     aa_phase(torch, kernels, smi, os.path.dirname(checkpoints[False]))
     aa_card_vs_cpu_phase(torch, checkpoints[False])
     restart_pgd_phase(torch, kernels, smi, checkpoints[False])
+    variants_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):

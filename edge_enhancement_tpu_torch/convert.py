@@ -1,11 +1,15 @@
-"""JAX ResNet parameters -> this package's state_dict.
+"""JAX ResNet and U2-Net parameters -> this package's state_dict.
 
 `state_dict_from_jax(params, batch_stats)` takes the flax trees of
 edge_enhancement_tpu's ResNet (18/34 with BasicBlocks, 50/101/152 with
-Bottlenecks) as nested dicts of numpy arrays and returns
-a state_dict with torchvision names: conv kernels HWIO -> OIHW, Dense
-(in, out) -> (out, in), BatchNorm scale/bias/mean/var -> weight/bias/
-running_mean/running_var. Every array is copied.
+Bottlenecks; with type_canny u2netp, its U2-NetP `U2Net_0`) as nested dicts
+of numpy arrays and returns a state_dict with torchvision names (the
+U2-NetP's under `u2net.`, the reference's U2-Net names):
+conv kernels HWIO -> OIHW, Dense (in, out) -> (out, in), BatchNorm
+scale/bias/mean/var -> weight/bias/running_mean/running_var. Every array is
+copied. `u2net_state_dict_from_jax` does the same for a bare U2Net tree.
+The name maps (torch module name -> flax path) also serve the JAX
+package's converter (tools/convert_torch_checkpoint.py), which takes a map.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from .models.resnet import _LAYOUTS, BasicBlock
+from .models.u2net import U2NET_HEADS, U2NET_NAMES
 
 
 def resnet_name_map(depth: int = 18) -> dict:
@@ -37,6 +42,21 @@ def resnet_name_map(depth: int = 18) -> dict:
     return m
 
 
+def u2net_name_map(prefix: str = "u2net.", scope: tuple = ("U2Net_0",)) -> dict:
+    """torch module name -> flax path of a U2-Net's convolutions and
+    BatchNorms: `prefix` before the torch names, `scope` before the flax
+    path (a bare U2Net: "" and (); inside a ResNet: flax's auto-name
+    U2Net_0)."""
+    m = {}
+    for stage, (fscope, inner) in U2NET_NAMES.items():
+        for tname, idx in inner.items():
+            base = scope + (fscope, f"REBNConv_{idx}")
+            m[f"{prefix}{stage}.{tname}.conv_s1"] = base + ("Conv_0",)
+            m[f"{prefix}{stage}.{tname}.bn_s1"] = base + ("BatchNorm_0",)
+    m.update({prefix + t: scope + (f,) for t, f in U2NET_HEADS.items()})
+    return m
+
+
 def _get(tree, path):
     for k in path:
         if not isinstance(tree, dict) or k not in tree:
@@ -45,12 +65,12 @@ def _get(tree, path):
     return tree
 
 
-def state_dict_from_jax(params, batch_stats, depth: int = 18) -> dict:
+def _from_jax(params, batch_stats, name_map: dict) -> dict:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
     sd = {}
-    for tname, path in resnet_name_map(depth).items():
+    for tname, path in name_map.items():
         mod = _get(params, path)
         if mod is None:
             continue                      # e.g. no projection in this block
@@ -67,3 +87,15 @@ def state_dict_from_jax(params, batch_stats, depth: int = 18) -> dict:
             sd[tname + ".running_mean"] = t(stats["mean"])
             sd[tname + ".running_var"] = t(stats["var"])
     return sd
+
+
+def state_dict_from_jax(params, batch_stats, depth: int = 18) -> dict:
+    name_map = resnet_name_map(depth)
+    if "U2Net_0" in params:
+        name_map.update(u2net_name_map())
+    return _from_jax(params, batch_stats, name_map)
+
+
+def u2net_state_dict_from_jax(params, batch_stats) -> dict:
+    """A bare U2Net's flax trees -> the port's U2Net state_dict."""
+    return _from_jax(params, batch_stats, u2net_name_map("", ()))

@@ -54,7 +54,13 @@
 // alone with the residuals mag, gx, gy, and its adjoint from them. A block
 // owns a kCannyRows x kCannyCols tile of one image. Bytes bound them (3.42 us
 // each at 100 x 3 x 64 x 64): the stencils are a few dozen FP32 operations a
-// pixel.
+// pixel. They take float32 or bfloat16 (canny_*_kernel<F32>,
+// <BF16Narrow>): JAX's Canny-only kernel computes in the image's dtype, so
+// its bfloat16 form rounds every step to bfloat16 but the channel sum, the
+// division by C and the magnitude included (K1's keep those in float32),
+// and its adjoint tap by tap: the bfloat16 K3b runs that adjoint as JAX
+// writes it (stencil3_adjoint_taps), each product and sum rounded, and
+// gives its bits; the float32 K3b sums the taps in another order.
 //
 // All four run one copy of the Canny code, on tiles that hold a plane and
 // its halo in shared memory: staged by cp.async, 16 bytes at a time where the
@@ -136,8 +142,13 @@ struct Params {
 // stores through float32, and r(v), the rounding of a float32 result to what
 // a bfloat16 operation gives (products and sums of two bfloat16 values are
 // exact in float32, so rounding the float32 result is the bfloat16 result).
+// kNarrow: the Canny branch's division by C, magnitude and adjoint round to
+// the type as well (K3a/K3b: JAX's Canny-only kernel computes every step in
+// the image's dtype but the channel sum); otherwise they are float32 (K1/K2:
+// the JAX fused kernel computes them in float32).
 struct F32 {
   using T = float;
+  static constexpr bool kNarrow = false;
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
   static __device__ __forceinline__ float r(float v) { return v; }
@@ -145,12 +156,24 @@ struct F32 {
 
 struct BF16 {
   using T = __nv_bfloat16;
+  static constexpr bool kNarrow = false;
   static __device__ __forceinline__ float load(const T* p) { return __bfloat162float(*p); }
   static __device__ __forceinline__ void store(T* p, float v) { *p = __float2bfloat16_rn(v); }
   static __device__ __forceinline__ float r(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
+
+struct BF16Narrow : BF16 {
+  static constexpr bool kNarrow = true;
+};
+
+// v rounded by P where P's Canny branch is narrow, else v.
+template <class P>
+__device__ __forceinline__ float narrow(float v) {
+  if constexpr (P::kNarrow) return P::r(v);
+  return v;
+}
 
 // The float32 values of the low and high bfloat16 of a 32-bit word.
 __device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
@@ -529,6 +552,21 @@ __device__ __forceinline__ void store_quad(float* p, float4 v, bool vec, int n) 
   for (int j = 0; j < n && j < 4; ++j) p[j] = a[j];
 }
 
+// v to p[0 .. 3] as bfloat16: 8 bytes at once when `vec`, else the first n
+// one by one.
+__device__ __forceinline__ void store_quad(__nv_bfloat16* p, float4 v, bool vec, int n) {
+  const float a[4] = {v.x, v.y, v.z, v.w};
+  if (vec) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&lo);
+    q.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+    return;
+  }
+  for (int j = 0; j < n && j < 4; ++j) p[j] = __float2bfloat16_rn(a[j]);
+}
+
 // Stages n planes (plane(i) points at plane i's pixel (0, 0), rows W floats
 // apart) into n consecutive tiles T at dst. Unit e is 4 columns of one row,
 // floats [4 e, 4 e + 4) of every tile: one 16-byte cp.async a plane where
@@ -658,19 +696,25 @@ __device__ __forceinline__ void blur_stage(const float* sX, float* sS, const flo
 // by a(i, j) as in tap_sum. A zero operand would send the IEEE division and
 // square root down their slow paths even where the result is not taken (flat
 // regions make many): they get 1 there, and the zero is selected, bit for bit
-// the same. The Sobel sums round by P; the division and the magnitude are
-// float32.
+// the same. The Sobel sums round by P; the division, each product and sum of
+// the magnitude and its square root are float32, or round by P where P is
+// narrow (a bfloat16 operation is its float32 result rounded: the IEEE
+// quotient and square root of bfloat16 operands round once more to
+// bfloat16, as XLA's and PyTorch's bfloat16 forms of them do).
 template <class P, class A>
 __device__ __forceinline__ Grad sobel_mag_tile(A a, int C) {
   float kx[9], ky[9];
   sobel_taps(kx, ky);
   const float cf = (float)C;
-  auto over_c = [&](float v) { return v == 0.f ? v : __fdiv_rn(v == 0.f ? 1.f : v, cf); };
+  auto over_c = [&](float v) {
+    return v == 0.f ? v : narrow<P>(__fdiv_rn(v == 0.f ? 1.f : v, cf));
+  };
   Grad g;
   g.gx = over_c(tap_sum<true, P>(a, kx));
   g.gy = over_c(tap_sum<true, P>(a, ky));
-  const float v = __fadd_rn(__fmul_rn(g.gx, g.gx), __fmul_rn(g.gy, g.gy));
-  g.mag = (v == 0.f) ? 0.f : __fsqrt_rn(v == 0.f ? 1.f : v);
+  const float v = narrow<P>(
+      __fadd_rn(narrow<P>(__fmul_rn(g.gx, g.gx)), narrow<P>(__fmul_rn(g.gy, g.gy))));
+  g.mag = (v == 0.f) ? 0.f : narrow<P>(__fsqrt_rn(v == 0.f ? 1.f : v));
   return g;
 }
 
@@ -726,14 +770,19 @@ __device__ __forceinline__ void canny_tile(const typename P::T* __restrict__ xb,
 
 // The gate of the JAX _canny_bwd_kernel at one pixel, K2's and K3b's: the
 // edge map's cotangent u through the To_compare window (high, 1.001], the
-// alpha gate and d|g|/dg with 1/|g| := 0 at |g| = 0; returns (u_gx, u_gy).
+// alpha gate and d|g|/dg with 1/|g| := 0 at |g| = 0; returns (u_gx, u_gy),
+// each product rounded by P where P is narrow. (In bfloat16 the window's
+// top is 1: no bfloat16 value lies in (1, 1.001].)
+template <class P = F32>
 __device__ __forceinline__ float2 gate(float u, float mag, float gx, float gy,
                                        const Params& p) {
   const float mag_m = (mag < p.alpha) ? 0.f : mag;
   const bool keep = mag_m > p.high && mag_m <= 1.001f && mag >= p.alpha;
   const float u_mag = keep ? u : 0.f;
-  const float inv = (mag == 0.f) ? 0.f : __frcp_rn(mag == 0.f ? 1.f : mag);  // as in sobel_mag_tile
-  return make_float2(u_mag * gx * inv, u_mag * gy * inv);
+  // as in sobel_mag_tile
+  const float inv = (mag == 0.f) ? 0.f : narrow<P>(__frcp_rn(mag == 0.f ? 1.f : mag));
+  return make_float2(narrow<P>(__fmul_rn(narrow<P>(__fmul_rn(u_mag, gx)), inv)),
+                     narrow<P>(__fmul_rn(narrow<P>(__fmul_rn(u_mag, gy)), inv)));
 }
 
 // Adjoint of the edge-replicated 3x3 stencil k at pixel (h, w) of an (H, W)
@@ -768,13 +817,44 @@ __device__ __forceinline__ float stencil3_adjoint_tile(A a, const float (&k)[9],
   return z;
 }
 
+// The same adjoint as JAX computes it tap by tap (_apply_taps_adjoint), for
+// the narrow policy P: for each tap t of k (row-major, zero taps skipped
+// where SKIP_ZEROS), the cotangent moved back by the tap's offset (dh, dw),
+// rows first, the border row (column) adding the read that the clamp folded
+// onto it; k[t] times that, rounded; the terms summed in tap order, each sum
+// rounded. A bfloat16 adjoint so computed is JAX's bit for bit.
+template <bool SKIP_ZEROS, class P, class A>
+__device__ __forceinline__ float stencil3_adjoint_taps(A a, const float (&k)[9], int H, int W,
+                                                     int h, int w) {
+  const bool top = h == 0, bottom = h == H - 1, left = w == 0, right = w == W - 1;
+  float acc = 0.f;
+  bool first = true;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    if (SKIP_ZEROS && k[t] == 0.f) continue;
+    const int dh = t / 3 - 1, dw = t % 3 - 1;
+    // the rows' adjoint at column offset j
+    auto rows = [&](int j) {
+      const float v = a(-dh, j);
+      return (dh == 1 && bottom) || (dh == -1 && top) ? P::r(__fadd_rn(v, a(0, j))) : v;
+    };
+    float v = rows(-dw);
+    if ((dw == 1 && right) || (dw == -1 && left)) v = P::r(__fadd_rn(v, rows(0)));
+    const float term = P::r(__fmul_rn(k[t], v));
+    acc = first ? term : P::r(__fadd_rn(acc, term));
+    first = false;
+  }
+  return acc;
+}
+
 // K2's and K3b's last stages: from u_gx, u_gy in tiles G (2-pixel halo,
 // zeros off the plane), u_summed = (Sobel-x^T u_gx + Sobel-y^T u_gy) / C on
 // the tile plus 1 in tile sU (zeros off the plane); then epilogue(r, s, v)
 // for every quad of the tile, in the image or not, v's components being the
-// blur's adjoint of u_summed at pixels (h0 + r, w0 + s .. s + 3). Ends
-// without a barrier.
-template <int ROWS, int COLS, int THREADS, class Epilogue>
+// blur's adjoint of u_summed at pixels (h0 + r, w0 + s .. s + 3). A narrow P
+// rounds as JAX does (stencil3_adjoint_taps, the sum and the division by C
+// each rounded); otherwise float32. Ends without a barrier.
+template <int ROWS, int COLS, int THREADS, class P = F32, class Epilogue>
 __device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float* sG1,
                                                    float* sU, const float (&g)[9], int C,
                                                    int H, int W, int h0, int w0,
@@ -790,11 +870,16 @@ __device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float
     if (h >= 0 && h < H && w >= 0 && w < W) {
       const float* a0 = sG0 + G::at(r, s);
       const float* a1 = sG1 + G::at(r, s);
-      v = (stencil3_adjoint_tile([&](int di, int dj) { return a0[di * G::kLd + dj]; }, sx,
-                               H, W, h, w) +
-           stencil3_adjoint_tile([&](int di, int dj) { return a1[di * G::kLd + dj]; }, sy,
-                               H, W, h, w)) /
-          (float)C;
+      auto r0 = [&](int di, int dj) { return a0[di * G::kLd + dj]; };
+      auto r1 = [&](int di, int dj) { return a1[di * G::kLd + dj]; };
+      if constexpr (P::kNarrow)
+        v = P::r(__fdiv_rn(P::r(__fadd_rn(stencil3_adjoint_taps<true, P>(r0, sx, H, W, h, w),
+                                          stencil3_adjoint_taps<true, P>(r1, sy, H, W, h, w))),
+                           (float)C));
+      else
+        v = (stencil3_adjoint_tile(r0, sx, H, W, h, w) +
+             stencil3_adjoint_tile(r1, sy, H, W, h, w)) /
+            (float)C;
     }
     sU[U::at(r, s)] = v;
   }
@@ -802,9 +887,13 @@ __device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float
   for_each_quad<U, THREADS>(sU, [&](int r, int s, const float (&win)[3][6]) {
     float v[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = stencil3_adjoint_tile([&](int di, int dj) { return win[1 + di][1 + j + dj]; }, g,
-                                 H, W, h0 + r, w0 + s + j);
+    for (int j = 0; j < 4; ++j) {
+      auto a = [&](int di, int dj) { return win[1 + di][1 + j + dj]; };
+      if constexpr (P::kNarrow)
+        v[j] = stencil3_adjoint_taps<false, P>(a, g, H, W, h0 + r, w0 + s + j);
+      else
+        v[j] = stencil3_adjoint_tile(a, g, H, W, h0 + r, w0 + s + j);
+    }
     epilogue(r, s, make_float4(v[0], v[1], v[2], v[3]));
   });
 }
@@ -1656,21 +1745,23 @@ constexpr int kCannyCols = 32;
 constexpr int kCannyThreads = 128;
 constexpr int kCannyMinBlocks = 6;
 
-// K3a: writes out (the edge map), mag, gx, gy, each (B, 1, H, W).
+// K3a: writes out (the edge map), mag, gx, gy, each (B, 1, H, W). P: F32,
+// or BF16Narrow for bfloat16 tensors.
+template <class P>
 __global__ void __launch_bounds__(kCannyThreads, kCannyMinBlocks)
-canny_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gtaps,
-                 float* __restrict__ out, float* __restrict__ mag,
-                 float* __restrict__ gx, float* __restrict__ gy, Params p) {
+canny_fwd_kernel(const typename P::T* __restrict__ x, const float* __restrict__ gtaps,
+                 typename P::T* __restrict__ out, typename P::T* __restrict__ mag,
+                 typename P::T* __restrict__ gx, typename P::T* __restrict__ gy, Params p) {
   extern __shared__ float4 smem4[];
   const int H = p.H, W = p.W, b = blockIdx.z;
   const int h0 = blockIdx.y * kCannyRows, w0 = blockIdx.x * kCannyCols;
   float g[9];
   load_taps(gtaps, g);
-  // the outputs are the wrapper's own tensors: their rows start on 16 bytes
-  // whenever x's do
-  const bool vec = W % 4 == 0 && aligned16(x);
+  // the outputs are the wrapper's own tensors: their rows start on 16 (8)
+  // bytes whenever x's do
+  const bool vec = W % 4 == 0 && (sizeof(typename P::T) == 4 ? aligned16(x) : aligned8(x));
   const size_t plane = (size_t)b * H * W;
-  canny_tile<kCannyRows, kCannyCols, kCannyThreads, F32>(
+  canny_tile<kCannyRows, kCannyCols, kCannyThreads, P>(
       x + plane * p.C, g, p.C, H, W, h0, w0, vec, reinterpret_cast<float*>(smem4),
       [&](int r, int s, const Grad (&q)[4]) {
         const int h = h0 + r, w = w0 + s;
@@ -1686,11 +1777,12 @@ canny_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gtaps,
       });
 }
 
-// K3b: writes dx (B, C, H, W), the same plane in every channel.
+// K3b: writes dx (B, C, H, W), the same plane in every channel. P as K3a's.
+template <class P>
 __global__ void __launch_bounds__(kCannyThreads, kCannyMinBlocks)
-canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
-                 const float* __restrict__ gx, const float* __restrict__ gy,
-                 const float* __restrict__ gtaps, float* __restrict__ dx, Params p) {
+canny_bwd_kernel(const typename P::T* __restrict__ u, const typename P::T* __restrict__ mag,
+                 const typename P::T* __restrict__ gx, const typename P::T* __restrict__ gy,
+                 const float* __restrict__ gtaps, typename P::T* __restrict__ dx, Params p) {
   using G = Tile<kCannyRows, kCannyCols, 2>;
   extern __shared__ float4 smem4[];
   // u, mag, gx, gy; the gate turns u's tile into u_gx and mag's into u_gy
@@ -1700,12 +1792,14 @@ canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
   const int h0 = blockIdx.y * kCannyRows, w0 = blockIdx.x * kCannyCols;
   float g[9];
   load_taps(gtaps, g);
-  // dx is the wrapper's own tensor: its rows start on 16 bytes whenever the
-  // inputs' do
-  const bool vec = W % 4 == 0 && aligned16(u) && aligned16(mag) && aligned16(gx) &&
-                   aligned16(gy);
+  // dx is the wrapper's own tensor: its rows start on 16 (8) bytes whenever
+  // the inputs' do
+  auto aligned = [](const void* q) {
+    return sizeof(typename P::T) == 4 ? aligned16(q) : aligned8(q);
+  };
+  const bool vec = W % 4 == 0 && aligned(u) && aligned(mag) && aligned(gx) && aligned(gy);
   const size_t plane = (size_t)b * H * W;
-  stage_tile<G, kCannyThreads, false, F32>(
+  stage_tile<G, kCannyThreads, false, P>(
       sIn, 4,
       [&](int i) { return (i == 0 ? u : i == 1 ? mag : i == 2 ? gx : gy) + plane; }, H, W,
       h0, w0, vec);
@@ -1716,17 +1810,17 @@ canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
     float4* t = reinterpret_cast<float4*>(sIn) + e;
     constexpr int kTile = G::kFloats / 4;
     const float4 vu = t[0], vm = t[kTile], vx = t[2 * kTile], vy = t[3 * kTile];
-    const float2 a0 = gate(vu.x, vm.x, vx.x, vy.x, p), a1 = gate(vu.y, vm.y, vx.y, vy.y, p);
-    const float2 a2 = gate(vu.z, vm.z, vx.z, vy.z, p), a3 = gate(vu.w, vm.w, vx.w, vy.w, p);
+    const float2 a0 = gate<P>(vu.x, vm.x, vx.x, vy.x, p), a1 = gate<P>(vu.y, vm.y, vx.y, vy.y, p);
+    const float2 a2 = gate<P>(vu.z, vm.z, vx.z, vy.z, p), a3 = gate<P>(vu.w, vm.w, vx.w, vy.w, p);
     t[0] = make_float4(a0.x, a1.x, a2.x, a3.x);
     t[kTile] = make_float4(a0.y, a1.y, a2.y, a3.y);
   }
   __syncthreads();
-  canny_adjoint_tail<kCannyRows, kCannyCols, kCannyThreads>(
+  canny_adjoint_tail<kCannyRows, kCannyCols, kCannyThreads, P>(
       sIn, sIn + G::kFloats, sU, g, C, H, W, h0, w0, [&](int r, int s, float4 v) {
         const int h = h0 + r, w = w0 + s;
         if (h >= H || w >= W) return;
-        float* d = dx + ((size_t)b * C * H + h) * W + w;
+        typename P::T* d = dx + ((size_t)b * C * H + h) * W + w;
         for (int c = 0; c < C; ++c, d += (size_t)H * W) store_quad(d, v, vec, W - w);
       });
 }
@@ -1735,6 +1829,7 @@ constexpr int kMaxDevices = 64;
 size_t g_fwd_smem[kMaxDevices], g_bwd_smem[kMaxDevices];
 size_t g_fwd_bf16_smem[kMaxDevices], g_bwd_bf16_smem[kMaxDevices];
 size_t g_canny_fwd_smem[kMaxDevices], g_canny_bwd_smem[kMaxDevices];
+size_t g_canny_fwd_bf16_smem[kMaxDevices], g_canny_bwd_bf16_smem[kMaxDevices];
 
 // Launches `kernel` on `stream` with `smem_bytes` of dynamic shared memory,
 // opting the kernel into that much once per device and size (in done[]): the
@@ -1833,7 +1928,7 @@ int canny_fused_fwd(const float* x, const float* gtaps, float* out, float* mag,
                     float* gx, float* gy, int B, int C, int H, int W,
                     float alpha, float high, int tiles_w, int tiles_h,
                     size_t smem_bytes, void* stream) {
-  return launch(canny_fwd_kernel, g_canny_fwd_smem, dim3(tiles_w, tiles_h, B),
+  return launch(canny_fwd_kernel<F32>, g_canny_fwd_smem, dim3(tiles_w, tiles_h, B),
                 kCannyThreads, smem_bytes, stream, x, gtaps, out, mag, gx, gy,
                 Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }
@@ -1842,8 +1937,32 @@ int canny_fused_bwd(const float* u, const float* mag, const float* gx,
                     const float* gy, const float* gtaps, float* dx, int B,
                     int C, int H, int W, float alpha, float high, int tiles_w,
                     int tiles_h, size_t smem_bytes, void* stream) {
-  return launch(canny_bwd_kernel, g_canny_bwd_smem, dim3(tiles_w, tiles_h, B),
+  return launch(canny_bwd_kernel<F32>, g_canny_bwd_smem, dim3(tiles_w, tiles_h, B),
                 kCannyThreads, smem_bytes, stream, u, mag, gx, gy, gtaps, dx,
+                Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
+}
+
+// The bfloat16 K3a/K3b: bfloat16 tensors, the taps, alpha and high rounded
+// to bfloat16 (JAX's weak typing).
+int canny_fused_fwd_bf16(const void* x, const float* gtaps, void* out, void* mag,
+                         void* gx, void* gy, int B, int C, int H, int W,
+                         float alpha, float high, int tiles_w, int tiles_h,
+                         size_t smem_bytes, void* stream) {
+  auto o = [](void* t) { return static_cast<bf16*>(t); };
+  return launch(canny_fwd_kernel<BF16Narrow>, g_canny_fwd_bf16_smem,
+                dim3(tiles_w, tiles_h, B), kCannyThreads, smem_bytes, stream,
+                static_cast<const bf16*>(x), gtaps, o(out), o(mag), o(gx), o(gy),
+                Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
+}
+
+int canny_fused_bwd_bf16(const void* u, const void* mag, const void* gx,
+                         const void* gy, const float* gtaps, void* dx, int B,
+                         int C, int H, int W, float alpha, float high, int tiles_w,
+                         int tiles_h, size_t smem_bytes, void* stream) {
+  auto in = [](const void* t) { return static_cast<const bf16*>(t); };
+  return launch(canny_bwd_kernel<BF16Narrow>, g_canny_bwd_bf16_smem,
+                dim3(tiles_w, tiles_h, B), kCannyThreads, smem_bytes, stream, in(u),
+                in(mag), in(gx), in(gy), gtaps, static_cast<bf16*>(dx),
                 Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }
 

@@ -1,6 +1,8 @@
 """Arch string -> model, as edge_enhancement_tpu/models/registry.py, for the
 ported architectures: resnet{18,34,50,101,152} with the suffixes _EE and
-_EE_square, in float32 or under the bf16 policy."""
+_EE_square (every `type_canny`: the three Canny variants and the learned
+`u2netp`), in float32 or under the bf16 policy (the step125 Canny only);
+and the U2-Net edge detectors `u2net` and `u2netp`."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from .ee_frontend import EEConfig
 from .resnet import resnet
+from .u2net import u2net_full, u2net_small
 
 
 def _ee_from_args(a: Mapping[str, Any], square: bool) -> EEConfig:
@@ -38,6 +41,10 @@ def build_model(arch: str, args: Mapping[str, Any], num_classes: int, *,
                 generator: Optional[torch.Generator] = None):
     """Construct (and initialise from `generator`) the model for `arch`."""
     a = dict(args)
+    if arch == "u2net":
+        return u2net_full(generator)
+    if arch == "u2netp":
+        return u2net_small(generator)
     m = re.fullmatch(r"resnet(\d+)(_EE_square|_EE)?", arch)
     if m is None:
         raise NotImplementedError(f"arch {arch!r} is not ported")

@@ -28,41 +28,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pooling import max_pool_3x3_s2
+from .batchnorm import BatchNorm2d
 from .ee_frontend import EEConfig, check_ported, ee_frontend
-
-
-class BatchNorm2d(nn.Module):
-    """BatchNorm with flax's running-statistics rule: running_var moves
-    toward the BIASED batch variance (torch's own BatchNorm uses the
-    unbiased one). Momentum 0.9 in flax's sense (torch 0.1), eps 1e-5.
-
-    A bfloat16 input computes as flax's BatchNorm with dtype=bf16: the
-    statistics are reduced and the output normalised in float32, with the
-    float32 parameters, and the output is rounded to bfloat16 once."""
-
-    def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
-        super().__init__()
-        self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
-
-    def forward(self, x):
-        dtype = x.dtype
-        x = x.to(torch.promote_types(dtype, torch.float32))
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0,
-                                self.eps).to(dtype)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps).to(dtype)
+from .u2net import U2Net
 
 
 class Conv2d(nn.Conv2d):
@@ -142,8 +110,12 @@ class ResNet(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if ee is not None:
-            check_ported(ee)
+            check_ported(ee, dtype)
         self.ee, self.square_source, self.dtype = ee, square_source, dtype
+        # the learned edge map of type_canny u2netp: a U2-NetP on the input,
+        # in the backbone's mode (train mode moves its statistics too)
+        self.u2net = (U2Net(full=False, generator=generator)
+                      if ee is not None and ee.type_canny == "u2netp" else None)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         inplanes = 64
@@ -159,8 +131,10 @@ class ResNet(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """The JAX package's init: conv N(0, 2/fan_out), BN 1/0, Dense
-        lecun-normal (truncated at 2 std) with a zero bias."""
-        for m in self.modules():
+        lecun-normal (truncated at 2 std) with a zero bias. The U2-NetP
+        keeps its own (U2Net.init_weights)."""
+        edge_net = set(self.u2net.modules()) if self.u2net is not None else set()
+        for m in (m for m in self.modules() if m not in edge_net):
             if isinstance(m, nn.Conv2d):
                 fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
@@ -179,8 +153,10 @@ class ResNet(nn.Module):
             x = x.to(self.dtype)
         if self.ee is not None:
             source = (self.square_source if square_draws is None
-                      else lambda shape: square_draws)
-            x = ee_frontend(x, self.ee, source)
+                      else lambda shape, **_: square_draws)
+            edge = (None if self.u2net is None
+                    else self.u2net(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+            x = ee_frontend(x, self.ee, source, edge_map=edge)
         x = x.permute(0, 3, 1, 2)
         x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))

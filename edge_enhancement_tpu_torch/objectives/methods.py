@@ -98,8 +98,6 @@ class Objective:
                  generator: Optional[torch.Generator] = None):
         self.ops, self.cfg, self.generator = ops, cfg, generator
         self.kind = canonical_method(cfg.method_name)
-        if cfg.pre_square and cfg.square_n_queries != 1:
-            raise NotImplementedError("pre_square with n_queries > 1 is not ported")
 
     # ---- the objective's draws ---------------------------------------------
     def target_offsets(self, y: torch.Tensor) -> torch.Tensor:
@@ -120,7 +118,8 @@ class Objective:
 
     def square_draws(self, shape):
         """pre_square's draws in the layout of ops/square.add_square_draws."""
-        return add_square_draws(shape, self.generator)
+        return add_square_draws(shape, self.generator,
+                                n_queries=self.cfg.square_n_queries)
 
     def _pgd(self, init: str, ascend: bool) -> PGDConfig:
         cfg = self.cfg

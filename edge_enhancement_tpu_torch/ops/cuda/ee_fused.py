@@ -16,18 +16,20 @@ and K2 is its exact adjoint from the residuals (x, y = hfs + w * edge).
 K3a/K3b replace ::_canny_fwd_kernel and ::_canny_bwd_kernel, the
 `canny_step125_fused` pair: K3a is the edge map alone, with the residuals
 mag, gx, gy; K3b its adjoint from them. The front-end runs them where K1
-does not apply (the edge map smoothed by a Gaussian, `with_gf`).
+does not apply (the edge map smoothed by a Gaussian, `with_gf`, or more
+than one square query).
 Source and design notes: edge_enhancement_tpu_torch/csrc/ee_fused.cu.
 
 K1/K2 take (B, C, H, W) float32 or bfloat16 (the bf16 policy: the JAX
 kernels compute in x's dtype, rounding where it is bfloat16; the square
 draws come in x's dtype too; the bfloat16 forms run their HFS products on
-the tensor cores, with their own block geometry, mma_geometry); K3a/K3b
-float32, and raise on another dtype
-(JAX's Canny-only pair in bfloat16 is not ported). On a CPU tensor the
-wrappers run the plain versions; on a CUDA tensor they launch the kernel
-or raise, and never convert a tensor to reach another form. The plain
-versions are also the oracle of the tests and of chip_smoke.py.
+the tensor cores, with their own block geometry, mma_geometry). K3a/K3b
+take float32 or bfloat16 too: JAX's Canny-only kernel computes in the
+image's dtype, and its bfloat16 form rounds every step but the channel
+sum, where K1's keeps the division and the magnitude in float32. On a CPU
+tensor the wrappers run the plain versions; on a CUDA tensor they launch
+the kernel or raise, and never convert a tensor to reach another form.
+The plain versions are also the oracle of the tests and of chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ from ..ste import to_compare
 # one where they launch and nowhere else.
 LAUNCHES = {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
             "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
-            "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+            "canny_fused_fwd": 0, "canny_fused_bwd": 0,
+            "canny_fused_fwd_bf16": 0, "canny_fused_bwd_bf16": 0}
 # Largest dynamic shared memory a Hopper block may opt into (232,448 bytes);
 # an SM's 233,472 bytes of shared memory and the 1,024 the card keeps for
 # each resident block.
@@ -363,9 +366,12 @@ def _edge_shift_adjoint(u, dh: int, dw: int):
 
 
 def _apply_taps_adjoint(u, kernel):
+    """The adjoint of stencil2d_nchw(., kernel, "edge"), tap by tap in the
+    taps' row-major order, each tap taken in u's dtype (JAX's weak typing)
+    and each product and sum rounded to it."""
     out = None
     for dh, dw, c in stencil_taps(kernel):
-        term = c * _edge_shift_adjoint(u, dh, dw)
+        term = weak_scalar(c, u.dtype) * _edge_shift_adjoint(u, dh, dw)
         out = term if out is None else out + term
     return out
 
@@ -400,17 +406,24 @@ def ee_fused_bwd_plain(u, x, stripes, sq_delta, y, k: FusedConsts):
 
 def canny_fused_fwd_plain(x, high: float, sigma: float, alpha: float):
     """Transcription of `_canny_fwd_kernel`: (out, mag, gx, gy), each
-    (B, 1, H, W). `out` carries the To_compare gradient, so torch autograd
-    of it is a second oracle of the adjoint."""
-    gx, gy, mag = _blur_sobel_magnitude_nchw(x, sigma)
-    out = to_compare(torch.where(mag < alpha, torch.zeros_like(mag), mag), high)
-    return out, mag, gx, gy
+    (B, 1, H, W) in x's dtype. A bfloat16 x takes the JAX kernel's casts:
+    every operation in bfloat16 but the channel sum (float32, rounded once),
+    the thresholds rounded to bfloat16 (weak typing). `out` carries the
+    To_compare gradient, so torch autograd of it is a second oracle of the
+    adjoint."""
+    dt = x.dtype
+    gx, gy, mag = _blur_sobel_magnitude_nchw(x, sigma, wide=False)
+    mag_m = torch.where(mag < weak_scalar(alpha, dt), torch.zeros_like(mag), mag)
+    return to_compare(mag_m, weak_scalar(high, dt)), mag, gx, gy
 
 
 def canny_fused_bwd_plain(u, mag, gx, gy, channels: int, high: float,
                           sigma: float, alpha: float):
     """Transcription of `_canny_bwd_kernel`: dx (B, C, H, W) from the
-    cotangent u (B, 1, H, W) of `out` and the residuals."""
+    cotangent u (B, 1, H, W) of `out` and the residuals, in their dtype
+    (bfloat16: each operation rounded, the thresholds and taps rounded)."""
+    dt = mag.dtype
+    alpha, high = weak_scalar(alpha, dt), weak_scalar(high, dt)
     zero = torch.zeros_like(mag)
     mag_m = torch.where(mag < alpha, zero, mag)
     keep = (mag_m > high) & (mag_m <= 1.001) & (mag >= alpha)
@@ -419,8 +432,9 @@ def canny_fused_bwd_plain(u, mag, gx, gy, channels: int, high: float,
     inv_mag = torch.where(mag_zero, zero,
                           1.0 / torch.where(mag_zero, torch.ones_like(mag), mag))
     sob = sobel_kernel(3)
+    cdiv = torch.full((), float(channels), dtype=dt, device=mag.device)
     u_summed = (_apply_taps_adjoint(u_mag * gx * inv_mag, sob)
-                + _apply_taps_adjoint(u_mag * gy * inv_mag, sob.T)) / channels
+                + _apply_taps_adjoint(u_mag * gy * inv_mag, sob.T)) / cdiv
     # every channel gets the blur's adjoint of the same plane
     plane = _apply_taps_adjoint(u_summed, gaussian_kernel(3, 0.0, sigma))
     b, _, h, w = plane.shape
@@ -450,10 +464,10 @@ def _library():
         getattr(c, name).argtypes = [_P] * 11 + [_I] * 4 + [_F] * 4 + [_I] + band
         getattr(c, name).restype = _I
     tiles = [_I, _I, ctypes.c_size_t, _P]                  # tiles_w, tiles_h, bytes, stream
-    c.canny_fused_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + tiles
-    c.canny_fused_fwd.restype = _I
-    c.canny_fused_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + tiles
-    c.canny_fused_bwd.restype = _I
+    for name in ("canny_fused_fwd", "canny_fused_bwd", "canny_fused_fwd_bf16",
+                 "canny_fused_bwd_bf16"):
+        getattr(c, name).argtypes = [_P] * 6 + [_I] * 4 + [_F] * 2 + tiles
+        getattr(c, name).restype = _I
     c.ee_fused_error_string.argtypes = [_I]
     c.ee_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -515,7 +529,7 @@ def _raise_on(err: int, lib, what: str):
 
 
 def _entry(name: str, dtype) -> str:
-    """The entry point and launch counter of K1/K2 for `dtype`."""
+    """The entry point and launch counter of a kernel for `dtype`."""
     return name + ("_bf16" if dtype == torch.bfloat16 else "")
 
 
@@ -625,10 +639,12 @@ def canny_geometry(c: int, h: int, w: int) -> CannyGeometry:
 
 def _check_canny(x, *planes) -> CannyGeometry:
     """x: the (B, C, H, W) image of K3a, or the dx that K3b writes; planes:
-    (B, 1, H, W) each. Raises on what the kernels do not take (the device
-    last, so that any host can test the rest); returns the geometry."""
-    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("x and dx must be contiguous (B, C, H, W) float32 "
+    (B, 1, H, W) each, of x's dtype. Raises on what the kernels do not take
+    (the device last, so that any host can test the rest); returns the
+    geometry."""
+    if (x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4
+            or not x.is_contiguous()):
+        raise ValueError("x and dx must be contiguous (B, C, H, W) float32 or bfloat16 "
                          f"tensors (got {x.dtype}, shape {tuple(x.shape)})")
     b, c, h, w = x.shape
     geo = canny_geometry(c, h, w)
@@ -639,60 +655,59 @@ def _check_canny(x, *planes) -> CannyGeometry:
     for t in planes:
         if (tuple(t.shape) != (b, 1, h, w) or t.dtype != x.dtype
                 or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"u, mag, gx and gy must be contiguous float32 "
+            raise ValueError(f"u, mag, gx and gy must be contiguous {x.dtype} "
                              f"{(b, 1, h, w)} tensors on {x.device}")
     if x.device.type != "cuda":
         raise ValueError(f"the Canny kernels take CUDA tensors, got {x.device}")
     return geo
 
 
-def _float32_only(t):
-    """The Canny-only pair is float32 (JAX's runs in the image's dtype; its
-    bfloat16 form is not ported): raise rather than convert."""
-    if t.dtype != torch.float32:
-        raise NotImplementedError(f"the Canny-only pair K3a/K3b takes float32, "
-                                  f"got {t.dtype}")
+def _canny_scalars(alpha: float, high: float, dtype) -> tuple:
+    """(alpha, high) as K3a/K3b take them: rounded to the tensors' dtype, as
+    JAX's weak typing rounds them in the Canny-only kernel's comparisons."""
+    return weak_scalar(alpha, dtype), weak_scalar(high, dtype)
 
 
 def canny_fused_fwd(x, high: float, sigma: float, alpha: float):
-    """K3a: (out, mag, gx, gy) of a (B, C, H, W) batch; plain version on a
-    CPU tensor. float32 only, on every device."""
-    _float32_only(x)
+    """K3a: (out, mag, gx, gy) of a (B, C, H, W) float32 or bfloat16 batch,
+    in its dtype; plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return canny_fused_fwd_plain(x, high, sigma, alpha)
     geo = _check_canny(x)
     lib = _library()
     b, c, h, w = x.shape
     out, mag, gx, gy = (x.new_empty((b, 1, h, w)) for _ in range(4))
+    name = _entry("canny_fused_fwd", x.dtype)
     with torch.cuda.device(x.device):
-        err = lib.lib.canny_fused_fwd(
-            _ptr(x), _ptr(gaussian_taps(sigma, x.device)), _ptr(out), _ptr(mag),
-            _ptr(gx), _ptr(gy), b, c, h, w, alpha, high, geo.tiles_w, geo.tiles_h,
-            geo.fwd_smem_bytes, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, lib, "canny_fused_fwd")
-    LAUNCHES["canny_fused_fwd"] += 1
+        err = getattr(lib.lib, name)(
+            _ptr(x), _ptr(gaussian_taps(sigma, x.device, x.dtype)), _ptr(out), _ptr(mag),
+            _ptr(gx), _ptr(gy), b, c, h, w, *_canny_scalars(alpha, high, x.dtype),
+            geo.tiles_w, geo.tiles_h, geo.fwd_smem_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, name)
+    LAUNCHES[name] += 1
     return out, mag, gx, gy
 
 
 def canny_fused_bwd(u, mag, gx, gy, channels: int, high: float, sigma: float,
                     alpha: float):
     """K3b: dx (B, channels, H, W) from the cotangent u (B, 1, H, W) of
-    `out`; plain version on a CPU tensor. float32 only, on every device."""
-    _float32_only(u)
+    `out`, in the residuals' dtype; plain version on a CPU tensor."""
     if mag.device.type == "cpu":
         return canny_fused_bwd_plain(u, mag, gx, gy, channels, high, sigma, alpha)
     b, _, h, w = mag.shape
     dx = mag.new_empty((b, channels, h, w))
     geo = _check_canny(dx, u, mag, gx, gy)
     lib = _library()
+    name = _entry("canny_fused_bwd", mag.dtype)
     with torch.cuda.device(mag.device):
-        err = lib.lib.canny_fused_bwd(
+        err = getattr(lib.lib, name)(
             _ptr(u), _ptr(mag), _ptr(gx), _ptr(gy),
-            _ptr(gaussian_taps(sigma, mag.device)), _ptr(dx), b, channels, h, w,
-            alpha, high, geo.tiles_w, geo.tiles_h, geo.bwd_smem_bytes,
-            torch.cuda.current_stream(mag.device).cuda_stream)
-    _raise_on(err, lib, "canny_fused_bwd")
-    LAUNCHES["canny_fused_bwd"] += 1
+            _ptr(gaussian_taps(sigma, mag.device, mag.dtype)), _ptr(dx), b, channels,
+            h, w, *_canny_scalars(alpha, high, mag.dtype), geo.tiles_w, geo.tiles_h,
+            geo.bwd_smem_bytes, torch.cuda.current_stream(mag.device).cuda_stream)
+    _raise_on(err, lib, name)
+    LAUNCHES[name] += 1
     return dx
 
 

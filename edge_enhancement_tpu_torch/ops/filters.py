@@ -26,3 +26,19 @@ def sobel_kernel(k: int = 3) -> np.ndarray:
     denom = x ** 2 + y ** 2
     denom[:, k // 2] = 1.0  # avoid division by zero on the centre column
     return (x / denom).astype(np.float32)
+
+
+# Offsets (drow, dcol) of the -1 entry of the eight directional NMS kernels,
+# for angles 0, 45, ..., 315 degrees in image coordinates (row grows
+# downward; angle 0 points east, positive angles toward negative rows).
+_DIRECTION_OFFSETS: tuple[tuple[int, int], ...] = (
+    (0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1), (1, -1), (1, 0), (1, 1))
+
+
+def direction_offsets() -> tuple[tuple[int, int], ...]:
+    return _DIRECTION_OFFSETS
+
+
+def hysteresis_kernel() -> np.ndarray:
+    """3x3 all-1.25 kernel of the hysteresis vote."""
+    return np.full((3, 3), 1.25, dtype=np.float32)

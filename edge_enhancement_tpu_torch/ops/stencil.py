@@ -55,3 +55,11 @@ def stencil2d(x: torch.Tensor, kernel: np.ndarray,
     """`stencil2d_nchw` on an NHWC tensor (the JAX layout)."""
     return stencil2d_nchw(x.permute(0, 3, 1, 2), kernel,
                           pad_mode).permute(0, 2, 3, 1)
+
+
+def shift2d_nchw(x: torch.Tensor, drow: int, dcol: int) -> torch.Tensor:
+    """out[b, c, r, s] = x[b, c, r + drow, s + dcol], zero outside the image
+    (|drow|, |dcol| <= 1)."""
+    xp = F.pad(x, (1, 1, 1, 1))
+    h, w = x.shape[2], x.shape[3]
+    return xp[:, :, 1 + drow:1 + drow + h, 1 + dcol:1 + dcol + w]

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.square import draw_squares
+
 
 class ModelOps:
     def __init__(self, model: torch.nn.Module):
@@ -36,7 +38,7 @@ class ModelOps:
         ee = getattr(self.model, "ee", None)
         if ee is None or not ee.square:
             return None
-        return self.model.square_source(x.shape)
+        return draw_squares(self.model.square_source, x.shape, int(ee.n_queries))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

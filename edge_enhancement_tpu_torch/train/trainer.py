@@ -16,7 +16,7 @@ import torch
 from ..attacks.cw import CWConfig, cw_linf
 from ..attacks.pgd import PGDConfig, fgsm, pgd_linf, random_targets
 from ..objectives.methods import MethodConfig, Objective
-from ..ops.square import add_square, add_square_draws
+from ..ops.square import add_square, add_square_draws, draw_squares
 from .modelops import ModelOps, cross_entropy, topk_accuracy
 from .sgd import sgd_update
 
@@ -121,15 +121,14 @@ def build_eval_step(ops: ModelOps, atk: EvalAttackConfig,
     ops/square.add_square_draws on `generator`)."""
     if atk.attack_method not in ("PGD", "FGSM", "CW", "none"):
         raise NotImplementedError(f"eval attack {atk.attack_method!r}")
-    if atk.pre_square and atk.square_n_queries != 1:
-        raise NotImplementedError("pre_square with n_queries > 1 is not ported")
     if atk.pre_square and square_source is None:
         square_source = functools.partial(add_square_draws, generator=generator)
 
     def eval_fn(state: TrainState, x, y):
         x = to_float_pixels(x)
         if atk.pre_square:
-            x = add_square(x, square_source(x.shape), epsilon=atk.square_epsilon)
+            x = add_square(x, draw_squares(square_source, x.shape, atk.square_n_queries),
+                           epsilon=atk.square_epsilon)
         with torch.no_grad():
             clean = ops.logits_eval(x)
         metrics = {"clean_loss": cross_entropy(clean, y),

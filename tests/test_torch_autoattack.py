@@ -16,6 +16,7 @@ against the JAX package's and against the official package's arithmetic:
 
 Tolerances are stated where they are used."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import math
 
 import numpy as np

@@ -5,6 +5,7 @@ the smoothed edge map (`with_gf`) against the JAX front-end, and one train
 step of the flagship recipe with `gf: true` against one JAX step. The same
 numpy inputs and square draws go to both sides."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import importlib
 
 import numpy as np

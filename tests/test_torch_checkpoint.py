@@ -11,6 +11,7 @@ the JAX package's, and the refusals of restore_into_state.
 Logits are compared within tests/test_torch_resnet.py's eval-mode float32
 tolerance (atol = rtol = 1e-5), on the same square draws."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import os
 import sys
 
@@ -221,3 +222,66 @@ def test_restore_into_state_names_what_does_not_fit(tmp_path, fault):
     with pytest.raises(ValueError, match=name.replace(".", r"\.")):
         ckpt.restore_into_state(create_train_state(build_model(ARCH, helpers.EE_ARGS, 200)),
                                 payload)
+
+
+def test_u2netp_checkpoint_crosses_with_its_momentum(tmp_path):
+    """A resnet18_EE + u2netp (ee_at_u2netp.yml) checkpoint of the port
+    through the JAX package's converter, given the port's name map (the
+    ResNet's and the U-Net's under U2Net_0): every tensor and every
+    momentum buffer, the U-Net's included, reaches the JAX trees; the JAX
+    model's eval-mode logits are the port's; and the trees come back to the
+    port bit for bit, weights and momentum, through `restore_into_state`."""
+    from edge_enhancement_tpu_torch.convert import u2net_name_map
+    args = dict(helpers.EE_ARGS, type_canny="u2netp")
+    arch, shape = "resnet18_EE", (2, 32, 32, 3)
+    model = build_model(arch, args, 200, generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("running_mean"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+            elif name.endswith("running_var"):
+                t.copy_(1.0 + 0.5 * torch.rand(t.shape, generator=gen))
+    state = create_train_state(model)
+    for b in state.momentum_buf:
+        b.normal_(generator=gen)
+    path = ckpt.save_checkpoint(str(tmp_path), state, 2, arch, 3.0, False, OptimConfig(), 0.1)
+    payload = torch.load(path, weights_only=True)
+    sd = payload["state_dict"]
+    names = [n for n, _ in model.named_parameters()]
+    mom = {n: payload["optimizer"]["state"][i]["momentum_buffer"] for i, n in enumerate(names)}
+    assert any(n.startswith("u2net.") for n in names)
+
+    name_map = {**conv.resnet_name_map(18), **u2net_name_map()}
+    ops_j = JaxModelOps(jax_build_model(arch, args, 200))
+    shapes = jax.eval_shape(ops_j.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1,) + shape[1:], jnp.float32))
+    params, stats = helpers.random_variables(shapes, np.random.default_rng(0))
+    params, stats, n, skipped = conv.convert(sd, name_map, params, stats)
+    assert not skipped and n == len(sd)
+    # the momentum has the parameters' tree; convert tells BatchNorm by its
+    # running statistics, so they ride along and are dropped
+    stat_part = {k: v for k, v in sd.items() if k.endswith(("running_mean", "running_var"))}
+    mom_j, _, n_mom, _ = conv.convert({**mom, **stat_part}, name_map, params, stats)
+    assert n_mom == len(mom) + len(stat_part)
+
+    x = np.random.default_rng(7).random(shape).astype(np.float32)
+    model.eval()
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(ops_j.logits_eval)(params, stats, jnp.asarray(x),
+                                                 jax.random.PRNGKey(0)))
+    np.testing.assert_allclose(got, want, **LOGIT_TOL)
+
+    back = conv.params_to_torch_state_dict(params, stats, name_map)
+    mom_back = conv.params_to_torch_state_dict(mom_j, stats, name_map)
+    fresh = create_train_state(build_model(arch, args, 200))
+    fresh, epoch, _ = ckpt.restore_into_state(fresh, {
+        "epoch": 2, "best_prec1": 3.0, "state_dict": back,
+        "optimizer": {"state": {i: {"momentum_buffer": mom_back[n]}
+                                for i, n in enumerate(names)}}})
+    assert epoch == 2
+    for k, v in sd.items():
+        assert torch.equal(fresh.model.state_dict()[k], v), k
+    for n, a in zip(names, fresh.momentum_buf):
+        assert torch.equal(a, mom[n]), n

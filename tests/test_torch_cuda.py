@@ -7,6 +7,7 @@ device and nvcc:
 
 Without a CUDA device every test here skips."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import numpy as np
 import pytest
 import torch
@@ -131,7 +132,8 @@ def _check_bf16(x, st, sqd, u, square):
     assert g.dtype == torch.bfloat16
     assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
                           "ee_fused_fwd_bf16": 2, "ee_fused_bwd_bf16": 2,
-                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0,
+                          "canny_fused_fwd_bf16": 0, "canny_fused_bwd_bf16": 0}
 
 
 # The bfloat16 K1/K2 (products on the tensor cores, in passes of 128
@@ -150,7 +152,8 @@ def test_bf16_kernels_at_fast_at_and_ragged_sizes(cuda, shape, square):
     _bf16_pair(x, st, sqd, u, _consts(square))
     assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
                           "ee_fused_fwd_bf16": 1, "ee_fused_bwd_bf16": 1,
-                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0,
+                          "canny_fused_fwd_bf16": 0, "canny_fused_bwd_bf16": 0}
 
 
 def test_autograd_function_launches_each_kernel_once(cuda):
@@ -161,7 +164,8 @@ def test_autograd_function_launches_each_kernel_once(cuda):
     (g,) = torch.autograd.grad((F.ee_fused(xa, st, sqd, k) * u).sum(), [xa])
     assert F.LAUNCHES == {"ee_fused_fwd": 1, "ee_fused_bwd": 1,
                           "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
-                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0,
+                          "canny_fused_fwd_bf16": 0, "canny_fused_bwd_bf16": 0}
     _, y = F.ee_fused_fwd(x, st, sqd, k)
     torch.testing.assert_close(g, F.ee_fused_bwd(u, x, st, sqd, y, k), atol=0, rtol=0)
 
@@ -237,6 +241,36 @@ def test_canny_kernels_match_plain(cuda, shape, alpha, sigma):
     assert dx_k.abs().max() > 0.1
 
 
+@pytest.mark.parametrize("shape,alpha,sigma", [((4, 3, 32, 64), 0.0, 1.0),
+                                               ((3, 3, 37, 45), 0.1, 1.0),
+                                               ((2, 1, 28, 28), 0.3, 1.0),
+                                               ((2, 3, 100, 100), 0.0, 1.0),
+                                               ((2, 3, 2, 5), 0.0, 1.0),
+                                               ((2, 3, 128, 128), 0.0, 1.0),
+                                               ((2, 3, 37, 45), 0.0, 0.05)])
+def test_canny_bf16_kernels_match_plain(cuda, shape, alpha, sigma):
+    """K3a/K3b in bfloat16 give their plain bfloat16 versions' bits: K3a's
+    four outputs, and K3b's dx (its adjoint rounds tap by tap, as the plain
+    version and JAX do; the float32 K3b sums in another order). The same
+    tiles as float32, and fast-AT's 128 px."""
+    x, _, _, _ = _operands(shape, False, cuda)
+    x = x.bfloat16()
+    b, c, h, w = shape
+    u = torch.randn((b, 1, h, w), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3)).bfloat16()
+    high = 76 / 255
+    outs_k = F.canny_fused_fwd(x, high, sigma, alpha)
+    for got, want in zip(outs_k, F.canny_fused_fwd_plain(x, high, sigma, alpha)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    _, mag, gx, gy = outs_k
+    dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha)
+    assert dx_k.dtype == torch.bfloat16
+    torch.testing.assert_close(dx_k, F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma,
+                                                             alpha), atol=0, rtol=0)
+    assert 0 < outs_k[0].float().mean() < 1 and dx_k.float().abs().max() > 0.01
+
+
 def test_canny_kernels_take_the_largest_channel_count(cuda):
     """The most channels canny_geometry admits run and agree; one more is
     refused before any launch, by K3a and by K3b."""
@@ -283,12 +317,49 @@ def test_gf_frontend_launches_only_k3(cuda):
     out.sum().backward()
     assert F.LAUNCHES == {"ee_fused_fwd": 0, "ee_fused_bwd": 0,
                           "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
-                          "canny_fused_fwd": 1, "canny_fused_bwd": 1}
+                          "canny_fused_fwd": 1, "canny_fused_bwd": 1,
+                          "canny_fused_fwd_bf16": 0, "canny_fused_bwd_bf16": 0}
     xc = x.permute(0, 2, 3, 1).cpu().requires_grad_()
     out_c = tee.ee_frontend(xc, cfg, lambda shape: tuple(d.cpu() for d in draws))
     out_c.sum().backward()
     torch.testing.assert_close(out.cpu(), out_c, atol=1e-5, rtol=0)
     torch.testing.assert_close(xa.grad.cpu(), xc.grad, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["queries_f32", "gf_bf16", "queries_bf16"])
+def test_k3_frontends_on_the_card_match_the_cpu(cuda, case):
+    """The front-end's K3 paths, more than one square query and the edge
+    map smoothed under the bf16 policy: one K3a and one K3b launch of the
+    dtype's form and no other, out and dx as the CPU path's (float32:
+    within the HFS products' summation order; bfloat16: out within one
+    ulp, dx within the bf16 limits of K2)."""
+    from edge_enhancement_tpu_torch.models import ee_frontend as tee
+    dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    n = 1 if case.startswith("gf") else 3
+    x, _, _, _ = _operands((2, 3, 32, 32), False, cuda, seed=5)
+    cfg = tee.EEConfig(r=8, w=1.0, high=76.0, type_canny="CannyFilter_step125_1",
+                       with_gf=case.startswith("gf"), square=True, epsilon=EPS, n_queries=n)
+    draws = add_square_draws((2, 32, 32, 3), torch.Generator(device=cuda).manual_seed(0),
+                             n_queries=n)
+    xa = x.permute(0, 2, 3, 1).to(dtype).contiguous().requires_grad_()
+    F.reset_launches()
+    out = tee.ee_frontend(xa, cfg, lambda shape, **_: draws)
+    out.float().sum().backward()
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    assert {k: v for k, v in F.LAUNCHES.items() if v} == {
+        "canny_fused_fwd" + suffix: 1, "canny_fused_bwd" + suffix: 1}
+    xc = xa.detach().cpu().requires_grad_()
+    out_c = tee.ee_frontend(xc, cfg, lambda shape, **_: tuple(d.cpu() for d in draws))
+    out_c.float().sum().backward()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.cpu(), out_c, atol=1e-5, rtol=0)
+        torch.testing.assert_close(xa.grad.cpu(), xc.grad, atol=1e-4, rtol=0)
+    else:
+        assert F.bf16_ulps(out.cpu(), out_c).max() <= 1
+        off = F.bf16_ulps(xa.grad.cpu(), xc.grad) > 1
+        assert off.float().mean() <= BF16_DX_SHARE
+        assert (xa.grad.cpu().float() - xc.grad.float()).abs().max() <= (
+            BF16_DX_REL * xc.grad.float().abs().max())
 
 
 # K4 vs its plain version on the same operands: float32 runs three TF32
@@ -489,7 +560,8 @@ def test_eval_battery_on_the_card_matches_the_cpu(cuda, branch, monkeypatch):
     torch.cuda.synchronize()
     assert F.LAUNCHES == {"ee_fused_fwd": n_fwd, "ee_fused_bwd": n_bwd,
                           "ee_fused_fwd_bf16": 0, "ee_fused_bwd_bf16": 0,
-                          "canny_fused_fwd": 0, "canny_fused_bwd": 0}
+                          "canny_fused_fwd": 0, "canny_fused_bwd": 0,
+                          "canny_fused_fwd_bf16": 0, "canny_fused_bwd_bf16": 0}
     assert m_gpu["clean_top1"] == m_cpu["clean_top1"] == 100.0
     np.testing.assert_allclose(m_gpu["clean_loss"], m_cpu["clean_loss"], rtol=1e-4)
     assert len(cap_gpu) == len(cap_cpu) == (0 if branch == "none"

@@ -3,6 +3,7 @@ meter modules (edge_enhancement_tpu_torch/data, utils, train/schedules)
 against the JAX modules: the same batches in the same order, the same
 learning rates, the same log strings, the same config."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import os
 
 import numpy as np

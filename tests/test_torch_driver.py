@@ -1,6 +1,7 @@
 """The port's training driver on the CPU at a tiny size, its refusals, the
 jax-free import rule of the port, and chip_smoke.py's refusal without CUDA."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import os
 import re
 import subprocess
@@ -16,8 +17,11 @@ CONFIG = os.path.join(REPO, "edge_enhancement_tpu", "configs", "tiny_imagenet",
 
 
 def _env():
+    """The child's environment: the repo on its path, CPU torch on one
+    thread (as tests/torch_threads.py holds this process)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 
@@ -58,7 +62,8 @@ def test_driver_runs_gf_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
-    ({"type_canny": "CannyFilter"}, NotImplementedError),
+    # the full Canny runs in float32 only
+    ({"type_canny": "CannyFilter", "half": True}, NotImplementedError),
     ({"awp_gamma": 0.01}, NotImplementedError),
     ({"attack_method": "AA"}, NotImplementedError),
 ])
@@ -317,6 +322,7 @@ def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
     proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
-                          cwd=REPO, capture_output=True, text=True, timeout=120)
+                          cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout

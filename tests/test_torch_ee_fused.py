@@ -4,6 +4,7 @@ interpret mode), the adjoint against torch autograd of the plain forward,
 and the port's front-end against the JAX unfused `ee_frontend`. The same
 numpy inputs and square draws go to both sides."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,7 @@ from edge_enhancement_tpu.models import ee_frontend as jee
 from edge_enhancement_tpu.ops.pallas import ee_fused as jfused
 from edge_enhancement_tpu.ops.square import add_square_draws
 from edge_enhancement_tpu_torch.models import ee_frontend as tee
+from edge_enhancement_tpu_torch.ops import square as tsq
 from edge_enhancement_tpu_torch.ops.cuda import ee_fused as tfused
 
 EPS = 0.062745098039216
@@ -156,12 +158,22 @@ def test_frontend_matches_jax_unfused(square):
 
 
 def test_unported_variants_raise():
+    """What the front-end still refuses: the full and BPDA Canny and the
+    U2-NetP edge map under the bf16 policy (the step125 Canny runs there),
+    and a variant it does not know."""
+    x = torch.zeros(1, 8, 8, 3, dtype=torch.bfloat16)
     for cfg in (tee.EEConfig(type_canny="CannyFilter"),
                 tee.EEConfig(type_canny="CannyFilter_BPDA", with_gf=True),
-                tee.EEConfig(type_canny="CannyFilter_step125_1", square=True,
-                             n_queries=5)):
+                tee.EEConfig(type_canny="u2netp")):
         with pytest.raises(NotImplementedError):
-            tee.ee_frontend(torch.zeros(1, 8, 8, 3), cfg)
+            tee.ee_frontend(x, cfg, edge_map=torch.zeros(1, 8, 8, 1, dtype=x.dtype))
+    with pytest.raises(NotImplementedError):
+        tee.ee_frontend(torch.zeros(1, 8, 8, 3), tee.EEConfig(type_canny="Sobel"))
+    out = tee.ee_frontend(x, tee.EEConfig(type_canny="CannyFilter_step125_1", square=True,
+                                          n_queries=5),
+                          lambda shape, **kw: tsq.add_square_draws(
+                              shape, torch.Generator().manual_seed(0), **kw))
+    assert out.dtype == torch.bfloat16
 
 
 def test_wrapper_refuses_non_cpu_non_cuda_tensors():

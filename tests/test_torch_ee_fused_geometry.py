@@ -6,6 +6,7 @@ image row and the tiles every pixel exactly once. The kernels themselves run
 only on a card (tests/test_torch_cuda.py); this pins on any host that each
 shipped step125 config is inside their envelope."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import functools
 import glob
 import os

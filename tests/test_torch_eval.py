@@ -14,6 +14,7 @@ restart selection and the adversarial metrics are compared on the same
 input. Eval mode moves no BatchNorm statistic, so the two attacks differ
 only where a float32 input gradient of the two libraries changes sign."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import dataclasses
 
 import numpy as np

@@ -7,6 +7,7 @@ the two schedules against the JAX functions.
 Batch 8 at 32 px, as tests/test_torch_train_step.py: with batch 2,
 layer4's train-mode BatchNorm (1 x 1) would normalise 2 values a channel."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import numpy as np
 import pytest
 import torch

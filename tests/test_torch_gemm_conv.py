@@ -5,6 +5,7 @@ version against torch's own convolution. The float32 kernel computes three
 TF32 products (3xTF32): `split_tf32` is held bit for bit against a numpy
 rounding, and a CPU emulation of the three products against JAX."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,7 @@ clean batch, and TRADES' adversarial batch). The helper also counts each
 side's forwards (one square draw each): the port's are the K1 launches of
 a step on the card."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ on the same numpy inputs. Edge maps and stencils must agree bit for bit (the
 hard threshold flips on one-ulp differences); matrix products and gradients
 within the stated float32 tolerances."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import importlib
 
 import numpy as np

@@ -4,6 +4,7 @@ matmuls (`train/driver.py::pin_precision`) and say so on the run's first
 log line; the bf16 policy (`half: true`) leaves both flags as they are.
 Run on the CPU, where the flags are only read back."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import os
 
 import pytest

@@ -2,6 +2,7 @@
 the JAX model: train- and eval-mode logits, the BatchNorm running
 statistics (flax's biased-variance rule), and the weight conversion."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import os
 
 import numpy as np
@@ -96,8 +97,10 @@ def test_init_statistics():
     assert (model.bn1.weight == 1).all() and (model.bn1.bias == 0).all()
 
 
+# resnet18_EE's default front-end, the full Canny, runs in float32; under
+# the bf16 policy it is not ported
 @pytest.mark.parametrize("arch,args", [("resnet200", {}), ("Net2", {}),
-                                       ("resnet18_EE", {}),
+                                       ("resnet18_EE", {"half": True}),
                                        ("resnet50_fd", {"dtype": "bfloat16"})])
 def test_unported_models_raise(arch, args):
     with pytest.raises(NotImplementedError):

@@ -7,6 +7,7 @@ bf16 policy, BatchNorm in bfloat16 against flax's, and the depths 34 to
 for the single block, BatchNorm statistics and affine terms away from 1
 and 0."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import numpy as np
 import pytest
 import torch

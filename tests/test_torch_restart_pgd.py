@@ -5,6 +5,7 @@ TestRestartPGD), with JAX's draws recomputed from its key outside the
 trace and fed to the port's draw functions; and the draw sharing of
 attack_pgd's forwards on resnet18_EE_square."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import numpy as np
 import pytest
 import torch

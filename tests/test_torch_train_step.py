@@ -11,6 +11,7 @@ hard edge threshold turns that into O(1) gradient changes at the next
 iteration. So the test bounds the share of x_adv pixels that differ, then
 hands the port JAX's x_adv for the update, which it compares tightly."""
 
+import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import torch_port_helpers as helpers
 
 

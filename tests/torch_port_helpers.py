@@ -5,6 +5,7 @@ compared."""
 
 import copy
 import functools
+import math
 
 import numpy as np
 import torch
@@ -15,6 +16,7 @@ from edge_enhancement_tpu.attacks import pgd as jpgd
 from edge_enhancement_tpu.models import ee_frontend as jee
 from edge_enhancement_tpu.models.registry import build_model as jax_build_model
 from edge_enhancement_tpu.objectives import methods as jmethods
+from edge_enhancement_tpu.ops import square as jsquare
 from edge_enhancement_tpu.train import trainer as jtrainer
 from edge_enhancement_tpu.train.modelops import ModelOps as JaxModelOps
 from edge_enhancement_tpu.train.sgd import init_momentum
@@ -32,19 +34,48 @@ EE_ARGS = dict(r=8, w=1.0, low=38.0, high=76.0, alpha=0.0, sigma=1.0, gf=False,
                type_canny="CannyFilter_step125_1", epsilon=EPS, n_queries=1)
 
 
-def square_draws(n_calls, shape, seed=7):
-    """One (stripes (B,1,W,C), mask (H,W), sign (1,1,1,C)) per forward."""
+def jax_draws(key, shape, n_queries, p_init=0.8, rescale_schedule=False):
+    """The draws that JAX's add_square makes from `key`, in the port's
+    layout (ops/square.add_square_draws): the same key splits, in order."""
+    b, h, w, c = shape
+    key_init, key_loop = jax.random.split(key)
+    stripes = jsquare._random_sign(key_init, (b, 1, w, c))
+    masks, signs, rows = [], [], jnp.arange(h)
+    for i in range(n_queries):
+        key_loop, key_pos, key_sgn = jax.random.split(key_loop, 3)
+        s = max(int(round(math.sqrt(jsquare.p_selection(i, p_init, n_queries, rescale_schedule)
+                                    * (c * h * h) / c))), 1)
+        vh = jnp.floor(jax.random.uniform(key_pos) * (h - s)).astype(jnp.int32)
+        span = (rows >= vh) & (rows < vh + s)
+        masks.append((span[:, None] & span[None, :]).astype(jnp.float32))
+        signs.append(jsquare._random_sign(key_sgn, (1, 1, 1, c)))
+    t = lambda a: torch.from_numpy(np.array(a))
+    if n_queries == 1:
+        return t(stripes), t(masks[0]), t(signs[0])
+    return t(stripes), t(jnp.stack(masks)), t(jnp.stack(signs))
+
+
+def square_draws(n_calls, shape, seed=7, n_queries=1):
+    """One (stripes (B,1,W,C), mask (H,W), sign (1,1,1,C)) per forward; with
+    n_queries > 1 the masks and signs of the queries stacked, (n, H, W) and
+    (n, 1, 1, 1, C) (ops/square.add_square_draws's layout)."""
     b, h, w, c = shape
     rng = np.random.default_rng(seed)
-    s = square_side(h, c)
     draws = []
     for _ in range(n_calls):
         stripes = rng.choice([-1.0, 1.0], size=(b, 1, w, c)).astype(np.float32)
-        vh = int(rng.integers(0, h - s + 1))
-        mask = np.zeros((h, w), np.float32)
-        mask[vh:vh + s, vh:vh + s] = 1.0
-        sign = rng.choice([-1.0, 1.0], size=(1, 1, 1, c)).astype(np.float32)
-        draws.append((stripes, mask, sign))
+        masks, signs = [], []
+        for i in range(n_queries):
+            s = square_side(h, c, 0.8, i, n_queries)
+            vh = int(rng.integers(0, h - s + 1))
+            mask = np.zeros((h, w), np.float32)
+            mask[vh:vh + s, vh:vh + s] = 1.0
+            masks.append(mask)
+            signs.append(rng.choice([-1.0, 1.0], size=(1, 1, 1, c)).astype(np.float32))
+        if n_queries == 1:
+            draws.append((stripes, masks[0], signs[0]))
+        else:
+            draws.append((stripes, np.stack(masks), np.stack(signs)))
     return draws
 
 
@@ -57,12 +88,17 @@ class JaxSquareReplay:
         self.draws, self.calls = list(draws), 0
 
     def __call__(self, x, key, *, epsilon, n_queries=1, **_):
-        stripes, mask, sign = (jnp.asarray(a) for a in self.draws[self.calls])
+        stripes, masks, signs = (jnp.asarray(a) for a in self.draws[self.calls])
         self.calls += 1
+        if masks.ndim == 2:
+            masks, signs = masks[None], signs[None]
+        assert masks.shape[0] == n_queries
         x_best = jnp.clip(x + epsilon * stripes, 0.0, 1.0)
-        x_best = x_best + 2.0 * epsilon * sign * mask[None, :, :, None]
-        x_best = jnp.minimum(jnp.maximum(x_best, x - epsilon), x + epsilon)
-        return jnp.clip(x_best, 0.0, 1.0)
+        for mask, sign in zip(masks, signs):
+            x_best = x_best + 2.0 * epsilon * sign * mask[None, :, :, None]
+            x_best = jnp.minimum(jnp.maximum(x_best, x - epsilon), x + epsilon)
+            x_best = jnp.clip(x_best, 0.0, 1.0)
+        return x_best
 
 
 class TorchSquareReplay:
@@ -71,9 +107,10 @@ class TorchSquareReplay:
     def __init__(self, draws):
         self.draws, self.calls = list(draws), 0
 
-    def __call__(self, shape):
+    def __call__(self, shape, n_queries=1):
         d = self.draws[self.calls]
         self.calls += 1
+        assert n_queries == (1 if d[1].ndim == 2 else d[1].shape[0])
         return tuple(torch.from_numpy(a.copy()) for a in d)
 
 
@@ -96,10 +133,10 @@ def record_forwards(monkeypatch, source):
     used = []
     real = tresnet.ee_frontend
 
-    def spy(x, cfg, square_source):
+    def spy(x, cfg, square_source, edge_map=None):
         d = square_source(x.shape)
         used.append(next(i for i, r in enumerate(source.draws) if r is d))
-        return real(x, cfg, lambda shape: d)
+        return real(x, cfg, lambda shape: d, edge_map=edge_map)
     monkeypatch.setattr(tresnet, "ee_frontend", spy)
     return used
 
@@ -194,7 +231,8 @@ def port_forwards(kind, k):
 
 
 def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
-                    arch="resnet18_EE_square", float64=False, **fields):
+                    arch="resnet18_EE_square", float64=False,
+                    shape=STEP_SHAPE, pgd_steps=PGD_STEPS, **fields):
     """One train step of `method` (MethodConfig `fields` beside the
     flagship's) in the JAX package and in the port on carried weights, with
     every draw made with numpy and replayed on both sides: the square
@@ -203,26 +241,29 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
     square. The port's attack runs, but the port takes JAX's x_adv for the
     update. Returns the port's (metrics, state, model, x_adv) and JAX's
     (metrics, state, x_adv); x_adv is None for ST, which runs no attack.
+    `shape` is the batch's and `pgd_steps` the attack's iterations
+    (STEP_SHAPE and PGD_STEPS by default).
     With `float64`, also the port's step in float64 on the same draws (its
     own attack, then JAX's x_adv for the update) as a third such tuple."""
-    ops_j, params, bs, model = jax_and_port_models(STEP_SHAPE, arch=arch,
+    ops_j, params, bs, model = jax_and_port_models(shape, arch=arch,
                                                    ee_args=ee_args)
     model64 = copy.deepcopy(model).double() if float64 else None
     rng = np.random.default_rng(0)
-    x = rng.random(STEP_SHAPE).astype(np.float32)
-    y = rng.integers(0, 200, STEP_SHAPE[0]).astype(np.int32)
-    noise = rng.uniform(-EPS, EPS, STEP_SHAPE).astype(np.float32)
-    b = STEP_SHAPE[0]
+    x = rng.random(shape).astype(np.float32)
+    y = rng.integers(0, 200, shape[0]).astype(np.int32)
+    noise = rng.uniform(-EPS, EPS, shape).astype(np.float32)
+    b = shape[0]
     kind = jmethods.canonical_method(method)
-    n_port, jax_order = port_forwards(kind, PGD_STEPS)
-    draws = square_draws(n_port if arch.endswith("_square") else 0, STEP_SHAPE)
+    n_port, jax_order = port_forwards(kind, pgd_steps)
+    draws = square_draws(n_port if arch.endswith("_square") else 0, shape,
+                         n_queries=(ee_args or EE_ARGS).get("n_queries", 1))
     drng = np.random.default_rng(1)
-    gauss = drng.standard_normal(STEP_SHAPE).astype(np.float32)
+    gauss = drng.standard_normal(shape).astype(np.float32)
     gate = np.float32(drng.random())
     tgt_offs = drng.integers(1, 200, b).astype(np.int32)
     mix_offs = drng.integers(1, 200, (b, 200)).astype(np.int32)
     w = drng.random((b, 1, 1, 1)).astype(np.float32)
-    pre = square_draws(1, STEP_SHAPE, seed=8)
+    pre = square_draws(1, shape, seed=8)
     cap_j = {}
 
     # ---- JAX: the jitted step; the fakes trace once per (unrolled) call ----
@@ -249,7 +290,7 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
         {(b,): tgt_offs, (b, 200): mix_offs}[tuple(shape)]))
     monkeypatch.setattr(jax.random, "uniform", uniform)
     monkeypatch.setattr(jmethods, "pgd_linf", _jax_spy(cap_j))
-    common = dict(epsilon=EPS, num_steps=PGD_STEPS, step_size=STEP_SIZE,
+    common = dict(epsilon=EPS, num_steps=pgd_steps, step_size=STEP_SIZE,
                   num_classes=200, **fields)
     mcfg_j = jmethods.MethodConfig(method, **common)
     step_j = jtrainer.build_train_step(ops_j, mcfg_j, jtrainer.OptimConfig(MOMENTUM, WD))
