@@ -21,7 +21,10 @@
    call's time: K1/K2 and K3a/K3b at 100 x 3 x 64 x 64
    float32 (with constant patches and saturated pixels), K1/K2 also at
    ImageNet's 224 px (square on) with 8 images (56 blocks, under half the
-   SMs) and with free-AT's batch of 256, K3a/K3b also with ImageNet's batch
+   SMs) and with free-AT's batch of 256, and at phase l's two shapes:
+   50 x 1 x 28 x 28 (MNIST's one channel, r 4, the square at eps 0.3) and
+   100 x 3 x 64 x 64 with no square (the AWP configs' BPDA-3 front-end),
+   K3a/K3b also with ImageNet's batch
    of 128 at 224 px, each beside its bound and its plain version's time;
    K3a/K3b in bfloat16 at fast-AT phase 1's 256 x 3 x 128 x 128 (all four
    outputs exactly the plain version's, dx within the bf16 limits below);
@@ -110,10 +113,20 @@
       map on K3a/K3b in bfloat16). Each: a finite loss, exact launch counts
       (none for k1-k3, whose front-ends are plain PyTorch), ms/step and peak
       memory, and the reference below.
-5. The reference, for slices a to d and k: the trained weights on a small
+   l. the rest of the model zoo through the driver at full width, 2 train
+      steps and 1 validation batch each, float32: l1. the 7 MNIST configs
+      (Net2, Net2_EE, Net2_EE_square; bs50, 28 x 28 x 1, PGD-40), K1/K2
+      41/40 a step for Net2_EE_square; l2. the denoising ResNet-18's two
+      ImageNet configs (tarFD, tarFD_trick; 224 px, bs256, targeted
+      PGD-10); l3. the 5 AWP configs (PreActResNet18, _EE, _EE_BPDA,
+      _EE_BPDA_3 at 64 px bs100, and the CIFAR-100 stem at 32 px bs128;
+      PGD-10), K1/K2 12/10 a step for _EE_BPDA_3 (the attack, the proxy's
+      and the robust forward). Each: a finite loss, exact launch counts,
+      ms/step, peak memory and the reference below.
+5. The reference, for slices a to d, k and l: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
-   the JAX package).
+   the JAX package), in eval mode (the denoising ResNet in train mode).
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Any failure raises: the exit
@@ -245,6 +258,18 @@ BENCH_REPS = 5
 # K1/K2's further checks: ImageNet's 224 px, which the row-band kernels
 # take, on a few images and at free-AT's batch
 LARGE_SHAPES = ((8, 3, 224, 224), (256, 3, 224, 224))
+# the flagship's front-end constants (FusedConsts fields)
+FLAGSHIP_CONSTS = dict(r=8, eps=0.062745098039216, w=1.0, alpha=0.0,
+                       high=76.0 / 255.0, sigma=1.0, square=True)
+# K1/K2 at phase l's shapes: mnist/ee_at_bpda3_square.yml (Net2_EE_square,
+# one channel at 28 px, r 4, the square at eps 0.3, alpha 0.3, high 51) and
+# awp_tiny_imagenet/ee_bpda_3_at_awp.yml (PreActResNet18_EE_BPDA_3 at 64 px,
+# r 8, no square)
+ZOO_SHAPES = (
+    ((50, 1, 28, 28), dict(r=4, eps=0.3, w=1.0, alpha=0.3, high=51.0 / 255.0,
+                           sigma=1.0, square=True), "at_50x1x28x28"),
+    ((100, 3, 64, 64), dict(FLAGSHIP_CONSTS, eps=16 / 255, square=False),
+     "at_100x3x64x64_no_square"))
 # K1/K2 bfloat16: fast-AT's phase 1 (128 px, its slice's shape) first, then
 # phases 2 and 3 (fast_*_phase2_ee.yml, fast_*_phase3_ee.yml), the evaluate
 # config's batch at 288 px (fast_*_evaluate_ee.yml), a few images at 224 px,
@@ -270,6 +295,28 @@ VARIANTS = (
      ("canny_fused_fwd", "canny_fused_bwd", (11, 10))),
     ("k5_fast_gf", os.path.join(CONFIGS, "fast_imagenet", "fast_2px_phase1_ee.yml"),
      dict(gf=True), IMAGENET_ARGS, ("canny_fused_fwd_bf16", "canny_fused_bwd_bf16", (2, 1))))
+# l: (tag, config, driver arguments, K1/K2 launches a train step as a
+# function of the attack's K, or None where the front-end is plain PyTorch
+# or absent). The AWP step runs K attack forwards with K input gradients,
+# the proxy's and the robust forward (no input gradient: the front-end has
+# no parameters), so K + 2 and K.
+MNIST_ARGS = dict(data="synthetic", synthetic_size=100, epochs=1, limit_batches=2,
+                  device="cuda")
+AWP_ARGS = dict(data="synthetic", synthetic_size=200, epochs=1, limit_batches=2,
+                device="cuda")
+ZOO_RUNS = (
+    *((f"l1_mnist_{n}", os.path.join(CONFIGS, "mnist", f"{n}.yml"), MNIST_ARGS,
+       (lambda k: (k + 1, k)) if n == "ee_at_bpda3_square" else None)
+      for n in ("standard_training", "adversarial_training", "alp_training", "avmixup",
+                "trades_training", "ee_at_training", "ee_at_bpda3_square")),
+    *((f"l2_{n}", os.path.join(CONFIGS, "imagenet", f"{n}.yml"), IMAGENET_ARGS, None)
+      for n in ("targeted_feature_denoising_training",
+                "targeted_feature_denoising_trick_training")),
+    *((f"l3_{n}", os.path.join(CONFIGS, "awp_tiny_imagenet", f"{n}.yml"), AWP_ARGS,
+       (lambda k: (k + 2, k)) if n == "ee_bpda_3_at_awp" else None)
+      for n in ("at_awp", "ee_at_awp", "ee_bpda_at_awp", "ee_bpda_3_at_awp")),
+    ("l3_cifar100_at_awp", os.path.join(CONFIGS, "awp_cifar100", "at_awp.yml"),
+     dict(AWP_ARGS, synthetic_size=256), None))
 # k1: the full Canny's edge map, card against CPU, on a batch of 100 at
 # 64 px. Its NMS bins atan(gy / gx), and CUDA's atan is not glibc's: a pixel
 # whose angle sits on a bin's edge can land in the other bin (and the
@@ -368,11 +415,13 @@ def _patched_input(torch, dev, shape=(100, 3, 64, 64)):
     return torch.from_numpy(x).to(dev)
 
 
-def _front_end_case(torch, shape):
-    """K1 and K2 against their plain versions at `shape`, the square on:
-    the errors, the times and the bounds. K2 is held against the plain
-    adjoint and against autograd of the plain forward (given the plain
-    forward's y, so both sides see the same clip mask)."""
+def _front_end_case(torch, shape, consts=None):
+    """K1 and K2 against their plain versions at `shape`, with the
+    front-end constants `consts` (FusedConsts fields; default the
+    flagship's, the square on): the errors, the times and the bounds. K2 is
+    held against the plain adjoint and against autograd of the plain
+    forward (given the plain forward's y, so both sides see the same clip
+    mask)."""
     from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
     from edge_enhancement_tpu_torch.ops.square import (add_square_draws,
                                                        kernel_layout)
@@ -381,10 +430,10 @@ def _front_end_case(torch, shape):
     x = _patched_input(torch, dev, shape)
     b, c, h, w = shape
     gen = torch.Generator(device=dev).manual_seed(0)
-    eps = 0.062745098039216
-    st, sqd = kernel_layout(add_square_draws((b, h, w, c), gen), eps)
-    k = F.FusedConsts(r=8, eps=eps, w=1.0, alpha=0.0, high=76.0 / 255.0,
-                      sigma=1.0, square=True)
+    k = F.FusedConsts(**(consts or FLAGSHIP_CONSTS))
+    st = sqd = None
+    if k.square:
+        st, sqd = kernel_layout(add_square_draws((b, h, w, c), gen), k.eps)
     u = torch.randn(x.shape, generator=gen, device=dev)
 
     out_k, y_k = F.ee_fused_fwd(x, st, sqd, k)
@@ -402,7 +451,7 @@ def _front_end_case(torch, shape):
     torch.cuda.synchronize()
     auto_err = (dx_ka - g_auto).abs().max().item()
     finite = all(bool(torch.isfinite(t).all()) for t in (out_k, y_k, dx_k))
-    tag = "x".join(map(str, shape))
+    tag = "x".join(map(str, shape)) + ("" if k.square else ", no square")
     print(f"[kernels] at ({tag}): K1 vs plain: max |err| {fwd_err:.3e} (limit "
           f"{FWD_TOL}); K2 vs plain adjoint: {bwd_err:.3e}, vs autograd of plain "
           f"forward: {auto_err:.3e} (limit {BWD_TOL}); max |dx| "
@@ -418,7 +467,7 @@ def _front_end_case(torch, shape):
     # 2 H^2 W and two of 2 H W^2 FLOPs, on the FP32 pipes (the stencils add
     # < 1%); bytes: each operand read once and each output written once
     flops = b * c * (4 * h * h * w + 4 * h * w * w)
-    ops = F.operators(h, w, 8, 1.0, dev)
+    ops = F.operators(h, w, k.r, k.sigma, dev)
     b1 = bound(_nbytes(x, st, sqd, *ops, out_k, y_k), flops, PEAK_F32)
     b2 = bound(_nbytes(u, x, y_k, st, sqd, *ops, dx_k), flops, PEAK_F32)
     print(f"[kernels] at ({tag}), ms per launch on the device (eager call in "
@@ -433,12 +482,14 @@ def _front_end_case(torch, shape):
 
 
 def kernel_phase(torch):
-    """K1 and K2 at the slice's shape, and at ImageNet's 224 px."""
+    """K1 and K2 at the slice's shape, at ImageNet's 224 px, and at phase
+    l's two new shapes (MNIST's one channel, the AWP config's no square)."""
     k1, k2 = _front_end_case(torch, (100, 3, 64, 64))
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
-    for shape in LARGE_SHAPES:
-        l1, l2 = _front_end_case(torch, shape)
-        at = "at_" + "x".join(map(str, shape))
+    cases = [(shape, None, "at_" + "x".join(map(str, shape))) for shape in LARGE_SHAPES]
+    cases += list(ZOO_SHAPES)
+    for shape, consts, at in cases:
+        l1, l2 = _front_end_case(torch, shape, consts)
         k1[at] = {k: l1[k] for k in keys}
         k2[at] = {k: l2[k] for k in keys}
     src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
@@ -1394,25 +1445,38 @@ def reference_phase(torch, cfg, checkpoint):
     path against the CPU's, on the same weights and square draws."""
     import numpy as np
 
+    from edge_enhancement_tpu_torch.data.datasets import SPECS
+    from edge_enhancement_tpu_torch.models.ee_frontend import CANNY_VARIANTS
     from edge_enhancement_tpu_torch.models.registry import build_model
     from edge_enhancement_tpu_torch.ops.square import add_square_draws
 
     state = torch.load(checkpoint, map_location="cpu")["state_dict"]
     if not all(bool(torch.isfinite(v).all()) for v in state.values()):
         fail("checkpoint holds non-finite weights")
-    num_classes = state["fc.weight"].shape[0]
+    spec = SPECS[cfg["dataset"]]
     size = int(cfg["cize"])
     n = 8 if size <= 64 else 4
     tol = REF_TOL_BF16 if cfg.get("half") else REF_TOL
-    x = torch.from_numpy(
-        np.random.default_rng(1).random((n, size, size, 3)).astype(np.float32))
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (n, size, size, spec.channels)).astype(np.float32))
     draws = add_square_draws(x.shape, torch.Generator().manual_seed(1),
                              n_queries=int(cfg.get("n_queries", 1)))
-    if "_EE" in cfg["arch"] and cfg.get("type_canny", "CannyFilter") in (
-            "CannyFilter", "CannyFilter_BPDA"):
-        from edge_enhancement_tpu_torch.models.ee_frontend import CANNY_VARIANTS
-        from edge_enhancement_tpu_torch.models.registry import _ee_from_args
-        ee = _ee_from_args(cfg, square=False)
+    # The denoising blocks' eval-mode output grows as the cube of their
+    # input while the running statistics still hold their init after 2
+    # steps: eval-mode logits reach 1e14 or overflow (the JAX model's
+    # too), so a resnet*_fd is held in train mode (batch statistics).
+    train = cfg["arch"].endswith("_fd")
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg["arch"], cfg, spec.num_classes,
+                            square_source=lambda shape, d=dev, **_: tuple(
+                                t.to(d) for t in draws))
+        model.load_state_dict(state)
+        model.to(dev).train(train)
+        with torch.no_grad():
+            logits[dev] = model(x.to(dev)).cpu()
+    ee = getattr(model, "ee", None)
+    if ee is not None and ee.type_canny in CANNY_VARIANTS:
         xc = x.permute(0, 3, 1, 2)
         edges = [CANNY_VARIANTS[ee.type_canny](xc.to(d), ee.low_scaled, ee.high_scaled,
                                                hysteresis=True, sigma=ee.sigma,
@@ -1421,25 +1485,71 @@ def reference_phase(torch, cfg, checkpoint):
         print(f"[reference] {ee.type_canny} edge maps of the reference batch, card vs "
               f"CPU: {flips} pixels differ", flush=True)
         tol = REF_TOL if flips == 0 else REF_TOL_FLIP
-    logits = {}
-    for dev in ("cpu", "cuda"):
-        model = build_model(cfg["arch"], cfg, num_classes,
-                            square_source=lambda shape, d=dev, **_: tuple(
-                                t.to(d) for t in draws))
-        model.load_state_dict(state)
-        model.to(dev).eval()
-        with torch.no_grad():
-            logits[dev] = model(x.to(dev)).cpu()
+    num_classes = logits["cpu"].shape[1]
     scale = max(1.0, logits["cpu"].abs().max().item())
     err = (logits["cuda"] - logits["cpu"]).abs().max().item() / scale
-    print(f"[reference] {cfg['arch']} {cfg['method_name']} gf={bool(cfg.get('gf'))} "
-          f"half={bool(cfg.get('half'))} type_canny {cfg.get('type_canny', 'CannyFilter')} "
+    print(f"[reference] {cfg['arch']} {cfg['method_name']} "
+          f"{'train' if train else 'eval'} mode gf={bool(cfg.get('gf'))} "
+          f"half={bool(cfg.get('half'))} type_canny "
+          f"{ee.type_canny if ee is not None else None} "
           f"n_queries {cfg.get('n_queries', 1)}: logits {tuple(logits['cuda'].shape)} on "
-          f"{n}x{size}x{size}x3, card vs CPU: max |err| / max(1, max |logit|) "
+          f"{n}x{size}x{size}x{spec.channels}, card vs CPU: max |err| / max(1, max |logit|) "
           f"{err:.3e} (limit {tol}), max |logit| {scale:.3f}", flush=True)
     if (logits["cuda"].shape != (n, num_classes)
             or not bool(torch.isfinite(logits["cuda"]).all()) or err > tol):
         fail("the card's logits disagree with the CPU reference")
+
+
+def zoo_phase(torch, kernels, device_line) -> None:
+    """l. The rest of the model zoo through the port's driver at full
+    width, 2 train steps and 1 validation batch each (ZOO_RUNS): l1 the 7
+    MNIST configs, l2 the denoising ResNet, l3 the 5 AWP configs. Each: a
+    finite loss, exact launch counts of its front-end pair (none where the
+    front-end is plain PyTorch or absent), ms/step and peak memory, and the
+    reference."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    total = {}
+    for tag, path, args, per_step in ZOO_RUNS:
+        cfg = load_config(path, dict(args, output=_out_dir(f"zoo/{tag}")))
+        k = int(cfg["num_steps_1"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.time()
+        summary = run(cfg)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+        want = {}
+        if per_step is not None:
+            f_step, b_step = per_step(k)
+            want = {"ee_fused_fwd": steps * f_step + evals * (k + 2),
+                    "ee_fused_bwd": steps * b_step + evals * k}
+        secs = summary["step_seconds"]
+        ms = 1000.0 * sorted(secs[1:] or secs)[len(secs[1:] or secs) // 2]
+        print(f"[slice {tag}] {cfg['arch']} {cfg['method_name']} {cfg['dataset']} "
+              f"{cfg['cize']} px bs{cfg['batch_size']} f32, PGD-{k}"
+              f"{', AWP gamma ' + str(cfg['awp_gamma']) if cfg.get('awp_gamma') else ''}: "
+              f"{steps} train steps, {evals} eval batch; loss {summary['loss']:.4f}; train "
+              f"step ms {[round(1000 * s_, 1) for s_ in secs]}, {ms:.1f} ms/step after the "
+              f"first = {int(cfg['batch_size']) / ms * 1000:.1f} img/s; run {wall:.1f} s; "
+              f"peak device memory {peak_gb:.2f} GB; on {device_line}", flush=True)
+        _check_launches(tag, launches, want)
+        if steps != 2 or evals != 1:
+            fail(f"{tag}: expected 2 train steps and 1 eval batch, got {steps}, {evals}")
+        if not math.isfinite(summary["loss"]):
+            fail(f"{tag}: loss {summary['loss']} is not finite")
+        if cfg.get("half"):
+            fail(f"{tag}: phase l's configs are float32 recipes")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        reference_phase(torch, cfg, summary["checkpoint"])
+        shutil.rmtree(cfg["output"])
+    _record_launches(kernels, "zoo", total)
 
 
 def main():
@@ -1470,6 +1580,7 @@ def main():
     aa_card_vs_cpu_phase(torch, checkpoints[False])
     restart_pgd_phase(torch, kernels, smi, checkpoints[False])
     variants_phase(torch, kernels, smi)
+    zoo_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):

@@ -1,18 +1,26 @@
 """Datasets the port's driver reads, as edge_enhancement_tpu/data/datasets.py:
-the synthetic sets, and Tiny-ImageNet image folders decoded with PIL.
+the synthetic sets, MNIST's idx files (plain or .gz), CIFAR-100's pickle
+batches, and Tiny-ImageNet image folders decoded with PIL.
 
 Batches are NHWC, uint8 or float32 in [0, 1] (no normalisation), in the
 same order and with the same augmentation draws as the JAX package for a
-given (seed, epoch): both consume one numpy stream the same way. Tiny-
-ImageNet trains with hflip only and reads its validation split either as
-class folders or in the raw val/images + val_annotations.txt layout.
-MNIST, CIFAR-100 and ImageNet folders are not ported yet and raise.
+given (seed, epoch): both consume one numpy stream the same way. MNIST
+trains without augmentation; CIFAR-100 with the pad-4 random crop, hflip
+and a random rotation of up to 15 degrees (`cifar_augment`, in numpy, in
+the arithmetic of the JAX package's native runtime, runtime/eedata.cpp);
+Tiny-ImageNet with hflip only, its validation split read either as class
+folders or in the raw val/images + val_annotations.txt layout. ImageNet
+folders are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import math
 import os
+import pickle
+import struct
 from typing import Iterator, Optional
 
 import numpy as np
@@ -56,14 +64,17 @@ def _hflip(imgs: np.ndarray, flags: np.ndarray) -> np.ndarray:
 
 
 class ArrayDataset:
-    """Images (N, H, W, C) uint8 and labels (N,) int32 in memory."""
+    """Images (N, H, W, C) uint8 and labels (N,) int32 in memory;
+    `augment(imgs, rng)`, where given, transforms each gathered uint8 batch
+    with the epoch's numpy generator (the one that shuffled it)."""
 
-    def __init__(self, images: np.ndarray, labels: np.ndarray):
+    def __init__(self, images: np.ndarray, labels: np.ndarray, augment=None):
         if images.ndim != 4 or images.dtype != np.uint8:
             raise ValueError(f"images must be (N, H, W, C) uint8, got "
                              f"{images.dtype} {images.shape}")
         self.images = images
         self.labels = labels.astype(np.int32)
+        self.augment = augment
 
     def __len__(self):
         return len(self.images)
@@ -73,13 +84,124 @@ class ArrayDataset:
                 as_uint8: bool = False
                 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         """Yield NHWC batches: float32 in [0, 1], or the raw uint8 pixels."""
-        _, idx = _index_order(len(self), shuffle, seed, epoch)
+        rng, idx = _index_order(len(self), shuffle, seed, epoch)
         for s in _batch_starts(len(idx), batch_size, drop_last):
             take = idx[s:s + batch_size].astype(np.int64)
             imgs = self.images[take]
+            if self.augment is not None:
+                imgs = self.augment(imgs, rng)
             if not as_uint8:
                 imgs = imgs.astype(np.float32) / 255.0
             yield imgs, self.labels[take]
+
+
+# --------------------------------------------------------------------------
+# CIFAR augmentation
+# --------------------------------------------------------------------------
+
+def pad_crop(imgs: np.ndarray, pad: int, oy: np.ndarray, ox: np.ndarray) -> np.ndarray:
+    """Zero-pad each image by `pad` and crop its own size at (oy, ox), as
+    torchvision's RandomCrop(size, padding=pad)."""
+    n, h, w, _ = imgs.shape
+    padded = np.pad(imgs, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    out = np.empty_like(imgs)
+    for i in range(n):
+        out[i] = padded[i, oy[i]:oy[i] + h, ox[i]:ox[i] + w]
+    return out
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once: the product is exact in float64."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def rotate(imgs: np.ndarray, angles: np.ndarray) -> np.ndarray:
+    """Rotate each image by angles[i] degrees about its centre, bilinear,
+    zero fill (torchvision's RandomRotation, expand=False), in float32 as
+    the JAX package's native ee_rotate_bilinear computes it with FMA
+    contraction: source coordinates sy = fma(sin, dx, cos dy) + cy and
+    sx = fma(cos, dx, -sin dy) + cx; the four taps summed as
+    fma(v11 ... fma(v10 ..., fma(v00 (1 - fy), 1 - fx, v01 (1 - fy) fx)));
+    + 0.5, truncated to uint8."""
+    f32 = np.float32
+    n, h, w, _ = imgs.shape
+    cy, cx = f32((h - 1) * 0.5), f32((w - 1) * 0.5)
+    yy, xx = np.mgrid[0:h, 0:w]
+    dy, dx = yy.astype(f32) - cy, xx.astype(f32) - cx
+    out = np.zeros_like(imgs)
+    one = f32(1.0)
+    for i in range(n):
+        a = f32(angles[i]) * f32(math.pi) / f32(180.0)
+        ca, sa = f32(math.cos(a)), f32(math.sin(a))
+        sy = _fma(sa, dx, ca * dy) + cy
+        sx = _fma(ca, dx, -sa * dy) + cx
+        inside = (sy >= 0) & (sy <= h - 1) & (sx >= 0) & (sx <= w - 1)
+        y0 = np.where(inside, sy, 0).astype(np.int64)
+        x0 = np.where(inside, sx, 0).astype(np.int64)
+        y1, x1 = np.minimum(y0 + 1, h - 1), np.minimum(x0 + 1, w - 1)
+        fy = (sy - y0.astype(f32))[..., None]
+        fx = (sx - x0.astype(f32))[..., None]
+        src = imgs[i].astype(f32)
+        top, bottom = one - fy, fy
+        acc = (src[y0, x1] * top) * fx
+        acc = _fma(src[y0, x0] * top, one - fx, acc)
+        acc = _fma(src[y1, x0] * bottom, one - fx, acc)
+        acc = _fma(src[y1, x1] * bottom, fx, acc)
+        v = np.clip(acc + f32(0.5), 0.0, 255.0).astype(np.uint8)
+        out[i] = np.where(inside[..., None], v, 0)
+    return out
+
+
+def cifar_augment(imgs: np.ndarray, rng) -> np.ndarray:
+    """RandomCrop(32, padding=4), hflip, RandomRotation(15), the draws taken
+    in the JAX package's order: the crop offsets oy then ox, the flips,
+    the angles."""
+    n = len(imgs)
+    oy = rng.integers(0, 9, size=n).astype(np.int32)
+    ox = rng.integers(0, 9, size=n).astype(np.int32)
+    out = pad_crop(imgs, 4, oy, ox)
+    out = _hflip(out, rng.random(n) < 0.5)
+    angles = rng.uniform(-15, 15, size=n).astype(np.float32)
+    return rotate(out, angles)
+
+
+# --------------------------------------------------------------------------
+# MNIST and CIFAR-100 files
+# --------------------------------------------------------------------------
+
+def read_idx(path: str) -> np.ndarray:
+    """An idx file (MNIST's format; gzip-compressed when it ends in .gz)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        _, _, ndim = struct.unpack(">HBB", f.read(4))
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
+def load_mnist(root: str, train: bool) -> ArrayDataset:
+    """{train,t10k}-{images-idx3,labels-idx1}-ubyte[.gz] under root,
+    root/MNIST/raw or root/raw."""
+    split = "train" if train else "t10k"
+    for base in (root, os.path.join(root, "MNIST", "raw"), os.path.join(root, "raw")):
+        img_p = os.path.join(base, f"{split}-images-idx3-ubyte")
+        lab_p = os.path.join(base, f"{split}-labels-idx1-ubyte")
+        for suffix in ("", ".gz"):
+            if os.path.exists(img_p + suffix):
+                return ArrayDataset(read_idx(img_p + suffix)[..., None],
+                                    read_idx(lab_p + suffix))
+    raise FileNotFoundError(f"MNIST idx files not found under {root!r}")
+
+
+def load_cifar100(root: str, train: bool) -> ArrayDataset:
+    """The pickled `train` / `test` batch under root or
+    root/cifar-100-python: fine labels; the train split augmented."""
+    base = (root if os.path.exists(os.path.join(root, "train"))
+            else os.path.join(root, "cifar-100-python"))
+    with open(os.path.join(base, "train" if train else "test"), "rb") as f:
+        d = pickle.load(f, encoding="bytes")
+    imgs = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).copy()
+    return ArrayDataset(imgs, np.asarray(d[b"fine_labels"]),
+                        augment=cifar_augment if train else None)
 
 
 # --------------------------------------------------------------------------
@@ -244,6 +366,10 @@ def get_dataset(name: str, root: Optional[str], train: bool,
     if root == "synthetic-hard":
         n = synthetic_size or (100000 if train else 10000)
         return synthetic_hard_dataset(spec, n, seed=0 if train else 1), spec
+    if name == "mnist":
+        return load_mnist(root, train), spec
+    if name == "cifar100":
+        return load_cifar100(root, train), spec
     if name != "tiny_imagenet":
         raise NotImplementedError(f"the {name} loader is not ported yet")
     sub = os.path.join(root, "train" if train else "val")

@@ -16,9 +16,11 @@ The JAX functions run the clean train-mode forward of ALP and TRADES twice
 from the same statistics and key (a stop-gradient pass that moves the
 statistics, then the gradient pass); this stateful port runs it once, with
 the graph, and keeps that graph across the eval-mode attack, so the
-running statistics move once and the square draws once on both sides. The
-forwards after it in eval mode read the statistics it wrote and save them
-for the backward; no later forward writes them before the backward.
+running statistics move once and the square draws once on both sides, and
+a model with dropout draws one mask for it, the mask that JAX's two passes
+share (same key). The forwards after it in eval mode read the statistics
+it wrote and save them for the backward; no later forward writes them
+before the backward.
 
 The objective's own draws (target offsets, tarAVmixup's offsets, AVmixup's
 mixing weights, pre_square's square draws) are methods of `Objective`,

@@ -21,7 +21,10 @@ and matmuls), as the JAX package's does; the bf16 policy leaves TF32 as it
 is. `--resume <ckpt dir or .pth>` continues at the checkpoint's epoch (with
 free-AT's replay noise), `--pretrained <torchvision .pth>` warm-starts the
 backbone, and `--evaluate` runs the PGD tiers num_steps_k/step_size_k
-(k = 1, 2, 3) of the config and returns. AWP is not ported and raises.
+(k = 1, 2, 3) of the config and returns. A config with `awp_gamma` trains
+with the AWP step (objectives/awp.py), its learning rate set every
+minibatch at epoch + (i + 1) / n_batches, the perturbation off for the
+first `awp_warmup` epochs.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ import numpy as np
 import torch
 
 from ..data.datasets import get_dataset
+from ..models.cnn_mnist import dropout_keep
 from ..models.registry import build_model, dtype_from_args
+from ..objectives.awp import AWPConfig, build_awp_train_step
 from ..objectives.free_fast import (FreeFastConfig, build_fast_train_step,
                                    build_free_train_step, init_noise)
 from ..objectives.methods import MethodConfig
@@ -111,11 +116,21 @@ def epoch_lr(cfg, epoch: float) -> float:
 def _check_ported(cfg) -> None:
     if cfg.get("attack_method", "PGD") not in ("PGD", "FGSM", "CW", "none"):
         raise NotImplementedError(f"eval attack {cfg['attack_method']!r} is not ported")
-    for key in ("awp_gamma", "profile", "platform"):
+    for key in ("profile", "platform"):
         if cfg.get(key):
             raise NotImplementedError(f"{key} is not ported")
     if int(cfg.get("steps_per_dispatch") or 1) != 1:
         raise NotImplementedError("steps_per_dispatch > 1 is not ported")
+
+
+def awp_config(cfg) -> Optional[AWPConfig]:
+    """The config's AWP settings, None without `awp_gamma`."""
+    if cfg.get("awp_gamma") is None:
+        return None
+    return AWPConfig(gamma=float(cfg["awp_gamma"]),
+                     warmup=int(cfg.get("awp_warmup", 0)),
+                     proxy_lr=float(cfg.get("awp_proxy_lr", 0.01)),
+                     l1=float(cfg.get("l1", 0.0)))
 
 
 def run_device(cfg) -> torch.device:
@@ -237,13 +252,15 @@ def build(cfg, num_classes: int, device):
     """The config's model on `device` (weights from a CPU generator seeded
     with the config's seed, the same on every device), its ModelOps, a
     fresh train state and the run's generator on the device (square draws,
-    attack noise)."""
+    dropout masks, attack noise)."""
     seed = int(cfg.get("seed", 1))
     init_gen = torch.Generator().manual_seed(seed)
     run_gen = torch.Generator(device=device).manual_seed(seed)
     model = build_model(cfg["arch"], cfg, num_classes,
                         square_source=functools.partial(add_square_draws,
                                                         generator=run_gen),
+                        dropout_source=functools.partial(dropout_keep,
+                                                         generator=run_gen),
                         generator=init_gen).to(device)
     ops = ModelOps(model)
     return ops, create_train_state(model), run_gen
@@ -315,8 +332,14 @@ def run(cfg) -> dict:
 
     opt = OptimConfig(momentum=float(cfg.get("momentum", 0.9)),
                       weight_decay=float(cfg.get("weight_decay", 0.0)))
-    train_step = build_train_step(ops, make_method_config(cfg, num_classes), opt,
-                                  run_gen)
+    method = make_method_config(cfg, num_classes)
+    awp = awp_config(cfg)
+    if awp is None:
+        train_step = build_train_step(ops, method, opt, run_gen)
+    else:
+        awp_step = build_awp_train_step(ops, method, opt, awp, run_gen)
+        log(f"=> AWP: gamma {awp.gamma}, warmup {awp.warmup} epochs, proxy lr "
+            f"{awp.proxy_lr}, l1 {awp.l1}; learning rate set every minibatch")
     eval_step = build_eval_step(ops, eval_attack(cfg, num_classes), run_gen)
 
     batch_size = int(cfg["batch_size"])
@@ -324,12 +347,17 @@ def run(cfg) -> dict:
     loss = math.nan
     for epoch in range(start_epoch, int(cfg["epochs"])):
         lr = epoch_lr(cfg, epoch)
-        steps = _Steps(log, epoch, len(train_ds) // batch_size,
-                       int(cfg.get("print_freq", 50)), summary)
+        n_batches = len(train_ds) // batch_size
+        steps = _Steps(log, epoch, n_batches, int(cfg.get("print_freq", 50)),
+                       summary)
         for i, x, y in _batches(train_ds, batch_size, seed, epoch, limit):
             steps.loaded()
-            m = train_step(state, torch.from_numpy(x).to(device),
-                           torch.from_numpy(y).to(device), lr)
+            x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+            if awp is None:
+                m = train_step(state, x, y, lr)
+            else:
+                lr = epoch_lr(cfg, epoch + (i + 1) / max(n_batches, 1))
+                m = awp_step(state, x, y, lr, 1.0 if epoch >= awp.warmup else 0.0)
             loss = steps.done(i, m, len(y))
         t0 = time.time()
         prec1, _, n_eval = run_validation(log, eval_step, state, val_ds,

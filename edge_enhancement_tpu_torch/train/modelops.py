@@ -3,11 +3,13 @@ and label-smoothed cross-entropies, batch-mean KL), as
 edge_enhancement_tpu/train/modelops.py.
 
 Train mode normalises with batch statistics and moves the running
-statistics on EVERY forward, including those inside a train-mode attack;
-eval mode uses the running statistics. The square front-end draws fresh
-randomness in both modes, unless an eval-mode forward is handed draws
-(the attacks of attacks/autoattack.py share one draw between forwards
-that JAX runs under one key).
+statistics on EVERY forward, including those inside a train-mode attack,
+and drops features where the model has dropout (the MNIST CNNs), a fresh
+mask from the model's `dropout_source` each forward; eval mode uses the
+running statistics and drops nothing. The square
+front-end draws fresh randomness in both modes, unless an eval-mode
+forward is handed draws (the attacks of attacks/autoattack.py share one
+draw between forwards that JAX runs under one key).
 """
 
 from __future__ import annotations

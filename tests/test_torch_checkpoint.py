@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_port_helpers as helpers
+from torch_checkpoints import drop_written_checkpoints  # noqa: F401  (autouse)
 from edge_enhancement_tpu.models import ee_frontend as jee
 from edge_enhancement_tpu.models.registry import build_model as jax_build_model
 from edge_enhancement_tpu.train import checkpoint as jckpt

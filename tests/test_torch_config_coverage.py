@@ -46,21 +46,20 @@ ACCEPTED = sorted(FAST + [
     "tiny_imagenet/ee_at_square.yml", "tiny_imagenet/ee_at_training.yml",
     "tiny_imagenet/ee_at_u2netp.yml", "tiny_imagenet/processing_ee_at_square.yml",
     "tiny_imagenet/targeted_ee_training.yml",
-])
-# what refuses the others
-REFUSED = {
-    # AWP (ROADMAP M17): the driver
-    "awp_cifar100/at_awp.yml": "awp_gamma", "awp_tiny_imagenet/at_awp.yml": "awp_gamma",
-    "awp_tiny_imagenet/ee_at_awp.yml": "awp_gamma",
-    "awp_tiny_imagenet/ee_bpda_3_at_awp.yml": "awp_gamma",
-    "awp_tiny_imagenet/ee_bpda_at_awp.yml": "awp_gamma",
-    # the MNIST CNNs and the denoising ResNet (M16): the registry
-    **{f"mnist/{n}.yml": "arch" for n in (
+    # the MNIST CNNs (Net2, Net2_EE, Net2_EE_square) on the MNIST loader
+    *(f"mnist/{n}.yml" for n in (
         "adversarial_training", "alp_training", "avmixup", "ee_at_bpda3_square",
-        "ee_at_training", "standard_training", "trades_training")},
-    "imagenet/targeted_feature_denoising_training.yml": "arch",
-    "imagenet/targeted_feature_denoising_trick_training.yml": "arch",
-}
+        "ee_at_training", "standard_training", "trades_training")),
+    # the denoising ResNet
+    "imagenet/targeted_feature_denoising_training.yml",
+    "imagenet/targeted_feature_denoising_trick_training.yml",
+    # AWP on the PreActResNets (the CIFAR-100 one on the CIFAR-100 loader)
+    "awp_cifar100/at_awp.yml", "awp_tiny_imagenet/at_awp.yml",
+    "awp_tiny_imagenet/ee_at_awp.yml", "awp_tiny_imagenet/ee_bpda_3_at_awp.yml",
+    "awp_tiny_imagenet/ee_bpda_at_awp.yml",
+])
+# what refuses the others: none is refused
+REFUSED = {}
 
 
 def refusal(path: str):
@@ -87,7 +86,7 @@ def test_config_coverage():
     found = {n: refusal(p) for n, p in zip(names, paths)}
     accepted = sorted(n for n, why in found.items() if why is None)
     assert accepted == ACCEPTED
-    assert len(accepted) == 43 and len(REFUSED) == 14
+    assert len(accepted) == 57 and len(REFUSED) == 0
     for n, why in found.items():
         if why is not None:
             assert REFUSED[n] in why, (n, why)

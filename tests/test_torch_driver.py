@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_checkpoints import drop_checkpoints, drop_written_checkpoints  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "edge_enhancement_tpu", "configs", "tiny_imagenet",
                       "ee_at_bpda3_square.yml")
@@ -64,7 +66,8 @@ def test_driver_runs_gf_on_cpu(tmp_path):
     ({"device": "cuda"}, RuntimeError),
     # the full Canny runs in float32 only
     ({"type_canny": "CannyFilter", "half": True}, NotImplementedError),
-    ({"awp_gamma": 0.01}, NotImplementedError),
+    # AWP runs now (objectives/awp.py); the multi-step dispatch does not
+    ({"steps_per_dispatch": 2}, NotImplementedError),
     ({"attack_method": "AA"}, NotImplementedError),
 ])
 def test_driver_refuses(override, error):
@@ -135,12 +138,14 @@ SMALL = dict(data="synthetic", synthetic_size=8, batch_size=4, limit_batches=1,
 
 @pytest.fixture(scope="module")
 def flagship_ckpt(tmp_path_factory):
-    """One epoch of the flagship config at a tiny size; its ckpt dir."""
+    """One epoch of the flagship config at a tiny size; its ckpt dir,
+    deleted once the module's tests are done."""
     from edge_enhancement_tpu_torch.train.driver import run
     from edge_enhancement_tpu_torch.utils.config import load_config
     out = tmp_path_factory.mktemp("flagship")
     summary = run(load_config(CONFIG, dict(SMALL, epochs=1, output=str(out))))
-    return os.path.dirname(summary["checkpoint"])
+    yield os.path.dirname(summary["checkpoint"])
+    drop_checkpoints(out)
 
 
 def _small_config(tmp_path, drop=(), **over):

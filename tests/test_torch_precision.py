@@ -10,6 +10,8 @@ import os
 import pytest
 import torch
 
+from torch_checkpoints import drop_written_checkpoints  # noqa: F401  (autouse)
+
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "edge_enhancement_tpu", "configs")
 

@@ -1,5 +1,6 @@
 """Shared pieces of the port-vs-JAX tests (tests/test_torch_*.py): square
-draws made with numpy and replayed on both sides, the JAX ResNet's
+draws made with numpy and replayed on both sides, JAX's dropout masks
+taken out of its forwards and replayed in the port, the JAX model's
 weights carried into the port, and one train step run on both sides and
 compared."""
 
@@ -21,7 +22,7 @@ from edge_enhancement_tpu.train import trainer as jtrainer
 from edge_enhancement_tpu.train.modelops import ModelOps as JaxModelOps
 from edge_enhancement_tpu.train.sgd import init_momentum
 from edge_enhancement_tpu_torch.attacks import pgd as tpgd
-from edge_enhancement_tpu_torch.convert import state_dict_from_jax
+from edge_enhancement_tpu_torch.convert import arch_state_dict_from_jax
 from edge_enhancement_tpu_torch.models import resnet as tresnet
 from edge_enhancement_tpu_torch.models.registry import build_model
 from edge_enhancement_tpu_torch.objectives import methods as tmethods
@@ -32,8 +33,6 @@ from edge_enhancement_tpu_torch.train.modelops import ModelOps
 EPS = 0.062745098039216
 EE_ARGS = dict(r=8, w=1.0, low=38.0, high=76.0, alpha=0.0, sigma=1.0, gf=False,
                type_canny="CannyFilter_step125_1", epsilon=EPS, n_queries=1)
-
-
 def jax_draws(key, shape, n_queries, p_init=0.8, rescale_schedule=False):
     """The draws that JAX's add_square makes from `key`, in the port's
     layout (ops/square.add_square_draws): the same key splits, in order."""
@@ -166,25 +165,58 @@ def to_numpy_tree(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_init(image_shape, arch, seed, ee_items):
+def _jax_init(image_shape, arch, seed, ee_items, num_classes=200):
     """The JAX model's ModelOps and its initial variables, and the port's
     state_dict of them, made once a process (JAX arrays are immutable)."""
-    ops = JaxModelOps(jax_build_model(arch, dict(ee_items), 200))
+    args = dict(ee_items)
+    ops = JaxModelOps(jax_build_model(arch, args, num_classes))
     params, batch_stats = jax.jit(ops.init)(jax.random.PRNGKey(seed),
                                             jnp.zeros((1,) + image_shape, jnp.float32))
-    sd = state_dict_from_jax(to_numpy_tree(params), to_numpy_tree(batch_stats))
+    sd = arch_state_dict_from_jax(arch, to_numpy_tree(params),
+                                  to_numpy_tree(batch_stats), args)
     return ops, params, batch_stats, sd
 
 
-def jax_and_port_models(shape, arch="resnet18_EE_square", seed=0, ee_args=None):
+def jax_and_port_models(shape, arch="resnet18_EE_square", seed=0, ee_args=None,
+                        num_classes=200):
     """(jax ModelOps, params, batch_stats, a fresh port model with those
     weights)."""
     ee_args = EE_ARGS if ee_args is None else ee_args
     ops, params, batch_stats, sd = _jax_init(tuple(shape[1:]), arch, seed,
-                                             tuple(sorted(ee_args.items())))
-    model = build_model(arch, ee_args, 200)
+                                             tuple(sorted(ee_args.items())),
+                                             num_classes)
+    model = build_model(arch, ee_args, num_classes)
     model.load_state_dict(sd)
     return ops, params, batch_stats, model
+
+
+class JaxDropoutCapture:
+    """Stands in for jax.random.bernoulli (flax's Dropout draws its mask
+    with it): the real draw, each mask handed out of the traced program in
+    program order (an ordered debug callback). `masks` are the port's keep
+    masks, (B, C) booleans."""
+
+    def __init__(self):
+        self.masks, self.real = [], jax.random.bernoulli
+
+    def __call__(self, key, p=0.5, shape=None, **kw):
+        mask = self.real(key, p, shape, **kw)
+        jax.debug.callback(lambda m: self.masks.append(
+            np.array(m).reshape(m.shape[0], m.shape[-1])), mask, ordered=True)
+        return mask
+
+
+class MaskReplay:
+    """The port's dropout source replaying given keep masks in order."""
+
+    def __init__(self, masks):
+        self.masks, self.calls = list(masks), 0
+
+    def __call__(self, shape):
+        m = self.masks[self.calls]
+        self.calls += 1
+        assert m.shape == tuple(shape[:2]), (m.shape, shape)
+        return torch.from_numpy(m.copy())
 
 
 # The train step of the comparison: EE_BPDA3_AT_square at a small size
@@ -230,27 +262,38 @@ def port_forwards(kind, k):
     return k + 1, list(range(k + 1))        # K steps, the trained forward
 
 
+def port_masks(kind):
+    """Which of JAX's dropout masks, in the order of its train-mode
+    forwards, the port's train-mode forwards take (None: all of them).
+    JAX's ALP and TRADES run the clean forward twice on one key, so one
+    mask twice; the port's one clean forward takes it."""
+    return {"alp": [0], "tar_alp": [0], "trades": [0, 2]}.get(kind)
+
+
 def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
                     arch="resnet18_EE_square", float64=False,
-                    shape=STEP_SHAPE, pgd_steps=PGD_STEPS, **fields):
+                    shape=STEP_SHAPE, pgd_steps=PGD_STEPS, num_classes=200,
+                    **fields):
     """One train step of `method` (MethodConfig `fields` beside the
     flagship's) in the JAX package and in the port on carried weights, with
     every draw made with numpy and replayed on both sides: the square
     draws, the PGD start (uniform, Gaussian, the trick's gate), the target
     offsets, tarAVmixup's offsets, AVmixup's weights and pre_square's
-    square. The port's attack runs, but the port takes JAX's x_adv for the
-    update. Returns the port's (metrics, state, model, x_adv) and JAX's
+    square; an MNIST CNN's dropout masks are JAX's own, taken out of its
+    step and replayed in the port (`port_masks`). The port's attack runs,
+    but the port takes JAX's x_adv for the update. Returns the port's (metrics, state, model, x_adv) and JAX's
     (metrics, state, x_adv); x_adv is None for ST, which runs no attack.
     `shape` is the batch's and `pgd_steps` the attack's iterations
     (STEP_SHAPE and PGD_STEPS by default).
     With `float64`, also the port's step in float64 on the same draws (its
     own attack, then JAX's x_adv for the update) as a third such tuple."""
+    n = num_classes
     ops_j, params, bs, model = jax_and_port_models(shape, arch=arch,
-                                                   ee_args=ee_args)
+                                                   ee_args=ee_args, num_classes=n)
     model64 = copy.deepcopy(model).double() if float64 else None
     rng = np.random.default_rng(0)
     x = rng.random(shape).astype(np.float32)
-    y = rng.integers(0, 200, shape[0]).astype(np.int32)
+    y = rng.integers(0, n, shape[0]).astype(np.int32)
     noise = rng.uniform(-EPS, EPS, shape).astype(np.float32)
     b = shape[0]
     kind = jmethods.canonical_method(method)
@@ -260,8 +303,8 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
     drng = np.random.default_rng(1)
     gauss = drng.standard_normal(shape).astype(np.float32)
     gate = np.float32(drng.random())
-    tgt_offs = drng.integers(1, 200, b).astype(np.int32)
-    mix_offs = drng.integers(1, 200, (b, 200)).astype(np.int32)
+    tgt_offs = drng.integers(1, n, b).astype(np.int32)
+    mix_offs = drng.integers(1, n, (b, n)).astype(np.int32)
     w = drng.random((b, 1, 1, 1)).astype(np.float32)
     pre = square_draws(1, shape, seed=8)
     cap_j = {}
@@ -287,11 +330,13 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
         return real_uniform(key, shape, *a, **k)
     monkeypatch.setattr(jpgd, "_init_perturbation", init)
     monkeypatch.setattr(jax.random, "randint", lambda key, shape, *a, **k: jnp.asarray(
-        {(b,): tgt_offs, (b, 200): mix_offs}[tuple(shape)]))
+        {(b,): tgt_offs, (b, n): mix_offs}[tuple(shape)]))
     monkeypatch.setattr(jax.random, "uniform", uniform)
     monkeypatch.setattr(jmethods, "pgd_linf", _jax_spy(cap_j))
+    dropout = JaxDropoutCapture()
+    monkeypatch.setattr(jax.random, "bernoulli", dropout)
     common = dict(epsilon=EPS, num_steps=pgd_steps, step_size=STEP_SIZE,
-                  num_classes=200, **fields)
+                  num_classes=n, **fields)
     mcfg_j = jmethods.MethodConfig(method, **common)
     step_j = jtrainer.build_train_step(ops_j, mcfg_j, jtrainer.OptimConfig(MOMENTUM, WD))
     state_j = jtrainer.TrainState(params=params, batch_stats=bs,
@@ -302,6 +347,11 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
     jax.block_until_ready(state_j)
     assert sq_j.calls == len(sq_j.draws)
     assert pre_j.calls == int(bool(fields.get("pre_square")))
+    masks = dropout.masks
+    if kind in ("alp", "tar_alp", "trades"):    # both clean passes, one mask
+        assert len(masks) == 0 or np.array_equal(masks[0], masks[1])
+    take = port_masks(kind)
+    masks = masks if take is None or not masks else [masks[i] for i in take]
 
     # ---- the port ----------------------------------------------------------
     t = torch.from_numpy
@@ -316,6 +366,7 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
 
     def port_step(model, dtype):
         sq_t = model.square_source = TorchSquareReplay(draws)
+        drop_t = model.dropout_source = MaskReplay(masks)
         pre_t = TorchSquareReplay(pre)
         cap_t = {}
         monkeypatch.setattr(obj, "square_draws", lambda self, shape: pre_t(shape))
@@ -325,6 +376,7 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
                                          ttrainer.OptimConfig(MOMENTUM, WD))
         m = step(state, t(x).to(dtype), t(y).long(), LR)
         assert sq_t.calls == len(draws) and pre_t.calls == pre_j.calls
+        assert drop_t.calls == len(masks)
         return m, state, model, cap_t.get("x_adv")
 
     out = (port_step(model, torch.float32), (m_j, state_j, cap_j.get("x_adv")))
@@ -337,12 +389,12 @@ def train_step_pair(monkeypatch, ee_args=None, method="EE_BPDA3_AT_square",
 JAX_TOL = dict(share=0.05, params=1e-4, running=2e-3, momentum=1e-3)
 
 
-def _state_dicts(state, model, want_params, want_stats, want_mom):
+def _state_dicts(state, model, want_params, want_stats, want_mom, arch, args):
     sd = model.state_dict()
     mom = dict(zip((n for n, _ in model.named_parameters()), state.momentum_buf))
-    want = state_dict_from_jax(want_params, want_stats)
+    want = arch_state_dict_from_jax(arch, want_params, want_stats, args)
     assert sorted(want) == sorted(sd)
-    return sd, mom, want, state_dict_from_jax(want_mom, want_stats)
+    return sd, mom, want, arch_state_dict_from_jax(arch, want_mom, want_stats, args)
 
 
 def _assert_states_close(sd, mom, want, want_mom, tol):
@@ -358,9 +410,10 @@ def _assert_states_close(sd, mom, want, want_mom, tol):
                                    atol=tol["momentum"], rtol=tol["momentum"], err_msg=k)
 
 
-def assert_train_steps_agree(port, jax_side, tol=None):
+def assert_train_steps_agree(port, jax_side, tol=None, arch="resnet18", args=None):
     """The comparison of `train_step_pair`'s two steps, with JAX_TOL's
-    tolerances unless `tol` replaces some."""
+    tolerances unless `tol` replaces some; `arch` (and the config `args`,
+    for a PreActResNet's stem) picks the name map."""
     tol = {**JAX_TOL, **(tol or {})}
     (m, state, model, x_adv), (m_j, state_j, x_adv_j) = port, jax_side
     assert state.step == 1
@@ -379,7 +432,7 @@ def assert_train_steps_agree(port, jax_side, tol=None):
     tree = to_numpy_tree
     _assert_states_close(*_state_dicts(state, model, tree(state_j.params),
                                        tree(state_j.batch_stats),
-                                       tree(state_j.momentum_buf)), tol)
+                                       tree(state_j.momentum_buf), arch, args), tol)
 
 
 def assert_matches_float64(port, port64, tol):
