@@ -123,7 +123,25 @@
       PGD-10), K1/K2 12/10 a step for _EE_BPDA_3 (the attack, the proxy's
       and the robust forward). Each: a finite loss, exact launch counts,
       ms/step, peak memory and the reference below.
-5. The reference, for slices a to d, k and l: the trained weights on a small
+   m. data parallelism (parallel/mesh.py), after l: m1. the flagship at
+      full width (bs100, 64 px, PGD-10, f32, synthetic-hard) on 2 ranks
+      on cuda:0 through gloo, started by this script (`--rank m1`, an
+      explicit file:// init), 2 train steps and 1 validation batch, then
+      each step again in one process from the ranks' state on the same
+      global batch and draws: the replicas bitwise equal, the step's first
+      attack gradient within M1_GRAD_TOL, then (the one process trained on
+      the ranks' x_adv) the loss and the step's update within the limits
+      below, K1/K2 34 and 30 launches a rank, ms/step of both; m2. the flagship through torchrun (`python -m
+      torch.distributed.run --nproc_per_node 1`, 2 on a machine with 2
+      cards: env://, NCCL) with --limit-batches 2 and --profile: one log,
+      rank 0's checkpoint, its logits against the CPU (the reference
+      below), a trace that names K1; m3. free-AT
+      (`configs/free_imagenet/free_at_ee.yml`, 256 = 2 x 128 at 224 px) on
+      2 ranks on cuda:0 through the driver, 1 step and its checkpoint,
+      then --resume for 1 step: each rank's noise_p{rank}.pt restored bit
+      for bit, the ranks' rows different, the weights and momentum the
+      file's, K1/K2 16 and 14 a run, ms/step and peak memory a rank.
+5. The reference, for slices a to d, k, l and m2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
    the JAX package), in eval mode (the denoising ResNet in train mode).
@@ -136,6 +154,7 @@ CUDA is absent.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -326,6 +345,39 @@ EDGE_FLIP_SHARE = 1e-3
 # the reference logits where the card's and the CPU's edge maps differ on
 # the reference batch: one flipped edge pixel moves its image's logits
 REF_TOL_FLIP = 5e-2
+# m: data parallelism (parallel/mesh.py). m1 and m3 put M_WORLD ranks on the
+# one card through gloo (NCCL refuses two ranks on one device; gloo's CUDA
+# all-reduce goes through host memory, so their times measure correctness,
+# not scaling); m2 starts the driver under torchrun (env://, NCCL), on two
+# cards where the machine has two. Every rank process runs under
+# M_TIMEOUT seconds, and a rank that fails takes the others down.
+M_WORLD = 2
+M_TIMEOUT = 600
+# m1: the flagship at full width on synthetic-hard, 2 train steps and 1
+# validation batch of 100 (50 a rank); then each step again in one process
+# (twice), from the ranks' state before it, on the same global batch and
+# draws. The ranks' replicas are bitwise equal. Against the one process
+# the BatchNorm sums run in other orders (two half-batch partial sums):
+# the first attack gradient of a step is 8.2e-4 to 5.4e-3 of its norm
+# apart on an H100, its signs 99.96% alike or more (tests/
+# test_torch_parallel.py holds the same arithmetic to 1e-10 in float64 on
+# the CPU). PGD-10 turns that into another x_adv: 68-74% of the pixels
+# apart, and up to 72% between two runs of the one process (cuDNN's
+# algorithms are not deterministic). So x_adv is printed, not held, and
+# what is held: the first attack gradient within M1_GRAD_TOL of its norm;
+# then, the one process trained on the ranks' x_adv, the loss within
+# M1_LOSS_RTOL (1.1e-7 at most, measured) and the step's parameter update
+# within M1_UPDATE_TOL of its norm (5.6e-3 at most; a missing gradient
+# sum would take half of it). The parameter vector (7.9e-5 of its norm at
+# most), the worst tensor (near-zero BatchNorm biases, up to 1.3e-2 of
+# their largest value) and the momentum are printed.
+M1_ARGS = dict(data="synthetic-hard", synthetic_size=400, epochs=1, limit_batches=2,
+               device="cuda:0")
+M1_GRAD_TOL, M1_LOSS_RTOL, M1_UPDATE_TOL = 3e-2, 1e-4, 5e-2
+# m3: free-AT at full width (resnet50_EE, 224 px, bs256: 128 a rank), 1 step,
+# the checkpoint, then --resume for 1 step
+M3_ARGS = dict(data="synthetic", synthetic_size=512, epochs=1, limit_batches=1,
+               device="cuda:0")
 
 
 def fail(msg: str) -> None:
@@ -1552,6 +1604,365 @@ def zoo_phase(torch, kernels, device_line) -> None:
     _record_launches(kernels, "zoo", total)
 
 
+def _spawn_ranks(task: str, out: str, timeout: float = M_TIMEOUT) -> list:
+    """M_WORLD rank processes of this script (`--rank <task>`) joined by a
+    file store in `out`, each under `timeout` seconds; one that fails (or
+    the clock) kills them all. Returns each rank's saved result."""
+    import torch
+    store = os.path.join(out, "store")
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(M_WORLD)]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", task,
+                               str(r), f"file://{store}", out],
+                              cwd=ROOT, env=env, stdout=open(logs[r], "w"),
+                              stderr=subprocess.STDOUT) for r in range(M_WORLD)]
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    for lg in logs:
+        with open(lg) as f:
+            tail = f.read()[-4000:]
+        print(f"[mesh {task}] {os.path.relpath(lg, ROOT)}:\n{tail}", flush=True)
+    if codes != [0] * M_WORLD:
+        fail(f"the {task} ranks exited {codes} (timeout {timeout} s)")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(M_WORLD)]
+
+
+def _m1_batches(rank: int, world: int):
+    """(config, this process's 2 train batches, its validation batch) of m1:
+    rows `rank` of `world` of each global batch of 100, as the driver
+    loads them."""
+    import torch
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, M1_ARGS)
+    train_ds, val_ds, _ = driver.load_datasets(cfg)
+    b = int(cfg["batch_size"]) // world
+    kw = dict(process_index=rank, process_count=world, as_uint8=True)
+    train = [(torch.from_numpy(x), torch.from_numpy(y)) for x, y in itertools.islice(
+        train_ds.batches(b, shuffle=True, seed=int(cfg["seed"]), **kw), 2)]
+    vx, vy = next(val_ds.batches(b, shuffle=False, seed=0, **kw))
+    return cfg, train, (torch.from_numpy(vx), torch.from_numpy(vy))
+
+
+def _snapshot(state) -> tuple:
+    return ({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            [b.detach().cpu().clone() for b in state.momentum_buf])
+
+
+def _m1_run(torch, cfg, train, val, given=None) -> dict:
+    """2 train steps and 1 validation batch of the flagship on this
+    process's rows (the process group's, when there is one): the losses,
+    each step's x_adv and first attack gradient, ms/step, launches, peak
+    memory, and the state (parameters, buffers, momentum) before and after
+    each step. With `given` (another run's result) each step starts from
+    that run's state before it, and its attack runs and is kept, but that
+    run's x_adv trains the model: each step is held alone."""
+    from edge_enhancement_tpu_torch.attacks import pgd
+    from edge_enhancement_tpu_torch.objectives import methods
+    from edge_enhancement_tpu_torch.parallel import mesh
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.train.trainer import (OptimConfig, build_eval_step,
+                                                          build_train_step)
+    device = torch.device(cfg["device"])
+    driver.pin_precision(cfg)
+    ops, state, gen = driver.build(cfg, 200, device)
+    mesh.replicate(state.model)
+    step = build_train_step(ops, driver.make_method_config(cfg, 200), OptimConfig(
+        momentum=float(cfg["momentum"]), weight_decay=float(cfg["weight_decay"])), gen)
+    eval_step = build_eval_step(ops, driver.eval_attack(cfg, 200), gen)
+    x_adv, grads, real, real_grad = [], [], methods.pgd_linf, pgd._input_grad
+
+    def kept(*args, **kwargs):
+        n = len(grads)
+        x_adv.append(real(*args, **kwargs))
+        del grads[n + 1:]                     # each attack's first gradient
+        if given is None:
+            return x_adv[-1]
+        return given["x_adv"][len(x_adv) - 1].to(x_adv[-1].device)
+
+    def first_grad(loss_fn, x):
+        grads.append(real_grad(loss_fn, x))
+        return grads[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_counts()
+    losses, ms, after = [], [], []
+    start = _snapshot(state)
+    methods.pgd_linf, pgd._input_grad = kept, first_grad
+    try:
+        for i, (x, y) in enumerate(train):
+            if given is not None:
+                sd, mom = given["starts"][i]
+                state.model.load_state_dict(sd)
+                for b, v in zip(state.momentum_buf, mom):
+                    b.copy_(v)
+            t0 = time.time()
+            m = step(state, x.to(device), y.to(device), driver.epoch_lr(cfg, 0))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.time() - t0))
+            after.append(_snapshot(state))
+    finally:
+        methods.pgd_linf, pgd._input_grad = real, real_grad
+    metrics = eval_step(state, val[0].to(device), val[1].to(device))
+    torch.cuda.synchronize()
+    return {"losses": losses, "ms": ms, "launches": _read_counts(),
+            "starts": [start] + after[:-1], "after": after,
+            "x_adv": [a.detach().cpu() for a in x_adv],
+            "grads": [g.cpu() for g in grads],
+            "val": {k: float(v) for k, v in metrics.items()},
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+def _m3_run(torch, out: str) -> dict:
+    """m3 on one rank: free-AT through the driver's run() for 1 step and
+    the checkpoint, then --resume for 1 step; the restored noise, weights
+    and momentum against the files, launches and peak memory of each."""
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    path = os.path.join(CONFIGS, "free_imagenet", "free_at_ee.yml")
+    runs = {}
+    for tag, over in (("fresh", {}), ("resumed", {"epochs": 5})):
+        cfg = load_config(path, dict(M3_ARGS, **over, output=os.path.join(out, tag)))
+        if tag == "resumed":
+            cfg["resume"] = os.path.dirname(runs["fresh"]["checkpoint"])
+        seen, real_noise, real_restore = {}, driver._load_noise, driver.restore_into_state
+
+        def load_noise(c, noise, log):
+            seen["restored_noise"] = real_noise(c, noise, log).cpu().clone()
+            return seen["restored_noise"].to(noise.device)
+
+        def restore(state, payload):
+            result = real_restore(state, payload)
+            seen["restored_state"] = {k: v.cpu().clone() for k, v in
+                                      state.model.state_dict().items()}
+            seen["restored_momentum"] = [b.cpu().clone() for b in state.momentum_buf]
+            return result
+
+        driver._load_noise, driver.restore_into_state = load_noise, restore
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        try:
+            summary = driver.run(cfg)
+        finally:
+            driver._load_noise, driver.restore_into_state = real_noise, real_restore
+        torch.cuda.synchronize()
+        runs[tag] = {"checkpoint": summary["checkpoint"], "noise_file": summary["noise"],
+                     "noise_saved": torch.load(summary["noise"], weights_only=True),
+                     "steps": summary["train_steps"], "evals": summary["eval_batches"],
+                     "loss": summary["loss"], "ms": [1e3 * s for s in summary["step_seconds"]],
+                     "launches": _read_counts(), "start_epoch": summary["start_epoch"],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **seen}
+    return runs
+
+
+def rank_main(argv) -> None:
+    """One rank of phase m: `--rank <m1|m3> <rank> <store url> <out dir>`,
+    on cuda:0 through gloo; saves its result to <out>/rank<r>.pt."""
+    import torch
+    from edge_enhancement_tpu_torch.parallel import mesh
+    task, rank, store, out = argv[0], int(argv[1]), argv[2], argv[3]
+    mesh.init("cuda:0", backend="gloo", init_method=store, rank=rank, world_size=M_WORLD)
+    try:
+        if task == "m1":
+            cfg, train, val = _m1_batches(rank, M_WORLD)
+            result = _m1_run(torch, cfg, train, val)
+            if rank:                  # the others' last state, for the replica check
+                result["starts"], result["after"] = [], result["after"][-1:]
+        else:
+            result = _m3_run(torch, out)
+        result["backend"] = torch.distributed.get_backend()
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+
+
+def _param_names(cfg):
+    """The named parameters of the config's model (on the meta device)."""
+    import torch
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    with torch.device("meta"):
+        return list(build_model(cfg["arch"], cfg, 200).named_parameters())
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over want's largest magnitude."""
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def mesh_step_phase(torch, kernels, device_line) -> None:
+    """m1. The flagship on M_WORLD ranks on the one card (gloo), then one
+    process on the same global batches."""
+    out = _out_dir("mesh/m1")
+    os.makedirs(out)
+    ranks = _spawn_ranks("m1", out)
+    last = ranks[0]["after"][-1]
+    for r in ranks[1:]:
+        sd, mom = r["after"][-1]
+        if (not all(torch.equal(sd[k], v) for k, v in last[0].items())
+                or not all(torch.equal(a, b) for a, b in zip(mom, last[1]))
+                or r["losses"] != ranks[0]["losses"]):
+            fail("m1: the ranks' replicas differ")
+    parts = [_m1_batches(r, M_WORLD) for r in range(M_WORLD)]
+    cfg = parts[0][0]
+    train = [tuple(torch.cat([p[1][i][j] for p in parts]) for j in range(2))
+             for i in range(2)]
+    val = tuple(torch.cat([p[2][j] for p in parts]) for j in range(2))
+    given = {"starts": ranks[0]["starts"],
+             "x_adv": [torch.cat([r["x_adv"][i] for r in ranks]) for i in range(len(train))]}
+    one = _m1_run(torch, cfg, train, val, given)
+    again = _m1_run(torch, cfg, train, val, given)
+    k = int(cfg["num_steps_1"])
+    want = {k_: 0 for k_ in one["launches"]}
+    want.update({"ee_fused_fwd": 2 * (k + 1) + (k + 2), "ee_fused_bwd": 2 * k + k})
+    names = [n for n, _ in _param_names(cfg)]
+    flat = lambda sd: torch.cat([sd[n].reshape(-1).double() for n in names])
+    share = lambda a, b: float((a - b).abs().gt(1e-6).float().mean())
+    grad_rel, signs, loss_rel, param_rel, update_rel, worst, mom_rel = ([] for _ in range(7))
+    for i, g in enumerate(one["grads"]):
+        gr = torch.cat([r["grads"][i] for r in ranks])
+        grad_rel.append(((gr - g).norm() / g.norm()).item())
+        signs.append((torch.sign(gr) == torch.sign(g)).float().mean().item())
+        a, b = ranks[0]["losses"][i], one["losses"][i]
+        loss_rel.append(abs(a - b) / abs(b))
+        (sd_r, mom_r), (sd_1, mom_1) = ranks[0]["after"][i], one["after"][i]
+        param_rel.append(((flat(sd_r) - flat(sd_1)).norm() / flat(sd_1).norm()).item())
+        update_rel.append(((flat(sd_r) - flat(sd_1)).norm()
+                           / (flat(sd_1) - flat(ranks[0]["starts"][i][0])).norm()).item())
+        worst.append(max((_max_rel(sd_r[n], sd_1[n]), n) for n in names))
+        mom_rel.append(max(_max_rel(u, v) for u, v in zip(mom_r, mom_1)))
+    print(f"[mesh m1] {cfg['arch']} bs{cfg['batch_size']} ({int(cfg['batch_size']) // M_WORLD} "
+          f"a rank) f32 PGD-{k} on synthetic-hard, {M_WORLD} ranks ({ranks[0]['backend']}) "
+          f"on {cfg['device']}, each step against one process from the ranks' state on "
+          f"the same global batch and draws: first attack gradient |diff| / |g| "
+          f"{[f'{v:.3e}' for v in grad_rel]} (limit {M1_GRAD_TOL}), signs alike {signs}; "
+          f"x_adv pixels apart {[share(a, b) for a, b in zip(given['x_adv'], one['x_adv'])]} "
+          f"(one process against itself "
+          f"{[share(a, b) for a, b in zip(one['x_adv'], again['x_adv'])]}); trained on the "
+          f"ranks' x_adv: losses {ranks[0]['losses']} and {one['losses']}, rel "
+          f"{[f'{v:.3e}' for v in loss_rel]} (limit {M1_LOSS_RTOL}); parameter vector "
+          f"|diff| / |p| {[f'{v:.3e}' for v in param_rel]}, over the step's update "
+          f"{[f'{v:.3e}' for v in update_rel]} (limit {M1_UPDATE_TOL}); per "
+          f"tensor the largest max |diff| / max |p| {[(f'{v:.3e}', n) for v, n in worst]}, "
+          f"momentum {[f'{v:.3e}' for v in mom_rel]}; validation 2 ranks {ranks[0]['val']}, "
+          f"one process {one['val']}", flush=True)
+    for tag, res in [(f"rank {r}", ranks[r]) for r in range(M_WORLD)] + [("one process", one)]:
+        print(f"[mesh m1] {tag}: train step ms {[round(t, 1) for t in res['ms']]} "
+              f"({res['ms'][-1]:.1f} ms/step after the first); peak device memory "
+              f"{res['peak_gb']:.2f} GB; on {device_line}", flush=True)
+    for r, res in enumerate(ranks):
+        _check_launches(f"mesh m1 rank {r}", res["launches"], want)
+        _record_launches(kernels, f"mesh_m1_rank{r}", res["launches"])
+    _check_launches("mesh m1 one process", one["launches"], want)
+    if ranks[0]["backend"] != "gloo" or len(ranks[0]["losses"]) != 2:
+        fail(f"m1 ran {len(ranks[0]['losses'])} steps on {ranks[0]['backend']}")
+    if not all(math.isfinite(v) for v in ranks[0]["losses"] + one["losses"]):
+        fail("m1: a loss is not finite")
+    if (len(grad_rel) != 2 or max(grad_rel) > M1_GRAD_TOL or max(loss_rel) > M1_LOSS_RTOL
+            or max(update_rel) > M1_UPDATE_TOL):
+        fail("m1: the ranks' run disagrees with the one process's")
+
+
+def torchrun_phase(torch, kernels, device_line) -> None:
+    """m2. The flagship through the real entry point under torchrun (one
+    process a card, env://, NCCL): 2 train steps and 1 validation batch
+    with --profile. One log, one checkpoint (rank 0's), its logits against
+    the CPU path, and the trace names K1."""
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    n = 2 if torch.cuda.device_count() >= 2 else 1
+    out, prof = _out_dir("mesh/m2"), _out_dir("mesh/m2_trace")
+    args = ["--config", CONFIG, "--data", "synthetic-hard", "--synthetic-size", "400",
+            "--epochs", "1", "--limit-batches", "2", "--device", "cuda",
+            "--output", out, "--profile", prof]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), "-m", "edge_enhancement_tpu_torch.train", *args]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=M_TIMEOUT)
+    print(f"[mesh m2] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+          f"{time.time() - t0:.1f} s\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}", flush=True)
+    if proc.returncode != 0:
+        fail("m2: torchrun's run failed")
+    cfg = load_config(CONFIG, dict(data="synthetic-hard", output=out))
+    run_dir = os.path.join(out, "tiny_imagenet", "EE_BPDA3_AT_square",
+                           f"resnet18_EE_square-bs{cfg['batch_size']}-lr{cfg['lr']}-seed{cfg['seed']}")
+    with open(os.path.join(run_dir, "log", "log.txt")) as f:
+        log = f.read()
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    first = log.splitlines()[0]
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "ee_fused_fwd_kernel" in e.get("name", "")]
+    busy = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    print(f"[mesh m2] {n} process(es): first log line {first!r}; "
+          f"{[ln for ln in log.splitlines() if ln.startswith('=> epoch')]}; ckpt files "
+          f"{ckpts}; trace {len(events)} events, "
+          f"{len(k1)} K1 launches (ee_fused_fwd_kernel), kernels {busy / 1e3:.1f} ms "
+          f"of device time in the window", flush=True)
+    if log.count("=> dataset") != 1 or f"{n} processes (nccl)" not in first:
+        fail(f"m2: expected one log of {n} NCCL process(es)")
+    if "checkpoint.pth.tar" not in ckpts or "=> epoch 0: 2 train steps" not in log:
+        fail("m2: no checkpoint, or not 2 train steps")
+    if not k1:
+        fail("m2: the profiler trace names no K1 launch")
+    reference_phase(torch, cfg, os.path.join(run_dir, "ckpt", "checkpoint.pth.tar"))
+    shutil.rmtree(out)
+
+
+def free_at_mesh_phase(torch, kernels, device_line) -> None:
+    """m3. Free-AT on M_WORLD ranks on the one card (gloo) through the
+    driver's run(): 1 step and the checkpoint, then --resume for 1 step.
+    Each rank's noise_p{rank}.pt restored bit for bit, the ranks' noise of
+    different rows, the restored weights and momentum the file's."""
+    out = _out_dir("mesh/m3")
+    os.makedirs(out)
+    ranks = _spawn_ranks("m3", out)
+    saved = torch.load(ranks[0]["fresh"]["checkpoint"], map_location="cpu", weights_only=True)
+    bufs = saved["optimizer"]["state"]
+    want = {"ee_fused_fwd": 4 + 12, "ee_fused_bwd": 4 + 10}    # a step + a validation batch
+    for r, res in enumerate(ranks):
+        f, s = res["fresh"], res["resumed"]
+        checks = {
+            "file": os.path.basename(f["noise_file"]) == f"noise_p{r}.pt",
+            "noise restored": torch.equal(s["restored_noise"], f["noise_saved"]),
+            "state restored": all(torch.equal(s["restored_state"][k], v)
+                                  for k, v in saved["state_dict"].items()),
+            "momentum restored": len(bufs) == len(s["restored_momentum"]) and all(
+                torch.equal(b, bufs[i]["momentum_buffer"])
+                for i, b in enumerate(s["restored_momentum"])),
+            "steps": f["steps"] == s["steps"] == [1] and s["start_epoch"] == 1,
+            "finite": math.isfinite(f["loss"]) and math.isfinite(s["loss"])}
+        print(f"[mesh m3] rank {r} ({res['backend']}): {os.path.basename(f['noise_file'])} "
+              f"{tuple(f['noise_saved'].shape)} max |n| {f['noise_saved'].abs().max().item():.4f}; "
+              f"losses {f['loss']:.4f} then {s['loss']:.4f} (resumed at epoch "
+              f"{s['start_epoch']}); train step ms {[round(t, 1) for t in f['ms'] + s['ms']]}; "
+              f"peak device memory {f['peak_gb']:.2f} / {s['peak_gb']:.2f} GB; {checks}; "
+              f"on {device_line}", flush=True)
+        if not all(checks.values()):
+            fail(f"m3 rank {r}: {checks}")
+        for tag, run in (("fresh", f), ("resumed", s)):
+            _check_launches(f"mesh m3 rank {r} {tag}", run["launches"], want)
+            _record_launches(kernels, f"mesh_m3_rank{r}_{tag}", run["launches"])
+    if torch.equal(ranks[0]["fresh"]["noise_saved"], ranks[1]["fresh"]["noise_saved"]):
+        fail("m3: the ranks' replay noise holds the same rows")
+    shutil.rmtree(out)
+
+
 def main():
     import torch
 
@@ -1581,6 +1992,10 @@ def main():
     restart_pgd_phase(torch, kernels, smi, checkpoints[False])
     variants_phase(torch, kernels, smi)
     zoo_phase(torch, kernels, smi)
+    torch.cuda.empty_cache()            # the ranks of phase m share the card
+    mesh_step_phase(torch, kernels, smi)
+    torchrun_phase(torch, kernels, smi)
+    free_at_mesh_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):
@@ -1592,4 +2007,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        sys.path.insert(0, ROOT)
+        rank_main(sys.argv[2:])
+    else:
+        main()

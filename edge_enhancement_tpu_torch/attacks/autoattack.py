@@ -27,6 +27,8 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 ForwardFn = Callable[[torch.Tensor, Any], torch.Tensor]  # (x, draws) -> logits
 DrawFn = Callable[[torch.Tensor], Any]                  # x -> one forward's draws
 
@@ -110,7 +112,8 @@ def _dlr_targeted(logits, y, y_target):
 
 def apgd_start(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     """APGD's start draw: U[-1, 1) of x's shape."""
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    u = mesh.draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device,
+                                            dtype=x.dtype), x.shape)
     return u * 2.0 - 1.0
 
 
@@ -366,7 +369,8 @@ def square_stripes(shape, generator: Optional[torch.Generator],
     """The init's vertical stripes: one sign per (sample, column, channel),
     (B, 1, W, C)."""
     b, _, w, c = shape
-    u = torch.rand((b, 1, w, c), generator=generator, device=device)
+    u = mesh.draw_rows(lambda s: torch.rand(s, generator=generator, device=device),
+                       (b, 1, w, c))
     return torch.sign(u * 2 - 1)
 
 

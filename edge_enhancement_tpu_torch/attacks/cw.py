@@ -20,6 +20,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 
 @dataclasses.dataclass(frozen=True)
 class CWConfig:
@@ -34,7 +36,8 @@ class CWConfig:
 def uniform_start(x: torch.Tensor, magnitude: float,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     """U[-magnitude, magnitude) noise of x's shape."""
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    u = mesh.draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device,
+                                            dtype=x.dtype), x.shape)
     return u * (2.0 * magnitude) - magnitude
 
 

@@ -22,6 +22,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import mesh
+
 
 @dataclasses.dataclass(frozen=True)
 class PGDConfig:
@@ -36,15 +38,16 @@ class PGDConfig:
 def uniform_init_noise(x: torch.Tensor, epsilon: float,
                        generator: Optional[torch.Generator]) -> torch.Tensor:
     """U[-eps, eps) noise of x's shape."""
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    u = mesh.draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device,
+                                            dtype=x.dtype), x.shape)
     return u * (2.0 * epsilon) - epsilon
 
 
 def gaussian_init_noise(x: torch.Tensor,
                         generator: Optional[torch.Generator]) -> torch.Tensor:
     """N(0, 1) noise of x's shape."""
-    return torch.randn(x.shape, generator=generator, device=x.device,
-                       dtype=x.dtype)
+    return mesh.draw_rows(lambda s: torch.randn(s, generator=generator, device=x.device,
+                                                dtype=x.dtype), x.shape)
 
 
 def trick_gate(x: torch.Tensor,
@@ -139,7 +142,7 @@ def random_targets(labels: torch.Tensor, num_classes: int,
     """Uniformly random wrong labels, (y + U{1..n-1}) mod n; `offset`
     replaces the draw."""
     if offset is None:
-        offset = torch.randint(1, num_classes, labels.shape, generator=generator,
-                               device=labels.device)
+        offset = mesh.draw_rows(lambda s: torch.randint(
+            1, num_classes, s, generator=generator, device=labels.device), labels.shape)
     return torch.remainder(labels.long() + offset.to(labels.device).long(),
                            num_classes)

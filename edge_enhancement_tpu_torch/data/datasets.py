@@ -46,10 +46,17 @@ SPECS = {
 _IMAGE_EXTS = (".jpeg", ".jpg", ".png")
 
 
-def _index_order(n: int, shuffle: bool, seed: int, epoch: int):
-    """The (rng, index order) of one epoch, the JAX package's stream."""
+def _index_order(n: int, shuffle: bool, seed: int, epoch: int,
+                 process_index: int = 0, process_count: int = 1):
+    """The (rng, index order) of one epoch, the JAX package's stream: with
+    several processes the order is cut to a multiple of their count (every
+    process must yield as many batches, or the collectives wait forever)
+    and process p takes every process_count-th index from p."""
     rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
-    return rng, (rng.permutation(n) if shuffle else np.arange(n))
+    idx = rng.permutation(n) if shuffle else np.arange(n)
+    if process_count > 1:
+        idx = idx[:n - (n % process_count)]
+    return rng, idx[process_index::process_count]
 
 
 def _batch_starts(n: int, batch_size: int, drop_last: bool) -> range:
@@ -81,10 +88,15 @@ class ArrayDataset:
 
     def batches(self, batch_size: int, *, shuffle: bool, seed: int,
                 epoch: int = 0, drop_last: bool = True,
+                process_index: int = 0, process_count: int = 1,
                 as_uint8: bool = False
                 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """Yield NHWC batches: float32 in [0, 1], or the raw uint8 pixels."""
-        rng, idx = _index_order(len(self), shuffle, seed, epoch)
+        """Yield NHWC batches: float32 in [0, 1], or the raw uint8 pixels;
+        of `batch_size` rows of process `process_index`'s share (each of
+        `process_count` processes loads its own rows, the augmentation
+        drawing from the stream that shuffled them)."""
+        rng, idx = _index_order(len(self), shuffle, seed, epoch,
+                                process_index, process_count)
         for s in _batch_starts(len(idx), batch_size, drop_last):
             take = idx[s:s + batch_size].astype(np.int64)
             imgs = self.images[take]
@@ -250,9 +262,11 @@ class ImageFolder:
 
     def batches(self, batch_size: int, *, shuffle: bool, seed: int,
                 epoch: int = 0, drop_last: bool = True,
+                process_index: int = 0, process_count: int = 1,
                 as_uint8: bool = False
                 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        _, idx = _index_order(len(self), shuffle, seed, epoch)
+        _, idx = _index_order(len(self), shuffle, seed, epoch,
+                              process_index, process_count)
         for s in _batch_starts(len(idx), batch_size, drop_last):
             take = idx[s:s + batch_size].astype(np.int64)
             imgs = np.stack([_load_rgb(p, self.image_size)

@@ -16,6 +16,11 @@ standard four; `apgd-dlr` adds the individual-mode APGD-DLR), runs on the
 first aa_batches (--aa-batches, else --limit-batches) float batches of the
 validation split, and prints `AutoAttack: clean Prec@1 <a>  robust Prec@1
 <b>`, then its time. Runs on CUDA unless --device says otherwise.
+
+Under torchrun (`torchrun --nproc_per_node N -m edge_enhancement_tpu_torch.eval
+...`) each process attacks its rows of every global batch, as the JAX
+eval.py's mesh-sharded batteries do, and the counts are summed over the
+processes; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import time
 import torch
 
 from .attacks.autoattack import STANDARD_ATTACKS, build_autoattack
+from .parallel import mesh
 from .train.checkpoint import load_checkpoint, restore_into_state
 from .train.driver import (Logger, build, eval_attack, load_datasets,
                            pin_precision, run_device, run_validation)
@@ -38,8 +44,12 @@ from .utils.meters import AverageMeter
 def run(cfg) -> list:
     """Run the config's suite; returns one dict a battery: label, clean and
     adv top-1, batches, seconds, attack iterations a batch."""
+    with mesh.torchrun_group(run_device(cfg)) as device:
+        return _run(cfg, device)
+
+
+def _run(cfg, device) -> list:
     suite = [s.strip() for s in str(cfg.get("suite", "pgd")).split(",")]
-    device = run_device(cfg)
     precision = pin_precision(cfg)
     _, val_ds, spec = load_datasets(cfg, train=False)
     ops, state, gen = build(cfg, spec.num_classes, device)
@@ -52,6 +62,7 @@ def run(cfg) -> list:
             raise FileNotFoundError(f"no checkpoint under {cfg['resume']}")
         state, epoch, _ = restore_into_state(state, payload)
         log(f"=> loaded checkpoint (epoch {epoch})")
+    mesh.replicate(state.model)
 
     results = []
 
@@ -63,7 +74,8 @@ def run(cfg) -> list:
         t0 = time.time()
         adv1, clean1, n = run_validation(lambda msg: None, es, state, val_ds,
                                          int(cfg["batch_size"]), device,
-                                         limit=cfg.get("limit_batches"))
+                                         limit=cfg.get("limit_batches"),
+                                         by_rows=True)
         secs = time.time() - t0
         log(f"{label}: clean Prec@1 {clean1:.3f}  adv Prec@1 {adv1:.3f}")
         if n:
@@ -94,7 +106,8 @@ def run(cfg) -> list:
 def autoattack(cfg, ops, val_ds, num_classes: int, device, gen, log) -> dict:
     """The AutoAttack battery, as the JAX eval.py's: the suite on each of
     the first `aa_batches` (else `limit_batches`) float batches, then the
-    clean and the adversarial top-1 under one square draw. `iterations` is
+    clean and the adversarial top-1 under one square draw, each process on
+    its rows of the batch and the top-1 the global batch's. `iterations` is
     the suite's attack iterations a batch: the APGD and FAB steps and the
     Square queries of every attack it runs."""
     attacks = tuple(a.strip() for a in str(
@@ -118,14 +131,17 @@ def autoattack(cfg, ops, val_ds, num_classes: int, device, gen, log) -> dict:
                                               shuffle=False, seed=0)):
         if cap is not None and i >= cap:
             break
-        x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device).long()
+        n_glob = len(y)
+        x = mesh.shard_rows(torch.from_numpy(x)).to(device)
+        y = mesh.shard_rows(torch.from_numpy(y)).to(device).long()
         x_adv = suite(x, y, gen)
         with torch.no_grad():
             draws = ops.square_draws(x)
-            clean = topk_accuracy(ops.logits_eval(x, draws), y)["top1"]
-            adv = topk_accuracy(ops.logits_eval(x_adv, draws), y)["top1"]
-        c1.update(float(clean), len(y))
-        a1.update(float(adv), len(y))
+            top1 = mesh.sum_metrics({
+                "clean": topk_accuracy(ops.logits_eval(x, draws), y)["top1"],
+                "adv": topk_accuracy(ops.logits_eval(x_adv, draws), y)["top1"]})
+        c1.update(float(top1["clean"]), n_glob)
+        a1.update(float(top1["adv"]), n_glob)
         n += 1
     secs = time.time() - t0
     log(f"AutoAttack: clean Prec@1 {c1.avg:.3f}  robust Prec@1 {a1.avg:.3f}")

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from .ee_frontend import EEConfig, check_ported, ee_frontend
 
 DROP_RATE = 0.5
@@ -39,7 +40,9 @@ def dropout_keep(shape, generator: Optional[torch.Generator] = None) -> torch.Te
     """A Dropout2d keep mask for a (B, C, ...) map: (B, C) booleans, each
     True with probability 1 - DROP_RATE, drawn on the generator's device."""
     device = generator.device if generator is not None else None
-    return torch.rand(tuple(shape[:2]), generator=generator, device=device) >= DROP_RATE
+    keep = mesh.draw_rows(lambda s: torch.rand(s, generator=generator, device=device),
+                          tuple(shape[:2]))
+    return keep >= DROP_RATE
 
 
 class MnistCNN(nn.Module):

@@ -17,7 +17,11 @@ edge_enhancement_tpu/objectives/awp.py:
      folded into the gradient (torch's optimizer steps while the weights
      are perturbed, so its coupled decay sees w + scale * diff).
 
-`awp_on` (0.0 or 1.0) is the driver's warmup gate.
+`awp_on` (0.0 or 1.0) is the driver's warmup gate. Under several
+processes the proxy gradient and the robust gradient are each summed over
+the ranks, so the perturbation is the global batch's, and the L1 term,
+which every rank computes whole, enters each rank's loss over the world
+size.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..attacks.pgd import PGDConfig, pgd_linf
+from ..parallel import mesh
 from ..train.modelops import ModelOps, cross_entropy, topk_accuracy
 from ..train.sgd import sgd_update
 from ..train.trainer import OptimConfig, TrainState, to_float_pixels
@@ -74,8 +79,8 @@ def build_awp_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
 
         # the proxy's ascent step, its statistics update thrown away
         saved = [b.clone() for b in model.buffers()]
-        g_proxy = torch.autograd.grad(cross_entropy(ops.logits_train(x_adv), y),
-                                      params)
+        g_proxy = mesh.sum_across(torch.autograd.grad(
+            cross_entropy(ops.logits_train(x_adv), y), params))
         with torch.no_grad():
             for b, s in zip(model.buffers(), saved):
                 b.copy_(s)
@@ -90,8 +95,11 @@ def build_awp_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
         logits = ops.logits_train(x_adv)
         loss = cross_entropy(logits, y)
         if awp.l1 > 0:
-            loss = loss + awp.l1 * sum(p.abs().sum() for p in params if p.ndim > 1)
-        grads = torch.autograd.grad(loss, params)
+            loss = loss + awp.l1 * sum(p.abs().sum() for p in params
+                                       if p.ndim > 1) / mesh.world_size()
+        grads, metrics = mesh.sum_step(
+            torch.autograd.grad(loss, params),
+            {"loss": loss.detach(), **topk_accuracy(logits.detach(), y)})
         with torch.no_grad():
             for p, w in zip(params, w0):
                 p.copy_(w)
@@ -100,6 +108,6 @@ def build_awp_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
         sgd_update(params, grads, state.momentum_buf, lr=lr,
                    momentum=opt.momentum, weight_decay=opt.weight_decay)
         state.step += 1
-        return {"loss": loss.detach(), **topk_accuracy(logits.detach(), y)}
+        return metrics
 
     return step_fn

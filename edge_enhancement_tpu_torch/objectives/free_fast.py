@@ -12,7 +12,10 @@ as edge_enhancement_tpu/objectives/free_fast.py.
   input gradient, so the front-end's backward kernel does not run for it.
 
 Both run the train-mode model on every pass, as the JAX package and the
-reference do. A step updates the state in place and returns (noise,
+reference do. Under several processes each rank keeps the noise of its own
+rows (the JAX package's noise is sharded with the batch), and the
+parameter gradient of every replay is summed over the ranks before its
+update. A step updates the state in place and returns (noise,
 metrics); the fast step takes the uniform draws as an argument, so that a
 test can hand it JAX's.
 """
@@ -25,6 +28,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..ops.square import clip01
+from ..parallel import mesh
 from ..train.modelops import ModelOps, cross_entropy, topk_accuracy
 from ..train.sgd import batchnorm_decay_mask, sgd_update
 from ..train.trainer import OptimConfig, TrainState, to_float_pixels
@@ -63,17 +67,19 @@ def build_free_train_step(ops: ModelOps, cfg: FreeFastConfig,
     def step_fn(state: TrainState, noise, x, y, lr: float):
         x = to_float_pixels(x)
         mask = batchnorm_decay_mask(state.model) if opt.bn_no_decay else None
-        for _ in range(cfg.n_repeats):
+        for r in range(cfg.n_repeats):
             nz = noise.detach().requires_grad_(True)
             logits = ops.logits_train(clip01(x + nz))
             loss = cross_entropy(logits, y, "mean")
             *grads, g_noise = torch.autograd.grad(loss, [*state.params, nz])
             with torch.no_grad():
                 noise = _step_noise(noise, g_noise, cfg)
+            metrics = ({"loss": loss.detach(), **topk_accuracy(logits.detach(), y)}
+                       if r == cfg.n_repeats - 1 else {})
+            grads, metrics = mesh.sum_step(grads, metrics)
             _sgd(state, grads, lr, opt, mask)
         state.step += cfg.n_repeats
-        return noise, {"loss": loss.detach(),
-                       **topk_accuracy(logits.detach(), y)}
+        return noise, metrics
 
     return step_fn
 
@@ -81,8 +87,9 @@ def build_free_train_step(ops: ModelOps, cfg: FreeFastConfig,
 def uniform_draws(cfg: FreeFastConfig, shape, generator: torch.Generator,
                   device=None) -> list:
     """Fast-AT's noise for each repeat: U[-clip_eps, clip_eps)."""
-    return [torch.rand(shape, generator=generator, device=device)
-            * (2.0 * cfg.clip_eps) - cfg.clip_eps for _ in range(cfg.n_repeats)]
+    return [mesh.draw_rows(lambda s: torch.rand(s, generator=generator, device=device),
+                           shape) * (2.0 * cfg.clip_eps) - cfg.clip_eps
+            for _ in range(cfg.n_repeats)]
 
 
 def build_fast_train_step(ops: ModelOps, cfg: FreeFastConfig,
@@ -107,10 +114,12 @@ def build_fast_train_step(ops: ModelOps, cfg: FreeFastConfig,
                 noise = _step_noise(noise, g_noise, cfg)
             logits = ops.logits_train(clip01(x + noise))
             loss = cross_entropy(logits, y, "mean")
-            grads = torch.autograd.grad(loss, state.params)
+            metrics = ({"loss": loss.detach(), **topk_accuracy(logits.detach(), y)}
+                       if r == cfg.n_repeats - 1 else {})
+            grads, metrics = mesh.sum_step(torch.autograd.grad(loss, state.params),
+                                           metrics)
             _sgd(state, grads, lr, opt, mask)
         state.step += cfg.n_repeats
-        return noise, {"loss": loss.detach(),
-                       **topk_accuracy(logits.detach(), y)}
+        return noise, metrics
 
     return step_fn

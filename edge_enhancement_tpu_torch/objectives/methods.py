@@ -38,8 +38,10 @@ import torch.nn.functional as F
 
 from ..attacks.pgd import PGDConfig, pgd_linf, random_targets
 from ..ops.square import add_square, add_square_draws
-from ..train.modelops import (ModelOps, cross_entropy, kl_div_batchmean,
-                              label_smooth_loss, soft_cross_entropy_sum)
+from ..parallel import mesh
+from ..train.modelops import (ModelOps, batch_mean, cross_entropy,
+                              kl_div_batchmean, label_smooth_loss,
+                              soft_cross_entropy_sum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,19 +106,22 @@ class Objective:
     # ---- the objective's draws ---------------------------------------------
     def target_offsets(self, y: torch.Tensor) -> torch.Tensor:
         """random_targets' offsets, U{1..n-1} per sample."""
-        return torch.randint(1, self.cfg.num_classes, y.shape,
-                             generator=self.generator, device=y.device)
+        return mesh.draw_rows(lambda s: torch.randint(
+            1, self.cfg.num_classes, s, generator=self.generator,
+            device=y.device), y.shape)
 
     def avmixup_offsets(self, one_hot: torch.Tensor) -> torch.Tensor:
         """tarAVmixup's offsets, U{1..n-1} of one_hot's shape (B, n)."""
-        return torch.randint(1, self.cfg.num_classes, one_hot.shape,
-                             generator=self.generator, device=one_hot.device)
+        return mesh.draw_rows(lambda s: torch.randint(
+            1, self.cfg.num_classes, s, generator=self.generator,
+            device=one_hot.device), one_hot.shape)
 
     def mix_weights(self, x: torch.Tensor) -> torch.Tensor:
         """AVmixup's w ~ U[0, 1) per sample (Beta(1, 1)), shaped to
         broadcast over x."""
-        return torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                          generator=self.generator, device=x.device, dtype=x.dtype)
+        return mesh.draw_rows(lambda s: torch.rand(
+            s, generator=self.generator, device=x.device, dtype=x.dtype),
+            (x.shape[0],) + (1,) * (x.ndim - 1))
 
     def square_draws(self, shape):
         """pre_square's draws in the layout of ops/square.add_square_draws."""
@@ -172,7 +177,7 @@ class Objective:
                          self.generator)
         out = ops.logits_eval(x_adv)
         loss = (0.5 * cross_entropy(preds, y) + 0.5 * cross_entropy(out, y)
-                + self.cfg.beta * torch.mean((preds - out) ** 2))
+                + self.cfg.beta * batch_mean((preds - out) ** 2))
         return loss, out
 
     def _trades_loss(self, x, y):
@@ -212,4 +217,5 @@ class Objective:
         x_mix = x * w + vertex * (1.0 - w)
         y_mix = y_nat * wy + y_vertex * (1.0 - wy)
         logits = ops.logits_train(x_mix)
-        return soft_cross_entropy_sum(logits, y_mix) / x.shape[0], logits
+        return (soft_cross_entropy_sum(logits, y_mix) / mesh.global_batch(x.shape[0]),
+                logits)

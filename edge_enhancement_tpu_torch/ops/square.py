@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ..parallel import mesh
 from .stencil import weak_scalar
 
 
@@ -57,8 +58,8 @@ def add_square_draws(shape, generator: torch.Generator, *, p_init: float = 0.8,
     each query's position and channel sign."""
     b, h, w, c = shape
     dev = generator.device
-    stripes = torch.sign(
-        2.0 * torch.rand((b, 1, w, c), generator=generator, device=dev) - 1.0)
+    stripes = torch.sign(2.0 * mesh.draw_rows(
+        lambda s: torch.rand(s, generator=generator, device=dev), (b, 1, w, c)) - 1.0)
     rows = torch.arange(h, device=dev)
     masks, signs = [], []
     for i in range(n_queries):

@@ -5,7 +5,10 @@ best_prec1, optimizer} in `<ckpt_dir>/checkpoint.pth.tar`, copied to
 tools/convert_torch_checkpoint.py reads that format into Orbax, and its
 `--to-torch` writes it back as one .pth file (without the optimizer), so a
 checkpoint crosses between the two packages through that tool. Free-AT's
-replay noise sits beside the checkpoint in `noise.pt`.
+replay noise sits beside the checkpoint in `noise.pt`; under several
+processes (parallel/mesh.py) each rank writes its own rows to
+`noise_p{rank}.pt`, as the JAX package's `noise_p{rank}.npy`, and only rank
+0 writes the checkpoint (the replicas are equal).
 
 Every load is `torch.load(..., weights_only=True)`: the payloads hold
 tensors, ints, floats, strings, bools, lists and dicts (the optimizer's
@@ -20,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel import mesh
+
 FILES = {"last": "checkpoint.pth.tar", "best": "model_best.pth.tar"}
 NOISE_FILE = "noise.pt"
 
@@ -27,8 +32,18 @@ NOISE_FILE = "noise.pt"
 def save_checkpoint(ckpt_dir: str, state, epoch: int, arch: str,
                     best_prec1: float, is_best: bool, opt, lr: float) -> str:
     """Write the state's checkpoint, the optimizer part in torch.optim.SGD's
-    state_dict format; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    state_dict format, on rank 0 only; every rank returns its path once the
+    file is whole."""
+    path = os.path.join(ckpt_dir, FILES["last"])
+    if mesh.rank() == 0:
+        _write_checkpoint(path, state, epoch, arch, best_prec1, is_best, opt, lr)
+    mesh.barrier()
+    return path
+
+
+def _write_checkpoint(path: str, state, epoch: int, arch: str, best_prec1: float,
+                      is_best: bool, opt, lr: float) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     n = len(state.momentum_buf)
     payload = {
         "epoch": int(epoch), "arch": arch,
@@ -41,11 +56,9 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int, arch: str,
                               "dampening": 0, "weight_decay": opt.weight_decay,
                               "nesterov": False, "params": list(range(n))}]},
     }
-    path = os.path.join(ckpt_dir, FILES["last"])
     torch.save(payload, path)
     if is_best:
-        shutil.copyfile(path, os.path.join(ckpt_dir, FILES["best"]))
-    return path
+        shutil.copyfile(path, os.path.join(os.path.dirname(path), FILES["best"]))
 
 
 def _strip_module(state_dict: dict) -> dict:
@@ -101,25 +114,42 @@ def restore_into_state(state, payload: dict):
     return state, int(payload["epoch"]), float(payload["best_prec1"])
 
 
-def noise_path(path: str) -> str:
-    """`noise.pt` in a checkpoint directory, or beside a checkpoint file."""
-    return os.path.join(path if os.path.isdir(path) else os.path.dirname(path),
-                        NOISE_FILE)
+def noise_path(path: str, shard: Optional[int] = None) -> str:
+    """`noise.pt`, or rank `shard`'s `noise_p{shard}.pt`, in a checkpoint
+    directory or beside a checkpoint file."""
+    name = NOISE_FILE if shard is None else f"noise_p{shard}.pt"
+    return os.path.join(path if os.path.isdir(path) else os.path.dirname(path), name)
+
+
+def _own_noise_path(path: str) -> str:
+    """This process's noise file: noise.pt alone, noise_p{rank}.pt under
+    several processes."""
+    return noise_path(path, mesh.rank() if mesh.world_size() > 1 else None)
 
 
 def save_noise(ckpt_dir: str, noise: torch.Tensor) -> str:
-    """Free-AT's replay noise beside the checkpoint; returns its path."""
+    """Free-AT's replay noise (this process's rows) beside the checkpoint,
+    written whole or not at all (a temporary file renamed over it);
+    returns its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = noise_path(ckpt_dir)
-    torch.save(noise.detach().cpu(), path)
+    path = _own_noise_path(ckpt_dir)
+    tmp = path + ".tmp"
+    torch.save(noise.detach().cpu(), tmp)
+    os.replace(tmp, path)
     return path
 
 
 def load_noise(path: str) -> Optional[torch.Tensor]:
-    """The replay noise saved with the checkpoint at `path` (a directory or
-    a checkpoint file), None when absent."""
-    p = noise_path(path)
-    return torch.load(p, map_location="cpu", weights_only=True) if os.path.isfile(p) else None
+    """This process's replay noise saved with the checkpoint at `path` (a
+    directory or a checkpoint file): its own file, else the file of a run
+    with another process count (a single process's `noise.pt`, or rank 0's
+    shard for a single process), whose shape the caller then finds wrong,
+    as the JAX train.py finds a stale shard; None when neither exists."""
+    other = noise_path(path) if mesh.world_size() > 1 else noise_path(path, 0)
+    for p in (_own_noise_path(path), other):
+        if os.path.isfile(p):
+            return torch.load(p, map_location="cpu", weights_only=True)
+    return None
 
 
 def load_pretrained(model: torch.nn.Module, path: str):

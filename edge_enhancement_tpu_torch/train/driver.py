@@ -25,6 +25,21 @@ backbone, and `--evaluate` runs the PGD tiers num_steps_k/step_size_k
 with the AWP step (objectives/awp.py), its learning rate set every
 minibatch at epoch + (i + 1) / n_batches, the perturbation off for the
 first `awp_warmup` epochs.
+
+One process a card under torchrun trains on the global batch that one
+process would (parallel/mesh.py):
+
+    torchrun --nproc_per_node 8 -m edge_enhancement_tpu_torch.train \
+        --config edge_enhancement_tpu/configs/free_imagenet/free_at_ee.yml \
+        --data synthetic --device cuda
+
+The config's `batch_size` is global: each of the W processes loads
+batch_size / W rows of every batch (`batches(process_index,
+process_count)`), BatchNorm takes the global batch's statistics, the
+gradients are summed, and only rank 0 logs and writes the checkpoint
+(free-AT's noise: one file a rank). `--profile DIR` traces train steps 1-3
+of the first epoch with torch.profiler into DIR/trace.json; `--platform
+cpu|gpu|cuda` picks the device, as the JAX CLI's flag picks its platform.
 """
 
 from __future__ import annotations
@@ -46,6 +61,7 @@ from ..objectives.free_fast import (FreeFastConfig, build_fast_train_step,
                                    build_free_train_step, init_noise)
 from ..objectives.methods import MethodConfig
 from ..ops.square import add_square_draws
+from ..parallel import mesh
 from ..utils.config import base_parser, load_config
 from ..utils.meters import AverageMeter, adv_summary, clean_summary, train_line
 from . import schedules
@@ -57,15 +73,18 @@ from .trainer import (EvalAttackConfig, OptimConfig, build_eval_step,
 
 
 class Logger:
-    """print, and append to <log_dir>/log.txt unless log_dir is None."""
+    """print, and append to <log_dir>/log.txt unless log_dir is None; on
+    rank 0 only (other ranks neither print nor write)."""
 
     def __init__(self, log_dir: Optional[str]):
         self.path = None
-        if log_dir is not None:
+        if log_dir is not None and mesh.rank() == 0:
             os.makedirs(log_dir, exist_ok=True)
             self.path = os.path.join(log_dir, "log.txt")
 
     def __call__(self, msg: str):
+        if mesh.rank() != 0:
+            return
         print(msg, flush=True)
         if self.path is not None:
             with open(self.path, "a") as f:
@@ -116,9 +135,6 @@ def epoch_lr(cfg, epoch: float) -> float:
 def _check_ported(cfg) -> None:
     if cfg.get("attack_method", "PGD") not in ("PGD", "FGSM", "CW", "none"):
         raise NotImplementedError(f"eval attack {cfg['attack_method']!r} is not ported")
-    for key in ("profile", "platform"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} is not ported")
     if int(cfg.get("steps_per_dispatch") or 1) != 1:
         raise NotImplementedError("steps_per_dispatch > 1 is not ported")
 
@@ -133,11 +149,36 @@ def awp_config(cfg) -> Optional[AWPConfig]:
                      l1=float(cfg.get("l1", 0.0)))
 
 
+# --platform -> the device type it selects (the JAX CLI's platforms)
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
 def run_device(cfg) -> torch.device:
-    device = torch.device(cfg.get("device") or "cuda")
+    """The config's device: --device, else the one --platform names, else
+    cuda. --platform tpu, or a --device of another type than --platform's,
+    raises."""
+    device = cfg.get("device")
+    platform = cfg.get("platform")
+    if platform:
+        platform = str(platform).lower()
+        if platform not in PLATFORMS:
+            raise NotImplementedError(f"--platform {platform}: the port runs on "
+                                      f"{' or '.join(sorted(PLATFORMS))}")
+        if device is not None and torch.device(device).type != PLATFORMS[platform]:
+            raise ValueError(f"--platform {platform} contradicts --device {device}")
+        device = device or PLATFORMS[platform]
+    device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available")
     return device
+
+
+def local_batch(cfg) -> int:
+    """This process's rows of the config's (global) batch."""
+    bs, w = int(cfg["batch_size"]), mesh.world_size()
+    if bs % w:
+        raise ValueError(f"batch_size {bs} does not divide over {w} processes")
+    return bs // w
 
 
 def pin_precision(cfg) -> str:
@@ -169,21 +210,32 @@ def eval_attack(cfg, num_classes: int, **over) -> EvalAttackConfig:
 
 
 def run_validation(log, eval_step, state, ds, batch_size: int, device,
-                   limit=None) -> tuple[float, float, int]:
-    """Returns (adv top-1, or clean when no attack; clean top-1; batches)."""
+                   limit=None, by_rows: bool = False) -> tuple[float, float, int]:
+    """One battery over the split in global batches of `batch_size`, each
+    process on its share: its strided rows (`batches(process_index,
+    process_count)`, as the JAX train.py), or with `by_rows` its rows of
+    each global batch (the mesh's shard_batch, as the JAX eval.py). The
+    eval step returns the global batch's metrics. Returns (adv top-1, or
+    clean when no attack; clean top-1; batches)."""
     clean1, clean5, adv1, adv5 = (AverageMeter() for _ in range(4))
-    n = 0
-    for i, (x, y) in enumerate(ds.batches(batch_size, shuffle=False, seed=0,
-                                          as_uint8=True)):
+    n, w = 0, mesh.world_size()
+    if by_rows:
+        it = ((mesh.shard_rows(x), mesh.shard_rows(y)) for x, y in
+              ds.batches(batch_size, shuffle=False, seed=0, as_uint8=True))
+    else:
+        it = ds.batches(batch_size // w, shuffle=False, seed=0,
+                        process_index=mesh.rank(), process_count=w, as_uint8=True)
+    for i, (x, y) in enumerate(it):
         if limit is not None and i >= limit:
             break
         m = eval_step(state, torch.from_numpy(x).to(device),
                       torch.from_numpy(y).to(device))
-        clean1.update(float(m["clean_top1"]), len(y))
-        clean5.update(float(m["clean_top5"]), len(y))
+        n_glob = len(y) * w
+        clean1.update(float(m["clean_top1"]), n_glob)
+        clean5.update(float(m["clean_top5"]), n_glob)
         if "adv_top1" in m:
-            adv1.update(float(m["adv_top1"]), len(y))
-            adv5.update(float(m["adv_top5"]), len(y))
+            adv1.update(float(m["adv_top1"]), n_glob)
+            adv5.update(float(m["adv_top5"]), n_glob)
         n += 1
     log(clean_summary(clean1, clean5))
     if adv1.count:
@@ -241,11 +293,50 @@ class _Steps:
 
 
 def _batches(ds, batch_size: int, seed: int, epoch: int, limit):
-    for i, (x, y) in enumerate(ds.batches(batch_size, shuffle=True, seed=seed,
-                                          epoch=epoch, as_uint8=True)):
+    """This process's batches of `batch_size` rows (its share)."""
+    for i, (x, y) in enumerate(ds.batches(
+            batch_size, shuffle=True, seed=seed, epoch=epoch,
+            process_index=mesh.rank(), process_count=mesh.world_size(),
+            as_uint8=True)):
         if limit is not None and i >= limit:
             break
         yield i, x, y
+
+
+class _Profile:
+    """--profile DIR: torch.profiler around train steps 1 to 3 of the first
+    epoch (the JAX train.py's window; fewer when the epoch is shorter),
+    CPU and, on a card, CUDA activity; rank 0 writes DIR/trace.json, a
+    Chrome trace, and logs its path."""
+
+    def __init__(self, cfg, device, log, first_epoch: int):
+        self.dir = cfg.get("profile") if mesh.rank() == 0 else None
+        self.device, self.log, self.first = device, log, first_epoch
+        self.prof = None
+
+    def before(self, epoch: int, i: int) -> None:
+        if self.dir and epoch == self.first and i == 1:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def after(self, i: int) -> None:
+        if i == 3:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        self.log(f"=> profiler trace written to {path}")
 
 
 def build(cfg, num_classes: int, device):
@@ -283,9 +374,16 @@ def load_datasets(cfg, train: bool = True):
 def run(cfg) -> dict:
     """Drive one config; returns what the run did: train steps and eval
     batches per epoch, the last loss, per-step seconds, the checkpoint
-    (with --evaluate: the tiers' eval batches and seconds, no checkpoint)."""
+    (with --evaluate: the tiers' eval batches and seconds, no checkpoint).
+    Under torchrun with no process group yet, the run starts one on this
+    rank's device and destroys it however the run ends; a group the caller
+    started (parallel/mesh.py's init) is the caller's."""
     _check_ported(cfg)
-    device = run_device(cfg)
+    with mesh.torchrun_group(run_device(cfg)) as device:
+        return _run(cfg, device)
+
+
+def _run(cfg, device) -> dict:
     precision = pin_precision(cfg)
     dataset_name = cfg["dataset"]
     seed = int(cfg.get("seed", 1))
@@ -304,7 +402,9 @@ def run(cfg) -> dict:
     log(f"=> dataset {dataset_name}, arch {cfg['arch']}, method "
         f"{cfg['method_name']}, device {device}"
         + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-        + f", {precision}")
+        + f", {precision}"
+        + (f", {mesh.world_size()} processes ({torch.distributed.get_backend()}), "
+           f"{local_batch(cfg)} images a process" if mesh.initialized() else ""))
     if cfg.get("pretrained"):
         # torchvision-format warm start; --resume below still wins
         n_loaded, skipped = load_pretrained(state.model, cfg["pretrained"])
@@ -321,6 +421,9 @@ def run(cfg) -> dict:
         else:
             state, start_epoch, best_prec1 = restore_into_state(state, payload)
             log(f"=> resumed from {cfg['resume']} (epoch {start_epoch})")
+    # the replicas start from rank 0's weights, as the mesh's replicate
+    mesh.replicate(state.model)
+    mesh.replicate(state.momentum_buf)
     summary = {"train_steps": [], "eval_batches": [], "step_seconds": [],
                "out_dir": out_dir, "start_epoch": start_epoch}
     if evaluate:
@@ -342,16 +445,18 @@ def run(cfg) -> dict:
             f"{awp.proxy_lr}, l1 {awp.l1}; learning rate set every minibatch")
     eval_step = build_eval_step(ops, eval_attack(cfg, num_classes), run_gen)
 
-    batch_size = int(cfg["batch_size"])
+    batch_size = local_batch(cfg)
     limit = cfg.get("limit_batches")
+    profile = _Profile(cfg, device, log, start_epoch)
     loss = math.nan
     for epoch in range(start_epoch, int(cfg["epochs"])):
         lr = epoch_lr(cfg, epoch)
-        n_batches = len(train_ds) // batch_size
+        n_batches = len(train_ds) // mesh.global_batch(batch_size)
         steps = _Steps(log, epoch, n_batches, int(cfg.get("print_freq", 50)),
                        summary)
         for i, x, y in _batches(train_ds, batch_size, seed, epoch, limit):
             steps.loaded()
+            profile.before(epoch, i)
             x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
             if awp is None:
                 m = train_step(state, x, y, lr)
@@ -359,9 +464,11 @@ def run(cfg) -> dict:
                 lr = epoch_lr(cfg, epoch + (i + 1) / max(n_batches, 1))
                 m = awp_step(state, x, y, lr, 1.0 if epoch >= awp.warmup else 0.0)
             loss = steps.done(i, m, len(y))
+            profile.after(i)
+        profile.stop()
         t0 = time.time()
         prec1, _, n_eval = run_validation(log, eval_step, state, val_ds,
-                                          batch_size, device, limit=limit)
+                                          int(cfg["batch_size"]), device, limit=limit)
         summary["train_steps"].append(steps.count)
         summary["eval_batches"].append(n_eval)
         is_best = prec1 > best_prec1
@@ -369,7 +476,7 @@ def run(cfg) -> dict:
         summary["checkpoint"] = save_checkpoint(
             os.path.join(out_dir, "ckpt"), state, epoch + 1, cfg["arch"],
             best_prec1, is_best, opt, lr)
-        steps.close(batch_size, time.time() - t0, device)
+        steps.close(int(cfg["batch_size"]), time.time() - t0, device)
     log(f"=> done. best robust-eval Prec@1 {best_prec1:.3f}")
     summary.update(loss=loss, best_prec1=best_prec1)
     return summary
@@ -404,9 +511,9 @@ def run_evaluate(cfg, ops, state, val_ds, log, summary: dict,
 
 
 def _load_noise(cfg, noise: torch.Tensor, log) -> torch.Tensor:
-    """Free-AT's replay noise from the checkpoint being resumed, or
-    `noise` (zeros) with a warning when the saved buffer's shape differs
-    (another batch size or crop)."""
+    """This process's free-AT replay noise from the checkpoint being
+    resumed, or `noise` (zeros) with a warning when the saved buffer's
+    shape differs (another process count, batch size or crop)."""
     saved = load_noise(cfg["resume"])
     if saved is not None and saved.shape == noise.shape:
         log(f"=> restored free-AT replay noise shard {tuple(saved.shape)} "
@@ -427,7 +534,8 @@ def run_free_fast(cfg, ops, state, train_ds, val_ds, log, summary: dict,
     step30_free LR. Fast: the noise redrawn every repeat, the fast_knots LR
     at epoch + (i n_repeats + 1) / n_batches for minibatch i, no decay on
     BatchNorm. Each epoch: the PGD validation and the checkpoint, with the
-    replay noise saved beside it (ckpt/noise.pt), which --resume restores."""
+    replay noise saved beside it (ckpt/noise.pt; noise_p{rank}.pt, each
+    process's rows, under several), which --resume restores."""
     fast = cfg["method_name"] == "fast_AT"
     n_repeats = int(cfg.get("n_repeats", 1 if fast else 4))
     ffcfg = FreeFastConfig(
@@ -448,7 +556,7 @@ def run_free_fast(cfg, ops, state, train_ds, val_ds, log, summary: dict,
     sched = dict(cfg, lr_schedule="fast_knots" if fast else "step30_free",
                  n_repeats=n_repeats)
 
-    batch_size = int(cfg["batch_size"])
+    batch_size = local_batch(cfg)
     channels = 1 if cfg["dataset"] == "mnist" else 3
     noise = init_noise(batch_size, int(cfg.get("cize", cfg.get("crop_size", 224))),
                        channels, device)
@@ -456,8 +564,9 @@ def run_free_fast(cfg, ops, state, train_ds, val_ds, log, summary: dict,
         noise = _load_noise(cfg, noise, log)
     epochs = int(cfg["epochs"]) if fast else math.ceil(int(cfg["epochs"]) / n_repeats)
     limit = cfg.get("limit_batches")
-    n_batches = max(len(train_ds) // batch_size, 1)
+    n_batches = max(len(train_ds) // mesh.global_batch(batch_size), 1)
     seed = int(cfg.get("seed", 1))
+    profile = _Profile(cfg, device, log, start_epoch)
     loss = math.nan
     ckpt_dir = os.path.join(summary["out_dir"], "ckpt")
     for epoch in range(start_epoch, epochs):
@@ -466,12 +575,15 @@ def run_free_fast(cfg, ops, state, train_ds, val_ds, log, summary: dict,
             lr = epoch_lr(sched, epoch + (i * n_repeats + 1) / n_batches if fast
                           else epoch)
             steps.loaded()
+            profile.before(epoch, i)
             noise, m = step(state, noise, torch.from_numpy(x).to(device),
                             torch.from_numpy(y).to(device), lr)
             loss = steps.done(i, m, len(y))
+            profile.after(i)
+        profile.stop()
         t0 = time.time()
         prec1, _, n_eval = run_validation(log, eval_step, state, val_ds,
-                                          batch_size, device, limit=limit)
+                                          int(cfg["batch_size"]), device, limit=limit)
         summary["train_steps"].append(steps.count)
         summary["eval_batches"].append(n_eval)
         is_best = prec1 > best_prec1
@@ -479,7 +591,7 @@ def run_free_fast(cfg, ops, state, train_ds, val_ds, log, summary: dict,
         summary["noise"] = save_noise(ckpt_dir, noise)
         summary["checkpoint"] = save_checkpoint(
             ckpt_dir, state, epoch + 1, cfg["arch"], best_prec1, is_best, opt, lr)
-        steps.close(batch_size, time.time() - t0, device)
+        steps.close(int(cfg["batch_size"]), time.time() - t0, device)
     log(f"=> done. best robust-eval Prec@1 {best_prec1:.3f}")
     summary.update(loss=loss, best_prec1=best_prec1)
     return summary
@@ -488,8 +600,9 @@ def run_free_fast(cfg, ops, state, train_ds, val_ds, log, summary: dict,
 def parser(description: str = "edge_enhancement_tpu_torch trainer"):
     p = base_parser(description)
     p.add_argument("--device", default=None,
-                   help="torch device, e.g. cuda or cpu (default cuda); "
-                        "cuda raises when CUDA is absent")
+                   help="torch device, e.g. cuda or cpu (default cuda, under "
+                        "torchrun cuda:LOCAL_RANK); cuda raises when CUDA is "
+                        "absent")
     return p
 
 

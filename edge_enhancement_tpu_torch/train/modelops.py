@@ -10,6 +10,11 @@ running statistics and drops nothing. The square
 front-end draws fresh randomness in both modes, unless an eval-mode
 forward is handed draws (the attacks of attacks/autoattack.py share one
 draw between forwards that JAX runs under one key).
+
+Under several processes (parallel/mesh.py) a loss or metric that JAX
+takes as a mean over the batch is this rank's sum over the GLOBAL batch
+(`batch_mean`): the ranks' values then sum to the global mean, and so do
+their parameter gradients. With one process each is the mean it was.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.square import draw_squares
+from ..parallel import mesh
 
 
 class ModelOps:
@@ -43,9 +49,20 @@ class ModelOps:
         return draw_squares(self.model.square_source, x.shape, int(ee.n_queries))
 
 
+def batch_mean(v: torch.Tensor) -> torch.Tensor:
+    """The mean of v over the global batch (v's leading axis, shards of
+    equal size): torch.mean in one process, this rank's share of it (the
+    local sum over the global element count) under several."""
+    if mesh.world_size() == 1:
+        return torch.mean(v)
+    return torch.sum(v) / mesh.global_batch(v.numel())
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   reduction: str = "mean") -> torch.Tensor:
-    """CE on integer labels."""
+    """CE on integer labels; 'mean' over the global batch (`batch_mean`)."""
+    if reduction == "mean" and mesh.world_size() > 1:
+        return batch_mean(F.cross_entropy(logits, labels.long(), reduction="none"))
     return F.cross_entropy(logits, labels.long(), reduction=reduction)
 
 
@@ -64,7 +81,7 @@ def label_smooth_loss(logits: torch.Tensor, labels: torch.Tensor,
     weight = torch.full_like(logp, smoothing / (n - 1.0))
     one_hot = F.one_hot(labels.long(), n).to(logits.dtype)
     weight = weight * (1.0 - one_hot) + one_hot * (1.0 - smoothing)
-    return torch.mean(torch.sum(-weight * logp, dim=-1))
+    return batch_mean(torch.sum(-weight * logp, dim=-1))
 
 
 def kl_div_batchmean(log_q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -72,13 +89,13 @@ def kl_div_batchmean(log_q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     0 log 0 := 0 written out (value and gradient), as the JAX function."""
     logp = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-38)),
                        torch.zeros_like(p))
-    return torch.sum(p * (logp - log_q)) / log_q.shape[0]
+    return torch.sum(p * (logp - log_q)) / mesh.global_batch(log_q.shape[0])
 
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                   ks=(1, 5)) -> dict[str, torch.Tensor]:
-    """top-k precision in percent."""
+    """top-k precision in percent, over the global batch (`batch_mean`)."""
     pred = torch.topk(logits, max(ks), dim=-1).indices
     correct = pred == labels.long()[:, None]
-    return {f"top{k}": 100.0 * correct[:, :k].any(dim=1).float().mean()
+    return {f"top{k}": 100.0 * batch_mean(correct[:, :k].any(dim=1).float())
             for k in ks}

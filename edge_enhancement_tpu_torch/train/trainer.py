@@ -3,7 +3,11 @@ edge_enhancement_tpu/train/trainer.py: one train step is the objective's
 loss (its attack included), the parameter gradient and the SGD update;
 the eval step is the reference validate(): clean accuracy and one attack
 battery (PGD, FGSM or CW) in eval mode.
-PyTorch runs eagerly, so a step is a plain function of the state."""
+PyTorch runs eagerly, so a step is a plain function of the state. Under
+several processes (parallel/mesh.py) each rank runs the step on its rows;
+the train step sums the parameter gradients and the metrics over the
+ranks in one all-reduce before the update, so every replica takes the
+same update, and both steps return the global batch's metrics."""
 
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from ..attacks.cw import CWConfig, cw_linf
 from ..attacks.pgd import PGDConfig, fgsm, pgd_linf, random_targets
 from ..objectives.methods import MethodConfig, Objective
 from ..ops.square import add_square, add_square_draws, draw_squares
+from ..parallel import mesh
 from .modelops import ModelOps, cross_entropy, topk_accuracy
 from .sgd import sgd_update
 
@@ -62,11 +67,13 @@ def build_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
         x = to_float_pixels(x)
         loss, logits = objective.loss(x, y)
         params = state.params
-        grads = torch.autograd.grad(loss, params)
+        grads, metrics = mesh.sum_step(
+            torch.autograd.grad(loss, params),
+            {"loss": loss.detach(), **topk_accuracy(logits.detach(), y)})
         sgd_update(params, grads, state.momentum_buf, lr=lr,
                    momentum=opt.momentum, weight_decay=opt.weight_decay)
         state.step += 1
-        return {"loss": loss.detach(), **topk_accuracy(logits.detach(), y)}
+        return metrics
 
     return step_fn
 
@@ -134,7 +141,7 @@ def build_eval_step(ops: ModelOps, atk: EvalAttackConfig,
         metrics = {"clean_loss": cross_entropy(clean, y),
                    **{f"clean_{k}": v for k, v in topk_accuracy(clean, y).items()}}
         if atk.attack_method == "none":
-            return metrics
+            return mesh.sum_metrics(metrics)
         tgt = random_targets(y, atk.num_classes, generator) if atk.targeted else y
 
         def loss_fn(xa):
@@ -163,6 +170,6 @@ def build_eval_step(ops: ModelOps, atk: EvalAttackConfig,
             adv = ops.logits_eval(x_adv)
         metrics.update({"adv_loss": cross_entropy(adv, y),
                         **{f"adv_{k}": v for k, v in topk_accuracy(adv, y).items()}})
-        return metrics
+        return mesh.sum_metrics(metrics)
 
     return eval_fn

@@ -48,7 +48,7 @@ def load_config(path: str, cli_overrides: Optional[Mapping[str, Any]] = None) ->
 
 def base_parser(description: str) -> argparse.ArgumentParser:
     """The JAX trainer's flags that the port's drivers read (the JAX-only
-    --steps-per-dispatch, --profile and --platform are left out)."""
+    --steps-per-dispatch is left out)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", required=True, help="YAML config path")
     p.add_argument("--data", default=None,
@@ -74,4 +74,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "(default 512; eval split uses half)")
     p.add_argument("--output", default="output", help="checkpoint/log root")
     p.add_argument("--print-freq", dest="print_freq", type=int, default=None)
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler trace of train steps 1-3 of "
+                        "the first epoch into this directory (rank 0)")
+    p.add_argument("--platform", default=None,
+                   help="cpu, or gpu / cuda: the device type (tpu raises)")
     return p

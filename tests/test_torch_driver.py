@@ -62,6 +62,16 @@ def test_driver_runs_gf_on_cpu(tmp_path):
     assert all(bool(torch.isfinite(v).all()) for v in state.values())
 
 
+def test_profile_and_platform_pass_the_port_check():
+    """--profile and --platform are ported (the driver traces with
+    torch.profiler and picks the device); steps_per_dispatch > 1 is not."""
+    from edge_enhancement_tpu_torch.train.driver import _check_ported
+    for key, value in (("profile", "trace"), ("platform", "cpu"), ("platform", "gpu")):
+        _check_ported({key: value})
+    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
+        _check_ported({"profile": "trace", "steps_per_dispatch": 2})
+
+
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
     # the full Canny runs in float32 only
@@ -284,8 +294,9 @@ def test_eval_refuses(tmp_path, suite, error):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, its entry points and chip_smoke.py import
-    with jax, jaxlib, flax and the JAX package blocked."""
+    """Every module of the port (parallel/ and utils/analysis.py named),
+    its entry points and chip_smoke.py import with jax, jaxlib, flax and
+    the JAX package blocked."""
     code = (
         "import pkgutil, sys, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'edge_enhancement_tpu'):\n"
@@ -296,6 +307,8 @@ def test_port_imports_no_jax():
         "        importlib.import_module(m.name)\n"
         "import edge_enhancement_tpu_torch.train.driver\n"
         "import edge_enhancement_tpu_torch.tools.bench_gemm_conv\n"
+        "import edge_enhancement_tpu_torch.parallel.mesh\n"
+        "import edge_enhancement_tpu_torch.utils.analysis\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if sys.modules[k] is not None and\n"
         "             k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'edge_enhancement_tpu'))\n"
@@ -309,13 +322,18 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax_package():
     """A scan of the port's sources and chip_smoke.py: no import of the JAX
-    package, jax or flax in any form."""
+    package, jax or flax in any form (parallel/ and utils/analysis.py
+    among them)."""
     pattern = re.compile(r"^\s*(from|import)\s+(edge_enhancement_tpu|jax|jaxlib|flax)\b",
                          re.MULTILINE)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(REPO, "edge_enhancement_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) >= 30
+    for must in (os.path.join("parallel", "mesh.py"), os.path.join("parallel", "__init__.py"),
+                 os.path.join("utils", "analysis.py")):
+        assert any(f.endswith(os.path.join("edge_enhancement_tpu_torch", must))
+                   for f in files), must
     hits = []
     for path in files:
         with open(path) as f:
