@@ -141,6 +141,24 @@
       then --resume for 1 step: each rank's noise_p{rank}.pt restored bit
       for bit, the ranks' rows different, the weights and momentum the
       file's, K1/K2 16 and 14 a run, ms/step and peak memory a rank.
+   n. real folders (before m): the port's JPEG decoder (data/native.py:
+      csrc/eedata.cpp with g++, libjpeg where the machine has it, else
+      PIL) built and its decode path printed; an ImageNet-layout folder of
+      512 train and 256 validation JPEGs (2 classes, 500 x 375, 375 x 500,
+      333 x 500 and 640 x 480, quality 92; written with PIL, or copied
+      from tests/data/jpeg/ without it) read by fast-AT phase 1 through
+      the driver, 2 train steps at bs256 on 128 px RandomResizedCrops and
+      1 validation batch (K1/K2 bfloat16 exact, path folder_fast_at);
+      then the flagship from a Tiny-ImageNet-layout JPEG folder (with
+      val_annotations.txt), 1 step and 1 validation batch (path
+      folder_flagship); the host's decode ms per batch, ms/step, and the
+      seconds each step waited for its batch.
+   o. the serving export (utils/export.py) through tools/export_model on
+      the card from slice a's checkpoint, the batch symbolic: the graph
+      holds K1's operator once; the artifact at 100 and 37 images, draws
+      from one seed, equals the live eval forward bit for bit, launching
+      K1 once a call and its plain version never (path export); the
+      artifact's MB and ms per call.
 5. The reference, for slices a to d, k, l and m2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -379,6 +397,18 @@ M1_GRAD_TOL, M1_LOSS_RTOL, M1_UPDATE_TOL = 3e-2, 1e-4, 5e-2
 M3_ARGS = dict(data="synthetic", synthetic_size=512, epochs=1, limit_batches=1,
                device="cuda:0")
 
+# n: real folders written by the script (PIL): ImageNet's layout with 2
+# classes, 512 train and 256 validation JPEGs of four shapes (h, w), read by
+# fast-AT phase 1 (2 train steps of 256, 1 validation batch); then
+# Tiny-ImageNet's layout, 64 x 64, for the flagship (1 step, 1 batch of 100)
+FOLDER_TRAIN, FOLDER_VAL = 512, 256
+FOLDER_SIZES = ((375, 500), (500, 375), (500, 333), (480, 640))
+TINY_CLASSES, TINY_PER_CLASS = 10, 10
+# one JPEG of each of those shapes, copied where PIL is not installed
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+FOLDER_ARGS = dict(epochs=1, limit_batches=2, device="cuda")
+# o: the exported flagship at two batch sizes, draws from one seed
+EXPORT_BATCHES, EXPORT_SEED = (100, 37), 11
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -1963,6 +1993,225 @@ def free_at_mesh_phase(torch, kernels, device_line) -> None:
     shutil.rmtree(out)
 
 
+def _write_jpegs(jobs) -> None:
+    """(path, (h, w), seed) each: a quality-92 JPEG of a smooth colour ramp
+    under noise of amplitude 48, written by PIL on 8 threads; where PIL is
+    not installed, a copy of the fixture of that shape
+    (tests/data/jpeg/make_fixtures.py wrote them)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    try:
+        from PIL import Image
+    except ImportError:
+        for path, (h, w), _ in jobs:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            shutil.copyfile(os.path.join(JPEG_FIXTURES, f"{h}x{w}.JPEG"), path)
+        return
+
+    def one(job):
+        path, (h, w), seed = job
+        rng = np.random.default_rng(seed)
+        ramp = (np.linspace(0, 1, h)[:, None, None] * rng.uniform(0, 200, 3)
+                + np.linspace(0, 1, w)[None, :, None] * rng.uniform(0, 200, 3))
+        px = np.clip(ramp + rng.integers(0, 48, (h, w, 3)), 0, 255).astype(np.uint8)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(px).save(path, "JPEG", quality=92)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, jobs))
+
+
+def write_imagenet_folder(root: str) -> None:
+    """ImageNet's layout, <split>/<wnid>/*.JPEG: 2 classes, FOLDER_TRAIN
+    train and FOLDER_VAL validation images, FOLDER_SIZES in turn."""
+    jobs = []
+    for split, n in (("train", FOLDER_TRAIN), ("val", FOLDER_VAL)):
+        for i in range(n):
+            jobs.append((os.path.join(root, split, f"n{i % 2:08d}", f"{split}_{i:05d}.JPEG"),
+                         FOLDER_SIZES[i % len(FOLDER_SIZES)], i + (0 if split == "train" else 10**6)))
+    _write_jpegs(jobs)
+
+
+def write_tiny_imagenet_folder(root: str) -> None:
+    """Tiny-ImageNet's layout: train/<wnid>/images/*.JPEG and the raw
+    val/images with val_annotations.txt, 64 x 64 JPEGs, TINY_CLASSES
+    classes of TINY_PER_CLASS images, as many in validation."""
+    wnids = [f"n{9000 + c:08d}" for c in range(TINY_CLASSES)]
+    n = TINY_CLASSES * TINY_PER_CLASS
+    jobs = [(os.path.join(root, "train", wnids[i % TINY_CLASSES], "images", f"t_{i}.JPEG"),
+             (64, 64), i) for i in range(n)]
+    jobs += [(os.path.join(root, "val", "images", f"val_{i}.JPEG"), (64, 64), 10**6 + i)
+             for i in range(n)]
+    _write_jpegs(jobs)
+    with open(os.path.join(root, "val", "val_annotations.txt"), "w") as f:
+        for i in range(n):
+            f.write(f"val_{i}.JPEG\t{wnids[i % TINY_CLASSES]}\t0\t0\t63\t63\n")
+
+
+def folder_phase(torch, kernels, device_line) -> None:
+    """n. Real folders: the port's decoder built, its path printed; fast-AT
+    phase 1 through the driver from an ImageNet-layout JPEG folder (2 train
+    steps at bs256 on 128 px RandomResizedCrops, 1 validation batch, K1/K2
+    bf16 counts exact, path folder_fast_at), then the flagship for 1 step
+    and 1 validation batch from a Tiny-ImageNet-layout JPEG folder (path
+    folder_flagship). Prints the host's decode ms per batch (one batch
+    loaded alone), the step's ms and how long each step waited for its
+    batch (the lookahead thread decodes batch i + 1 during step i)."""
+    from edge_enhancement_tpu_torch.data import native
+    from edge_enhancement_tpu_torch.data.datasets import StreamingImageFolder, get_dataset
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    t0 = time.time()
+    lib = native.build()
+    path = native.decode_path()          # raises where neither libjpeg nor PIL is present
+    print(f"[folder] decoder {os.path.relpath(lib, ROOT)} built in {time.time() - t0:.1f} s; "
+          f"decode path {path}", flush=True)
+    root = _out_dir("folders")
+    t0 = time.time()
+    write_imagenet_folder(os.path.join(root, "imagenet"))
+    write_tiny_imagenet_folder(os.path.join(root, "tiny"))
+    print(f"[folder] wrote {FOLDER_TRAIN} + {FOLDER_VAL} ImageNet-layout JPEGs "
+          f"({', '.join(f'{w}x{h}' for h, w in FOLDER_SIZES)}) and "
+          f"{2 * TINY_CLASSES * TINY_PER_CLASS} Tiny-ImageNet ones in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    _, fast_path, fwd, bwd, per_step = next(s for s in IMAGENET_SLICES if s[0] == "fast_at")
+    cfg, summary = imagenet_slice_phase(
+        torch, kernels, device_line, "folder_fast_at", fast_path, fwd, bwd, per_step,
+        dict(FOLDER_ARGS, data=os.path.join(root, "imagenet")))
+    size, bs = int(cfg["cize"]), int(cfg["batch_size"])
+    train_ds, _ = get_dataset("imagenet", os.path.join(root, "imagenet"), train=True,
+                              image_size=size)
+    if not isinstance(train_ds, StreamingImageFolder) or len(train_ds) != FOLDER_TRAIN:
+        fail(f"the ImageNet folder loaded as {type(train_ds).__name__} of {len(train_ds)}")
+    t0 = time.time()
+    x, _ = next(train_ds.batches(bs, shuffle=True, seed=1, as_uint8=True))
+    decode_ms = 1e3 * (time.time() - t0)
+    if x.shape != (bs, size, size, 3):
+        fail(f"a folder batch has shape {x.shape}")
+    _report_folder_steps("folder_fast_at", summary, decode_ms, bs, size, path, device_line)
+
+    cfg = load_config(CONFIG, dict(FOLDER_ARGS, data=os.path.join(root, "tiny"),
+                                   limit_batches=1, output=_out_dir("folder_flagship")))
+    _reset_counts()
+    summary = run(cfg)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+    k = int(cfg["num_steps_1"])
+    if steps != 1 or evals != 1:
+        fail(f"folder_flagship: expected 1 train step and 1 eval batch, got {steps}, {evals}")
+    _check_launches("folder_flagship", launches,
+                    {"ee_fused_fwd": steps * (k + 1) + evals * (k + 2),
+                     "ee_fused_bwd": (steps + evals) * k})
+    if not math.isfinite(summary["loss"]):
+        fail(f"folder_flagship: loss {summary['loss']} is not finite")
+    _record_launches(kernels, "folder_flagship", launches)
+    with open(os.path.join(summary["out_dir"], "log", "log.txt")) as f:
+        logged = [ln for ln in f.read().splitlines() if ln.startswith("=> image folder")]
+    if not logged or not logged[0].endswith(f"decoded by {path}"):
+        fail(f"folder_flagship: the driver logged {logged}")
+    tiny = get_dataset("tiny_imagenet", os.path.join(root, "tiny"), train=True)[0]
+    t0 = time.time()
+    next(tiny.batches(int(cfg["batch_size"]), shuffle=True, seed=1, as_uint8=True))
+    _report_folder_steps("folder_flagship", summary, 1e3 * (time.time() - t0),
+                         int(cfg["batch_size"]), 64, path, device_line)
+    shutil.rmtree(root)
+
+
+def _report_folder_steps(tag, summary, decode_ms, bs, size, path, device_line) -> None:
+    """The decode against the step: the lookahead thread decodes batch
+    i + 1 during step i, so a step waits for its batch by about decode -
+    step once the first (warm-up) step is past."""
+    steps_ms = [1e3 * s for s in summary["step_seconds"]]
+    waits_ms = [1e3 * s for s in summary["data_seconds"]]
+    steady = sorted(steps_ms[1:] or steps_ms)[len(steps_ms[1:] or steps_ms) // 2]
+    print(f"[slice {tag}] host decode {decode_ms:.1f} ms per batch of {bs} at {size} px "
+          f"({path}, one batch loaded alone); train step ms "
+          f"{[round(v, 1) for v in steps_ms]}; each step waited for its batch ms "
+          f"{[round(v, 1) for v in waits_ms]} (the first for a whole decode, the second "
+          f"behind the warm-up step); past warm-up the lookahead "
+          f"{'keeps each step waiting ~%.1f ms' % (decode_ms - steady) if decode_ms > steady else 'hides the decode'}"
+          f" (decode {decode_ms:.1f} vs step {steady:.1f} ms); on {device_line}", flush=True)
+
+
+def export_phase(torch, kernels, device_line, checkpoint: str) -> None:
+    """o. The serving export: tools/export_model on the card from the
+    flagship's checkpoint (slice a), a symbolic batch; the artifact
+    (loaded with utils/export.py) at EXPORT_BATCHES images, with draws
+    from one seed: its logits equal the live eval forward's on the same
+    draws exactly, and each call launches K1 once and its plain version
+    never (path export). Prints the artifact's MB and ms per call."""
+    from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
+    from edge_enhancement_tpu_torch.tools import export_model
+    from edge_enhancement_tpu_torch.train.checkpoint import load_checkpoint, restore_into_state
+    from edge_enhancement_tpu_torch.train.driver import build
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    from edge_enhancement_tpu_torch.utils.cuda_timing import median_ms
+    from edge_enhancement_tpu_torch.utils.export import load_serving_artifact, make_serving_fn
+
+    out = os.path.join(_out_dir("export"), "flagship.pt2")
+    os.makedirs(os.path.dirname(out))
+    ckpt_dir = os.path.dirname(checkpoint)
+    _reset_counts()
+    t0 = time.time()
+    export_model.main(["--config", CONFIG, "--resume", ckpt_dir, "--out", out,
+                       "--device", "cuda"])
+    export_s = time.time() - t0
+    torch.cuda.synchronize()
+    if any(_read_counts().values()):
+        fail(f"the export launched kernels: {_read_counts()}")
+    art = load_serving_artifact(out)
+    op = torch.ops.ee_tpu_torch.ee_fused_fwd.default
+    nodes = [n for n in art.exported.graph.nodes if n.op == "call_function"]
+    if sum(n.target is op for n in nodes) != 1:
+        fail("the exported graph does not hold the K1 operator once")
+
+    dev = torch.device("cuda")
+    cfg = load_config(CONFIG, dict(device="cuda"))
+    ops, state, _ = build(cfg, 200, dev)
+    restore_into_state(state, load_checkpoint(ckpt_dir, "best")
+                       or load_checkpoint(ckpt_dir, "last"))
+    serve = make_serving_fn(ops)
+    plain_calls = []
+    real_plain = F.ee_fused_fwd_plain
+    F.ee_fused_fwd_plain = lambda *a, **k: plain_calls.append(1) or real_plain(*a, **k)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    launches = {}
+    try:
+        for n in EXPORT_BATCHES:
+            x = torch.rand((n, 64, 64, 3), generator=gen, device=dev)
+            _reset_counts()
+            got = art(x, EXPORT_SEED)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            want = serve(x, EXPORT_SEED)
+            err = (got - want).abs().max().item()
+            print(f"[export] {n} images: logits {tuple(got.shape)}, artifact vs live eval "
+                  f"forward on the same draws: max |err| {err:.3e}, bit for bit "
+                  f"{torch.equal(got, want)}; launches {counts}", flush=True)
+            if got.shape != (n, 200) or not torch.equal(got, want):
+                fail(f"the artifact's logits differ from the live forward at {n} images")
+            _check_launches(f"export at {n} images", counts, {"ee_fused_fwd": 1})
+        if plain_calls:
+            fail(f"the artifact ran K1's plain version {len(plain_calls)} times")
+        x = torch.rand((EXPORT_BATCHES[0], 64, 64, 3), generator=gen, device=dev)
+        call_ms = median_ms(lambda: art(x, EXPORT_SEED))
+        live_ms = median_ms(lambda: serve(x, EXPORT_SEED))
+    finally:
+        F.ee_fused_fwd_plain = real_plain
+    _record_launches(kernels, "export", launches)
+    print(f"[export] {os.path.relpath(out, ROOT)}: {os.path.getsize(out) / 1e6:.2f} MB, "
+          f"exported in {export_s:.1f} s; {call_ms:.3f} ms per call of "
+          f"{EXPORT_BATCHES[0]} images (draws included; live eval forward "
+          f"{live_ms:.3f} ms); K1 launched once a call, its plain version never; on "
+          f"{device_line}", flush=True)
+    shutil.rmtree(os.path.dirname(out))
+
+
 def main():
     import torch
 
@@ -1992,6 +2241,8 @@ def main():
     restart_pgd_phase(torch, kernels, smi, checkpoints[False])
     variants_phase(torch, kernels, smi)
     zoo_phase(torch, kernels, smi)
+    folder_phase(torch, kernels, smi)
+    export_phase(torch, kernels, smi, checkpoints[False])
     torch.cuda.empty_cache()            # the ranks of phase m share the card
     mesh_step_phase(torch, kernels, smi)
     torchrun_phase(torch, kernels, smi)

@@ -1,16 +1,19 @@
 """Datasets the port's driver reads, as edge_enhancement_tpu/data/datasets.py:
 the synthetic sets, MNIST's idx files (plain or .gz), CIFAR-100's pickle
-batches, and Tiny-ImageNet image folders decoded with PIL.
+batches, and the Tiny-ImageNet and ImageNet image folders.
 
 Batches are NHWC, uint8 or float32 in [0, 1] (no normalisation), in the
 same order and with the same augmentation draws as the JAX package for a
 given (seed, epoch): both consume one numpy stream the same way. MNIST
 trains without augmentation; CIFAR-100 with the pad-4 random crop, hflip
 and a random rotation of up to 15 degrees (`cifar_augment`, in numpy, in
-the arithmetic of the JAX package's native runtime, runtime/eedata.cpp);
-Tiny-ImageNet with hflip only, its validation split read either as class
-folders or in the raw val/images + val_annotations.txt layout. ImageNet
-folders are not ported yet and raise.
+the arithmetic of the JAX package's native runtime). The image folders
+stream from disk (`StreamingImageFolder`), their JPEGs decoded by the
+port's copy of that runtime's decoder (data/native.py, libjpeg), else by
+PIL: Tiny-ImageNet with hflip only, its validation split read either as
+class folders or in the raw val/images + val_annotations.txt layout;
+ImageNet with RandomResizedCrop + hflip in training and the centre box of
+Resize(256) + CenterCrop(224), scaled with the image size, in evaluation.
 """
 
 from __future__ import annotations
@@ -21,9 +24,12 @@ import math
 import os
 import pickle
 import struct
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
+
+from . import native
 
 
 @dataclasses.dataclass
@@ -217,12 +223,18 @@ def load_cifar100(root: str, train: bool) -> ArrayDataset:
 
 
 # --------------------------------------------------------------------------
-# Tiny-ImageNet folders
+# Image folders (Tiny-ImageNet, ImageNet)
 # --------------------------------------------------------------------------
 
-def _load_rgb(path: str, size: int) -> np.ndarray:
-    """One image file as (size, size, 3) uint8, bilinear-resized when it is
-    not already that size (Tiny-ImageNet ships at 64 x 64)."""
+def _class_index(root: str) -> dict:
+    classes = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)))
+    return {c: i for i, c in enumerate(classes)}
+
+
+def _pil_decode(path: str, size: int) -> np.ndarray:
+    """One image file as (size, size, 3) uint8 through PIL, bilinear-resized
+    when it is not already that size."""
     from PIL import Image
     with Image.open(path) as im:
         im = im.convert("RGB")
@@ -231,53 +243,25 @@ def _load_rgb(path: str, size: int) -> np.ndarray:
         return np.asarray(im, np.uint8)
 
 
-def _class_index(root: str) -> dict:
-    classes = sorted(d for d in os.listdir(root)
-                     if os.path.isdir(os.path.join(root, d)))
-    return {c: i for i, c in enumerate(classes)}
-
-
-class ImageFolder:
-    """root/<class>/**/*.{JPEG,jpg,png}, decoded batch by batch from disk.
-    Train mode flips each image with probability 0.5, the draws taken from
-    a numpy generator per batch, seeded (seed, epoch, 17, batch start) as
-    the JAX package does."""
-
-    def __init__(self, root: str, image_size: int, train: bool):
-        self.image_size = int(image_size)
-        self.train = train
-        class_to_idx = _class_index(root)
-        paths, labels = [], []
-        for c in sorted(class_to_idx):
-            for dirpath, _, files in os.walk(os.path.join(root, c)):
-                for fn in sorted(files):
-                    if fn.lower().endswith(_IMAGE_EXTS):
-                        paths.append(os.path.join(dirpath, fn))
-                        labels.append(class_to_idx[c])
-        self.paths = np.asarray(paths)
-        self.labels = np.asarray(labels, np.int32)
-
-    def __len__(self):
-        return len(self.paths)
-
-    def batches(self, batch_size: int, *, shuffle: bool, seed: int,
-                epoch: int = 0, drop_last: bool = True,
-                process_index: int = 0, process_count: int = 1,
-                as_uint8: bool = False
-                ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        _, idx = _index_order(len(self), shuffle, seed, epoch,
-                              process_index, process_count)
-        for s in _batch_starts(len(idx), batch_size, drop_last):
-            take = idx[s:s + batch_size].astype(np.int64)
-            imgs = np.stack([_load_rgb(p, self.image_size)
-                             for p in self.paths[take]])
-            if self.train:
-                rng = np.random.default_rng(
-                    np.random.SeedSequence([seed, epoch, 17, s]))
-                imgs = _hflip(imgs, rng.random(len(take)) < 0.5)
-            if not as_uint8:
-                imgs = imgs.astype(np.float32) / 255.0
-            yield imgs, self.labels[take]
+def _decode_files_to_array(paths: list, image_size: int) -> np.ndarray:
+    """Image files as one (N, S, S, 3) uint8 array: chunks of 8192 JPEGs
+    through the native decoder; a chunk it cannot take (a PNG, a file that
+    fails, no libjpeg) through PIL, file by file."""
+    out = np.empty((len(paths), image_size, image_size, 3), np.uint8)
+    chunk = 8192
+    for lo in range(0, len(paths), chunk):
+        sub = paths[lo:lo + chunk]
+        got = None
+        if all(p.lower().endswith((".jpeg", ".jpg")) for p in sub):
+            got = native.stream_decode_files(
+                sub, mode=0, draws=None, eval_resize=0, eval_crop=0,
+                oh=image_size, ow=image_size, flip_flags=None)
+        if got is not None:
+            out[lo:lo + len(sub)] = got
+            continue
+        for i, p in enumerate(sub):
+            out[lo + i] = _pil_decode(p, image_size)
+    return out
 
 
 def load_tiny_imagenet_val(root: str, image_size: int) -> ArrayDataset:
@@ -294,10 +278,169 @@ def load_tiny_imagenet_val(root: str, image_size: int) -> ArrayDataset:
                 ann[parts[0]] = class_to_idx[parts[1]]
     img_dir = os.path.join(val_dir, "images")
     names = [fn for fn in sorted(os.listdir(img_dir)) if fn in ann]
-    images = np.empty((len(names), image_size, image_size, 3), np.uint8)
-    for i, fn in enumerate(names):
-        images[i] = _load_rgb(os.path.join(img_dir, fn), image_size)
+    images = _decode_files_to_array([os.path.join(img_dir, fn) for fn in names],
+                                    image_size)
     return ArrayDataset(images, np.asarray([ann[fn] for fn in names]))
+
+
+def _round_half_away(v: float) -> int:
+    """Round half away from zero (C++'s lround), not Python's half to even."""
+    return int(np.floor(v + 0.5))
+
+
+def rrc_box_from_draws(draws: np.ndarray, h: int, w: int) -> tuple[int, int, int, int]:
+    """One torchvision RandomResizedCrop box (scale 0.08-1.0, ratio 3/4-4/3,
+    10 tries then the centre square) in original-image coordinates, from 40
+    uniforms (10 tries x {scale, log-ratio, y, x}), as csrc/eedata.cpp's
+    rrc_box computes it: (by, bx, bh, bw)."""
+    area = h * w
+    lr_lo, lr_hi = np.log(3 / 4), np.log(4 / 3)
+    for t in range(10):
+        target_area = (0.08 + float(draws[t * 4]) * 0.92) * area
+        ratio = np.exp(lr_lo + float(draws[t * 4 + 1]) * (lr_hi - lr_lo))
+        bw = _round_half_away(np.sqrt(target_area * ratio))
+        bh = _round_half_away(np.sqrt(target_area / ratio))
+        if 0 < bw <= w and 0 < bh <= h:
+            by = int(float(draws[t * 4 + 2]) * (h - bh + 1))
+            bx = int(float(draws[t * 4 + 3]) * (w - bw + 1))
+            return by, bx, bh, bw
+    s = min(h, w)
+    return (h - s) // 2, (w - s) // 2, s, s
+
+
+def _eval_center_box(h: int, w: int, resize_to: int = 256,
+                     crop: int = 224) -> tuple[int, int, int, int]:
+    """Resize(short=resize_to) + CenterCrop(crop) as one box of the
+    original image: a centred square of (crop / resize_to) x the short
+    side, resampled once (csrc/eedata.cpp's center_box)."""
+    s = min(h, w)
+    side = max(1, _round_half_away(s * crop / float(resize_to)))
+    return (h - side) // 2, (w - side) // 2, side, side
+
+
+class StreamingImageFolder:
+    """root/<class>/**/*.{JPEG,jpg,png} streamed from disk: only the paths
+    and labels live in memory, and each batch is read, decoded, cropped
+    and resized on demand by the native decoder (data/native.py), one
+    batch ahead on a thread. Train mode `rrc`: RandomResizedCrop from the
+    original resolution, then hflip (ImageNet); `hflip`: the full image
+    resized, then hflip (Tiny-ImageNet). Eval: the centre box of
+    Resize(eval_resize) + CenterCrop(eval_crop) where eval_resize is set,
+    else the full image resized. Every draw of a batch is made up front
+    from its own generator, seeded (seed, epoch, 17, batch start): the 40
+    RRC uniforms of each image, then the flips. Where the native decoder
+    cannot take a batch (no libjpeg, a PNG, a file that fails), PIL decodes
+    the whole batch from the same draws."""
+
+    def __init__(self, root: str, image_size: int, train: bool,
+                 class_to_idx: Optional[dict] = None,
+                 eval_resize: Optional[int] = None,
+                 eval_crop: Optional[int] = None,
+                 train_mode: str = "rrc"):
+        if train_mode not in ("rrc", "hflip"):
+            raise ValueError(f"train_mode must be rrc or hflip, got {train_mode!r}")
+        self.root = root
+        self.image_size = int(image_size)
+        self.train = train
+        self.train_mode = train_mode
+        self.eval_resize, self.eval_crop = eval_resize, eval_crop
+        if class_to_idx is None:
+            class_to_idx = _class_index(root)
+        self.class_to_idx = class_to_idx
+        paths, labels = [], []
+        for c in sorted(class_to_idx):
+            for dirpath, _, files in os.walk(os.path.join(root, c)):
+                for fn in sorted(files):
+                    if fn.lower().endswith(_IMAGE_EXTS):
+                        paths.append(os.path.join(dirpath, fn))
+                        labels.append(class_to_idx[c])
+        self.paths = np.asarray(paths)
+        self.labels = np.asarray(labels, np.int32)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _load_batch(self, take: np.ndarray, rng,
+                    as_uint8: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        size = self.image_size
+        n = len(take)
+        paths = self.paths[take]
+        rrc = self.train and self.train_mode == "rrc"
+        draws = rng.random((n, 40)).astype(np.float32) if rrc else None
+        flips = (rng.random(n) < 0.5).astype(np.uint8) if self.train else None
+        if rrc:
+            mode = 1
+        elif not self.train and self.eval_resize:
+            mode = 2
+        else:
+            mode = 0
+        crop = self.eval_crop or size
+        imgs = native.stream_decode_files(
+            paths, mode, draws, self.eval_resize, crop, size, size, flips,
+            dtype=np.uint8 if as_uint8 else np.float32)
+        if imgs is not None:
+            return imgs, self.labels[take]
+        imgs = np.empty((n, size, size, 3), np.uint8)
+        for i, p in enumerate(paths):
+            imgs[i] = self._pil_crop(p, mode, None if draws is None else draws[i],
+                                     crop)
+        if flips is not None:
+            imgs = _hflip(imgs, flips)
+        if not as_uint8:
+            imgs = imgs.astype(np.float32) / 255.0
+        return imgs, self.labels[take]
+
+    def _pil_crop(self, path: str, mode: int, draws, crop: int) -> np.ndarray:
+        """One image through PIL: the box of `mode` cropped, then resized
+        with BILINEAR."""
+        from PIL import Image
+        size = self.image_size
+        with Image.open(path) as im:
+            im = im.convert("RGB")
+            h, w = im.height, im.width
+            if mode == 1:
+                by, bx, bh, bw = rrc_box_from_draws(draws, h, w)
+            elif mode == 2:
+                by, bx, bh, bw = _eval_center_box(h, w, self.eval_resize, crop)
+            else:
+                by, bx, bh, bw = 0, 0, h, w
+            return np.asarray(im.crop((bx, by, bx + bw, by + bh)).resize(
+                (size, size), Image.BILINEAR))
+
+    def batches(self, batch_size: int, *, shuffle: bool, seed: int,
+                epoch: int = 0, drop_last: bool = True,
+                process_index: int = 0, process_count: int = 1,
+                as_uint8: bool = False
+                ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """ArrayDataset.batches's contract, streamed from disk with one
+        batch of lookahead: a thread loads batch i + 1 while the caller
+        holds batch i, and an exception it meets is raised here."""
+        _, idx = _index_order(len(self), shuffle, seed, epoch,
+                              process_index, process_count)
+        starts = list(_batch_starts(len(idx), batch_size, drop_last))
+        if not starts:
+            return
+        slot = {}
+
+        def produce(s):
+            try:
+                rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, 17, s]))
+                slot[s] = self._load_batch(idx[s:s + batch_size].astype(np.int64),
+                                           rng, as_uint8=as_uint8)
+            except BaseException as e:  # noqa: BLE001  (raised in the consumer)
+                slot[s] = e
+
+        thread = threading.Thread(target=produce, args=(starts[0],))
+        thread.start()
+        for i, s in enumerate(starts):
+            thread.join()
+            if i + 1 < len(starts):
+                thread = threading.Thread(target=produce, args=(starts[i + 1],))
+                thread.start()
+            item = slot.pop(s)
+            if isinstance(item, BaseException):
+                raise item
+            yield item
 
 
 # --------------------------------------------------------------------------
@@ -384,9 +527,16 @@ def get_dataset(name: str, root: Optional[str], train: bool,
         return load_mnist(root, train), spec
     if name == "cifar100":
         return load_cifar100(root, train), spec
-    if name != "tiny_imagenet":
-        raise NotImplementedError(f"the {name} loader is not ported yet")
     sub = os.path.join(root, "train" if train else "val")
-    if not train and os.path.exists(os.path.join(sub, "val_annotations.txt")):
+    if (not train and name == "tiny_imagenet"
+            and os.path.exists(os.path.join(sub, "val_annotations.txt"))):
         return load_tiny_imagenet_val(root, spec.image_size), spec
-    return ImageFolder(sub, spec.image_size, train=train), spec
+    if name == "tiny_imagenet":
+        return StreamingImageFolder(sub, spec.image_size, train=train,
+                                    train_mode="hflip"), spec
+    if train:
+        return StreamingImageFolder(sub, spec.image_size, train=True), spec
+    # Resize(256) + CenterCrop(224), scaled with the size (fast-AT's cize)
+    return StreamingImageFolder(sub, spec.image_size, train=False,
+                                eval_resize=int(round(spec.image_size * 256 / 224)),
+                                eval_crop=spec.image_size), spec

@@ -583,13 +583,53 @@ def ee_fused_bwd(u, x, stripes, sq_delta, y, k: FusedConsts):
     return dx
 
 
+# K1 as an operator of the dispatcher, ee_tpu_torch::ee_fused_fwd, so that
+# torch.export and other tracers keep it as one node of the graph (they
+# cannot trace into a ctypes launch). Its CUDA implementation is K1's
+# launch, its CPU implementation the plain version; its fake implementation
+# only allocates, so the checks on shapes (_check) run in the real ones and
+# a symbolic batch is not fixed to one size. It is registered through
+# torch.library.Library rather than torch.library.custom_op: custom_op
+# wraps each implementation in torch._disable_dynamo, whose first call
+# imports torch._dynamo, which took ~9 s of a training process's first step
+# on the H100's host (PERF.md).
+_LIB = torch.library.Library("ee_tpu_torch", "DEF")
+_LIB.define("ee_fused_fwd(Tensor x, Tensor? stripes, Tensor? sq_delta, int r, float eps, "
+            "float w, float alpha, float high, float sigma, bool square) -> (Tensor, Tensor)")
+
+
+def _ee_fused_fwd_op_cuda(x, stripes, sq_delta, r, eps, w, alpha, high, sigma, square):
+    return ee_fused_fwd(x, stripes, sq_delta,
+                        FusedConsts(r, eps, w, alpha, high, sigma, square))
+
+
+def _ee_fused_fwd_op_cpu(x, stripes, sq_delta, r, eps, w, alpha, high, sigma, square):
+    return ee_fused_fwd_plain(x, stripes, sq_delta,
+                              FusedConsts(r, eps, w, alpha, high, sigma, square))
+
+
+_LIB.impl("ee_fused_fwd", _ee_fused_fwd_op_cuda, "CUDA")
+_LIB.impl("ee_fused_fwd", _ee_fused_fwd_op_cpu, "CPU")
+
+
+@torch.library.register_fake("ee_tpu_torch::ee_fused_fwd", lib=_LIB)
+def _ee_fused_fwd_op_fake(x, stripes, sq_delta, r, eps, w, alpha, high, sigma, square):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+# K1's (out, y) through the dispatcher, the constants given one by one
+# (FusedConsts' fields)
+ee_fused_fwd_op = torch.ops.ee_tpu_torch.ee_fused_fwd.default
+
+
 class EEFused(torch.autograd.Function):
-    """K1 in forward, K2 in backward; the draws get no gradient (they are
-    random constants w.r.t. the attack)."""
+    """K1 in forward (through the operator ee_tpu_torch::ee_fused_fwd), K2
+    in backward; the draws get no gradient (they are random constants
+    w.r.t. the attack)."""
 
     @staticmethod
     def forward(ctx, x, stripes, sq_delta, k: FusedConsts):
-        out, y = ee_fused_fwd(x, stripes, sq_delta, k)
+        out, y = ee_fused_fwd_op(x, stripes, sq_delta, *dataclasses.astuple(k))
         ctx.save_for_backward(x, stripes, sq_delta, y)
         ctx.k = k
         return out

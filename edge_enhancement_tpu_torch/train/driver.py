@@ -53,7 +53,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.datasets import get_dataset
+from ..data import native
+from ..data.datasets import StreamingImageFolder, get_dataset
 from ..models.cnn_mnist import dropout_keep
 from ..models.registry import build_model, dtype_from_args
 from ..objectives.awp import AWPConfig, build_awp_train_step
@@ -245,8 +246,9 @@ def run_validation(log, eval_step, state, ds, batch_size: int, device,
 
 class _Steps:
     """A training epoch's bookkeeping: the meters, the log line every
-    `print_freq` steps and the seconds of each step (host clock around a
-    step that ends in the loss read, which waits for the device)."""
+    `print_freq` steps, the seconds of each step (host clock around a step
+    that ends in the loss read, which waits for the device) and the
+    seconds each step waited for its batch."""
 
     def __init__(self, log, epoch: int, n_batches: int, print_freq: int,
                  summary: dict):
@@ -254,11 +256,12 @@ class _Steps:
         self.print_freq, self.summary = print_freq, summary
         self.bt, self.dt, self.losses, self.top1, self.top5 = (
             AverageMeter() for _ in range(5))
-        self.count, self.seconds = 0, []
+        self.count, self.seconds, self.waits = 0, [], []
         self.start = self.end = time.time()
 
     def loaded(self):
-        self.dt.update(time.time() - self.end)
+        self.waits.append(time.time() - self.end)
+        self.dt.update(self.waits[-1])
         self.t0 = time.time()
 
     def done(self, i: int, m: dict, n: int) -> float:
@@ -278,8 +281,9 @@ class _Steps:
     def close(self, batch_size: int, t_val: float, device) -> None:
         """Log the epoch's step times (median and p90 after the first step,
         which pays the warm-up), img/s, wall times and peak device memory;
-        keep the step seconds in the summary."""
+        keep the step seconds and the waits for batches in the summary."""
         self.summary["step_seconds"] += self.seconds
+        self.summary["data_seconds"] += self.waits
         steady = self.seconds[1:] or self.seconds
         if not steady:
             return
@@ -405,6 +409,8 @@ def _run(cfg, device) -> dict:
         + f", {precision}"
         + (f", {mesh.world_size()} processes ({torch.distributed.get_backend()}), "
            f"{local_batch(cfg)} images a process" if mesh.initialized() else ""))
+    if any(isinstance(ds, StreamingImageFolder) for ds in (train_ds, val_ds)):
+        log(f"=> image folder {cfg['data']}: JPEGs decoded by {native.decode_path()}")
     if cfg.get("pretrained"):
         # torchvision-format warm start; --resume below still wins
         n_loaded, skipped = load_pretrained(state.model, cfg["pretrained"])
@@ -425,7 +431,7 @@ def _run(cfg, device) -> dict:
     mesh.replicate(state.model)
     mesh.replicate(state.momentum_buf)
     summary = {"train_steps": [], "eval_batches": [], "step_seconds": [],
-               "out_dir": out_dir, "start_epoch": start_epoch}
+               "data_seconds": [], "out_dir": out_dir, "start_epoch": start_epoch}
     if evaluate:
         return run_evaluate(cfg, ops, state, val_ds, log, summary, run_gen,
                             device, num_classes)

@@ -9,6 +9,7 @@ import os
 import numpy as np
 import pytest
 
+import torch_port_helpers as helpers
 from edge_enhancement_tpu.data import datasets as jds
 from edge_enhancement_tpu.train import schedules as jsched
 from edge_enhancement_tpu.utils import config as jcfg
@@ -23,13 +24,13 @@ CONFIG = os.path.join(REPO, "edge_enhancement_tpu", "configs", "tiny_imagenet",
                       "ee_at_bpda3_square.yml")
 
 
-def _same_batches(a, b, **kw):
+def _same_batches(a, b, exact=False, **kw):
     got = list(a.batches(**kw))
     want = list(b.batches(**kw))
     assert len(got) == len(want) > 0
     for (xg, yg), (xw, yw) in zip(got, want):
         assert xg.dtype == xw.dtype and xg.shape == xw.shape
-        if xg.dtype == np.uint8:
+        if exact or xg.dtype == np.uint8:
             np.testing.assert_array_equal(xg, xw)
         else:
             # the port divides by 255 (as the trainer's to_float_pixels and
@@ -58,53 +59,112 @@ def test_synthetic_batches_match(root, train):
     np.testing.assert_array_equal(xf, t.images.astype(np.float32) / 255.0)
 
 
-def _write_tiny_imagenet(root, rng, n_classes=3, per_class=5, n_val=7):
-    """The Tiny-ImageNet layout as PNG files: train/<wnid>/images/*.png and
-    the raw val/images + val_annotations.txt, some images not 64 x 64."""
+def _image(rng, size: int, kind: str) -> np.ndarray:
+    """(size, size, 3) uint8: uniform noise, or smooth gradients (a ramp a
+    channel with a random phase)."""
+    if kind == "noise":
+        return rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    phase = rng.random(3)
+    return np.stack([127.5 + 127.5 * np.sin(2 * np.pi * (yy * (c + 1) + xx + phase[c]))
+                     for c in range(3)], axis=-1).astype(np.uint8)
+
+
+def _write_tiny_imagenet(root, rng, n_classes=3, per_class=5, n_val=7,
+                         fmt="png", kind="noise"):
+    """The Tiny-ImageNet layout: train/<wnid>/images/* and the raw
+    val/images + val_annotations.txt, some train images not 64 x 64; PNG
+    files, or JPEGs at quality 92 (Tiny-ImageNet ships JPEGs)."""
     from PIL import Image
+    ext = {"png": "png", "jpeg": "JPEG"}[fmt]
+    save = lambda px, path: Image.fromarray(px).save(path, quality=92)
     wnids = [f"n{1000 + i:08d}" for i in range(n_classes)]
     for w in wnids:
         d = os.path.join(root, "train", w, "images")
         os.makedirs(d)
         for k in range(per_class):
             size = 64 if k % 2 == 0 else 48
-            px = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
-            Image.fromarray(px).save(os.path.join(d, f"{w}_{k}.png"))
+            save(_image(rng, size, kind), os.path.join(d, f"{w}_{k}.{ext}"))
     vdir = os.path.join(root, "val", "images")
     os.makedirs(vdir)
     with open(os.path.join(root, "val", "val_annotations.txt"), "w") as f:
         for k in range(n_val):
-            px = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
-            Image.fromarray(px).save(os.path.join(vdir, f"val_{k}.png"))
-            f.write(f"val_{k}.png\t{wnids[k % n_classes]}\t0\t0\t63\t63\n")
+            save(_image(rng, 64, kind), os.path.join(vdir, f"val_{k}.{ext}"))
+            f.write(f"val_{k}.{ext}\t{wnids[k % n_classes]}\t0\t0\t63\t63\n")
 
 
-def test_tiny_imagenet_folders_match(tmp_path):
-    pytest.importorskip("PIL")
-    _write_tiny_imagenet(str(tmp_path), np.random.default_rng(0))
-    t, _ = tds.get_dataset("tiny_imagenet", str(tmp_path), train=True)
-    j, _ = jds.get_dataset("tiny_imagenet", str(tmp_path), train=True)
+def _check_tiny_imagenet_folders(root, monkeypatch, fmt, kind):
+    _write_tiny_imagenet(root, np.random.default_rng(0), fmt=fmt, kind=kind)
+    hits = helpers.native_decode_spy(monkeypatch, tds.native, jds.native)
+    t, _ = tds.get_dataset("tiny_imagenet", root, train=True)
+    j, _ = jds.get_dataset("tiny_imagenet", root, train=True)
     assert len(t) == len(j) == 15
     np.testing.assert_array_equal(t.labels, j.labels)
     for as_uint8 in (True, False):
-        _same_batches(t, j, batch_size=4, shuffle=True, seed=1, epoch=2,
-                      as_uint8=as_uint8)
+        _same_batches(t, j, exact=True, batch_size=4, shuffle=True, seed=1,
+                      epoch=2, as_uint8=as_uint8)
     # some image was flipped: the train batches differ from unflipped loads
     flips = list(t.batches(batch_size=15, shuffle=False, seed=0, as_uint8=True))
-    plain = tds.ImageFolder(os.path.join(str(tmp_path), "train"), 64, train=False)
+    plain = tds.StreamingImageFolder(os.path.join(root, "train"), 64, train=False)
     assert not np.array_equal(flips[0][0],
                               next(plain.batches(batch_size=15, shuffle=False,
                                                  seed=0, as_uint8=True))[0])
-    tv, _ = tds.get_dataset("tiny_imagenet", str(tmp_path), train=False)
-    jv, _ = jds.get_dataset("tiny_imagenet", str(tmp_path), train=False)
+    tv, _ = tds.get_dataset("tiny_imagenet", root, train=False)
+    jv, _ = jds.get_dataset("tiny_imagenet", root, train=False)
     assert len(tv) == len(jv) == 7
+    _same_batches(tv, jv, exact=True, batch_size=3, shuffle=False, seed=0,
+                  drop_last=False, as_uint8=True)
+    # the val split is an ArrayDataset: its float32 conversion differs by an
+    # ulp at most (see _same_batches), whatever decoded it
     _same_batches(tv, jv, batch_size=3, shuffle=False, seed=0, drop_last=False,
-                  as_uint8=True)
+                  as_uint8=False)
+    # JPEGs: both sides took libjpeg (train batches and the val chunk); PNGs:
+    # both fell back to PIL
+    delivered = [h[0] for h in hits]
+    if fmt == "jpeg":
+        assert min(delivered) >= 7, hits
+    else:
+        assert delivered == [0, 0], hits
 
 
-def test_unported_loaders_raise():
-    with pytest.raises(NotImplementedError):
-        tds.get_dataset("imagenet", "/nonexistent", train=True)
+def test_tiny_imagenet_folders_match(tmp_path, monkeypatch):
+    """Tiny-ImageNet folders, train (hflip; uint8 and float32) and the raw
+    val split (uint8), equal the JAX package's bit for bit: PNGs through PIL on both
+    sides, and quality-92 JPEGs of smooth gradients and of noise through
+    both packages' libjpeg decoders (PIL's own libjpeg rounds elsewhere:
+    65-74% of values a grey level or more apart)."""
+    pytest.importorskip("PIL")
+    for fmt, kind in (("png", "noise"), ("jpeg", "smooth"), ("jpeg", "noise")):
+        with monkeypatch.context() as mp:
+            _check_tiny_imagenet_folders(str(tmp_path / f"{fmt}_{kind}"), mp, fmt, kind)
+
+
+def test_unported_loaders_raise(tmp_path):
+    """ImageNet folders are ported: get_dataset routes them to
+    StreamingImageFolder (train RandomResizedCrop, eval the centre box of
+    Resize(round(S 256 / 224)) + CenterCrop(S)), as the JAX package; an
+    unknown dataset name raises, as in the JAX package."""
+    from PIL import Image
+    for split in ("train", "val"):
+        d = tmp_path / split / "n001"
+        d.mkdir(parents=True)
+        Image.fromarray(np.zeros((40, 50, 3), np.uint8)).save(d / "a.JPEG")
+    for size in (None, 128, 288):
+        for train in (True, False):
+            t, tspec = tds.get_dataset("imagenet", str(tmp_path), train=train,
+                                       image_size=size)
+            j, jspec = jds.get_dataset("imagenet", str(tmp_path), train=train,
+                                       image_size=size)
+            assert isinstance(t, tds.StreamingImageFolder)
+            assert tspec == tds.DatasetSpec(**vars(jspec))
+            for key in ("image_size", "train", "train_mode", "eval_resize",
+                        "eval_crop", "class_to_idx"):
+                assert getattr(t, key) == getattr(j, key), key
+            np.testing.assert_array_equal(t.paths, j.paths)
+    assert t.eval_resize == 329 and t.eval_crop == 288
+    for get in (tds.get_dataset, jds.get_dataset):
+        with pytest.raises(KeyError):
+            get("svhn", str(tmp_path), train=True)
 
 
 @pytest.mark.parametrize("epoch", [0, 24, 25, 26, 37, 38, 49])

@@ -17,6 +17,7 @@ that kills the group.
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -79,7 +80,9 @@ def _wait(procs, logs, timeout: float) -> None:
 
 
 def run_ranks(tmp_path, task: str, inputs: dict, timeout: float = 240) -> list:
-    """`task` of the worker on WORLD ranks; their results."""
+    """`task` of the worker on WORLD ranks; their results. The task's
+    directory (inputs.pt, rank{r}.pt, the logs: up to 345 MB for the step
+    tests) goes once the results are loaded."""
     d = tmp_path / task
     d.mkdir()
     torch.save(inputs, d / "inputs.pt")
@@ -89,7 +92,9 @@ def run_ranks(tmp_path, task: str, inputs: dict, timeout: float = 240) -> list:
         cwd=REPO, env=_env(), stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
         for r in range(WORLD)]
     _wait(procs, logs, timeout)
-    return [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    results = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    shutil.rmtree(d)
+    return results
 
 
 def _assert_bitwise_equal(a: dict, b: dict) -> None:

@@ -449,3 +449,20 @@ def assert_matches_float64(port, port64, tol):
     names = [n for n, _ in model.named_parameters()]
     _assert_states_close(model.state_dict(), dict(zip(names, state.momentum_buf)),
                          sd64, dict(zip(names, mom64)), tol)
+
+
+def native_decode_spy(monkeypatch, *modules) -> list:
+    """Wrap each module's stream_decode_files (the port's data/native.py,
+    the JAX package's data/native.py); returns, per module, [batches the
+    native decoder delivered, batches it handed back to PIL (None)]."""
+    hits = [[0, 0] for _ in modules]
+    for i, mod in enumerate(modules):
+        real = mod.stream_decode_files
+
+        def spy(*a, _real=real, _i=i, **kw):
+            out = _real(*a, **kw)
+            hits[_i][out is None] += 1
+            return out
+
+        monkeypatch.setattr(mod, "stream_decode_files", spy)
+    return hits
