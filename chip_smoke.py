@@ -159,7 +159,22 @@
       from one seed, equals the live eval forward bit for bit, launching
       K1 once a call and its plain version never (path export); the
       artifact's MB and ms per call.
-5. The reference, for slices a to d, k, l and m2: the trained weights on a small
+   p. the rest of the JAX package's computations (after m):
+      p1. the mesh's `model` axis (parallel/sharding.py): m1's flagship
+      run (bs100, 64 px, 200 classes, f32, TF32 off, PGD-10, 2 steps and
+      1 validation batch) on 2 ranks of data 1 x model 2, every
+      convolution and the head cut on its output channels, on cuda:0
+      through gloo; the model ranks' losses, x_adv and attack gradients
+      bitwise equal; each step against one process from the ranks'
+      gathered state on the same batch and draws, held to P1_*; the checkpoint
+      gathered over the model group is the one-process file of the
+      ranks' state; K1/K2 34/30 a rank, ms/step and peak memory a rank.
+      p2. under the bf16 policy (half: true), 1 train step and 1
+      validation batch each through the driver: ee_at_training.yml (the
+      full Canny), the same with the BPDA Canny, ee_at_u2netp.yml and
+      imagenet/targeted_feature_denoising_training.yml (resnet18_fd, 224
+      px bs256); no kernel launched, ms/step, peak memory, the reference.
+5. The reference, for slices a to d, k, l, m2 and p2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
    the JAX package), in eval mode (the denoising ResNet in train mode).
@@ -409,6 +424,29 @@ JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 FOLDER_ARGS = dict(epochs=1, limit_batches=2, device="cuda")
 # o: the exported flagship at two batch sizes, draws from one seed
 EXPORT_BATCHES, EXPORT_SEED = (100, 37), 11
+# p1: the mesh's `model` axis (parallel/sharding.py): m1's flagship run on
+# M_WORLD ranks of data 1 x model P1_MODEL, every convolution and the head
+# cut on its output channels, on the one card through gloo; each step
+# against one process from the ranks' gathered state on the same batch and
+# draws; the gathered checkpoint is the one-process file. With one data
+# rank no BatchNorm sum is split, so p1 parts from the one process far less
+# than m1 (on an H100, 700 W: first attack gradients 1.52e-6 of their norm
+# at most, losses 2.1e-7, updates 2.8e-6 of the update) and is held to
+# P1_GRAD_TOL, P1_LOSS_RTOL and P1_UPDATE_TOL, about ten times those
+P1_MODEL = 2
+P1_GRAD_TOL, P1_LOSS_RTOL, P1_UPDATE_TOL = 2e-5, 2e-6, 3e-5
+# p2: the full and BPDA Canny, the U2-NetP and the denoising blocks under
+# the bf16 policy, one train step and one validation batch each through
+# the driver (plain PyTorch front-ends: no kernel), logits card vs CPU
+P2_RUNS = (
+    ("p2_canny_bf16", os.path.join(CONFIGS, "tiny_imagenet", "ee_at_training.yml"), {},
+     OBJECTIVE_ARGS),
+    ("p2_bpda_bf16", os.path.join(CONFIGS, "tiny_imagenet", "ee_at_training.yml"),
+     dict(type_canny="CannyFilter_BPDA"), OBJECTIVE_ARGS),
+    ("p2_u2netp_bf16", os.path.join(CONFIGS, "tiny_imagenet", "ee_at_u2netp.yml"), {},
+     OBJECTIVE_ARGS),
+    ("p2_fd_bf16", os.path.join(CONFIGS, "imagenet", "targeted_feature_denoising_training.yml"),
+     {}, IMAGENET_ARGS))
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -1559,14 +1597,15 @@ def reference_phase(torch, cfg, checkpoint):
             logits[dev] = model(x.to(dev)).cpu()
     ee = getattr(model, "ee", None)
     if ee is not None and ee.type_canny in CANNY_VARIANTS:
-        xc = x.permute(0, 3, 1, 2)
+        # in the front-end's dtype (bfloat16 under the bf16 policy)
+        xc = x.permute(0, 3, 1, 2).to(getattr(model, "dtype", None) or torch.float32)
         edges = [CANNY_VARIANTS[ee.type_canny](xc.to(d), ee.low_scaled, ee.high_scaled,
                                                hysteresis=True, sigma=ee.sigma,
                                                alpha=ee.alpha).cpu() for d in ("cpu", "cuda")]
         flips = int((edges[0] != edges[1]).sum())
         print(f"[reference] {ee.type_canny} edge maps of the reference batch, card vs "
               f"CPU: {flips} pixels differ", flush=True)
-        tol = REF_TOL if flips == 0 else REF_TOL_FLIP
+        tol = max(tol, REF_TOL_FLIP) if flips else tol
     num_classes = logits["cpu"].shape[1]
     scale = max(1.0, logits["cpu"].abs().max().item())
     err = (logits["cuda"] - logits["cpu"]).abs().max().item() / scale
@@ -1686,30 +1725,37 @@ def _m1_batches(rank: int, world: int):
 
 
 def _snapshot(state) -> tuple:
-    return ({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
-            [b.detach().cpu().clone() for b in state.momentum_buf])
+    """The state's weights and momentum in the one-process layout (a state
+    cut over the model axis gathered: every rank calls it)."""
+    from edge_enhancement_tpu_torch.parallel import sharding
+    sd, mom = sharding.gather_state(state)
+    return ({k: v.detach().cpu().clone() for k, v in sd.items()},
+            [b.detach().cpu().clone() for b in mom])
 
 
-def _m1_run(torch, cfg, train, val, given=None) -> dict:
+def _m1_run(torch, cfg, train, val, given=None, ckpt_dir=None) -> dict:
     """2 train steps and 1 validation batch of the flagship on this
-    process's rows (the process group's, when there is one): the losses,
-    each step's x_adv and first attack gradient, ms/step, launches, peak
-    memory, and the state (parameters, buffers, momentum) before and after
+    process's rows (the process group's, when there is one; its model cut
+    over the mesh's `model` axis, when it has one): the losses, each step's
+    x_adv and first attack gradient, ms/step, launches, peak memory, and
+    the state (parameters, buffers, momentum; gathered) before and after
     each step. With `given` (another run's result) each step starts from
     that run's state before it, and its attack runs and is kept, but that
-    run's x_adv trains the model: each step is held alone."""
+    run's x_adv trains the model: each step is held alone. With `ckpt_dir`
+    the run ends with the driver's checkpoint there."""
     from edge_enhancement_tpu_torch.attacks import pgd
     from edge_enhancement_tpu_torch.objectives import methods
-    from edge_enhancement_tpu_torch.parallel import mesh
-    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.parallel import mesh, sharding
+    from edge_enhancement_tpu_torch.train import checkpoint, driver
     from edge_enhancement_tpu_torch.train.trainer import (OptimConfig, build_eval_step,
                                                           build_train_step)
     device = torch.device(cfg["device"])
     driver.pin_precision(cfg)
     ops, state, gen = driver.build(cfg, 200, device)
     mesh.replicate(state.model)
-    step = build_train_step(ops, driver.make_method_config(cfg, 200), OptimConfig(
-        momentum=float(cfg["momentum"]), weight_decay=float(cfg["weight_decay"])), gen)
+    sharding.shard_state(state)
+    opt = OptimConfig(momentum=float(cfg["momentum"]), weight_decay=float(cfg["weight_decay"]))
+    step = build_train_step(ops, driver.make_method_config(cfg, 200), opt, gen)
     eval_step = build_eval_step(ops, driver.eval_attack(cfg, 200), gen)
     x_adv, grads, real, real_grad = [], [], methods.pgd_linf, pgd._input_grad
 
@@ -1738,6 +1784,7 @@ def _m1_run(torch, cfg, train, val, given=None) -> dict:
                 state.model.load_state_dict(sd)
                 for b, v in zip(state.momentum_buf, mom):
                     b.copy_(v)
+            torch.cuda.synchronize()
             t0 = time.time()
             m = step(state, x.to(device), y.to(device), driver.epoch_lr(cfg, 0))
             losses.append(float(m["loss"]))
@@ -1748,12 +1795,16 @@ def _m1_run(torch, cfg, train, val, given=None) -> dict:
         methods.pgd_linf, pgd._input_grad = real, real_grad
     metrics = eval_step(state, val[0].to(device), val[1].to(device))
     torch.cuda.synchronize()
-    return {"losses": losses, "ms": ms, "launches": _read_counts(),
+    launches, peak_gb = _read_counts(), torch.cuda.max_memory_allocated(device) / 1e9
+    if ckpt_dir is not None:
+        checkpoint.save_checkpoint(ckpt_dir, state, 1, cfg["arch"], 0.0, False, opt,
+                                   driver.epoch_lr(cfg, 0))
+    return {"losses": losses, "ms": ms,
             "starts": [start] + after[:-1], "after": after,
             "x_adv": [a.detach().cpu() for a in x_adv],
             "grads": [g.cpu() for g in grads],
             "val": {k: float(v) for k, v in metrics.items()},
-            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+            "peak_gb": peak_gb, "launches": launches}
 
 
 def _m3_run(torch, out: str) -> dict:
@@ -1800,14 +1851,20 @@ def _m3_run(torch, out: str) -> dict:
 
 
 def rank_main(argv) -> None:
-    """One rank of phase m: `--rank <m1|m3> <rank> <store url> <out dir>`,
-    on cuda:0 through gloo; saves its result to <out>/rank<r>.pt."""
+    """One rank of phases m and p: `--rank <m1|m3|p1> <rank> <store url>
+    <out dir>`, on cuda:0 through gloo (p1: a model axis of P1_MODEL);
+    saves its result to <out>/rank<r>.pt."""
     import torch
     from edge_enhancement_tpu_torch.parallel import mesh
     task, rank, store, out = argv[0], int(argv[1]), argv[2], argv[3]
-    mesh.init("cuda:0", backend="gloo", init_method=store, rank=rank, world_size=M_WORLD)
+    mesh.init("cuda:0", backend="gloo", init_method=store, rank=rank, world_size=M_WORLD,
+              n_model=P1_MODEL if task == "p1" else 1)
     try:
-        if task == "m1":
+        if task == "p1":
+            cfg, train, val = _m1_batches(mesh.data_rank(), mesh.data_size())
+            result = _m1_run(torch, cfg, train, val, ckpt_dir=os.path.join(out, "ckpt"))
+            result["model_rank"], result["n_model"] = mesh.model_rank(), mesh.model_size()
+        elif task == "m1":
             cfg, train, val = _m1_batches(rank, M_WORLD)
             result = _m1_run(torch, cfg, train, val)
             if rank:                  # the others' last state, for the replica check
@@ -1904,6 +1961,112 @@ def mesh_step_phase(torch, kernels, device_line) -> None:
     if (len(grad_rel) != 2 or max(grad_rel) > M1_GRAD_TOL or max(loss_rel) > M1_LOSS_RTOL
             or max(update_rel) > M1_UPDATE_TOL):
         fail("m1: the ranks' run disagrees with the one process's")
+
+
+def model_axis_phase(torch, kernels, device_line) -> None:
+    """p1. The flagship on M_WORLD ranks of data 1 x model P1_MODEL (the
+    mesh's model axis), then one process on the same batches: m1's checks
+    at P1_*'s limits, and the gathered checkpoint against the one-process
+    file."""
+    from edge_enhancement_tpu_torch.train import checkpoint
+    out = _out_dir("mesh/p1")
+    os.makedirs(out)
+    ranks = _spawn_ranks("p1", out)
+    for r in ranks[1:]:
+        if (r["losses"] != ranks[0]["losses"]
+                or any(not torch.equal(a, b) for a, b in zip(r["x_adv"], ranks[0]["x_adv"]))
+                or any(not torch.equal(a, b) for a, b in zip(r["grads"], ranks[0]["grads"]))):
+            fail("p1: the model ranks' losses, x_adv or attack gradients differ")
+    cfg, train, val = _m1_batches(0, 1)
+    given = {"starts": ranks[0]["starts"], "x_adv": ranks[0]["x_adv"]}
+    one = _m1_run(torch, cfg, train, val, given)
+    k = int(cfg["num_steps_1"])
+    want = {k_: 0 for k_ in one["launches"]}
+    want.update({"ee_fused_fwd": 2 * (k + 1) + (k + 2), "ee_fused_bwd": 2 * k + k})
+    names = [n for n, _ in _param_names(cfg)]
+    flat = lambda sd: torch.cat([sd[n].reshape(-1).double() for n in names])
+    share = lambda a, b: float((a - b).abs().gt(1e-6).float().mean())
+    grad_rel, loss_rel, update_rel = [], [], []
+    for i, g in enumerate(one["grads"]):
+        grad_rel.append(((ranks[0]["grads"][i] - g).norm() / g.norm()).item())
+        loss_rel.append(abs(ranks[0]["losses"][i] - one["losses"][i]) / abs(one["losses"][i]))
+        (sd_r, _), (sd_1, _) = ranks[0]["after"][i], one["after"][i]
+        update_rel.append(((flat(sd_r) - flat(sd_1)).norm()
+                           / (flat(sd_1) - flat(ranks[0]["starts"][i][0])).norm()).item())
+    payload = checkpoint.load_checkpoint(os.path.join(out, "ckpt"))
+    sd_last, mom_last = ranks[0]["after"][-1]
+    one_sd = one["after"][-1][0]
+    ckpt_ok = (sorted(payload["state_dict"]) == sorted(one_sd)
+               and all(payload["state_dict"][n].shape == v.shape for n, v in one_sd.items())
+               and all(torch.equal(payload["state_dict"][n], v.to(payload["state_dict"][n].device))
+                       for n, v in sd_last.items())
+               and all(torch.equal(payload["optimizer"]["state"][i]["momentum_buffer"], b)
+                       for i, b in enumerate(mom_last)))
+    print(f"[model p1] {cfg['arch']} bs{cfg['batch_size']} f32 PGD-{k} on synthetic-hard, "
+          f"{M_WORLD} ranks of data 1 x model {ranks[0]['n_model']} ({ranks[0]['backend']}, "
+          f"cuda:0), convolutions and head cut on their output "
+          f"channels; each step against one process from the ranks' gathered state on the "
+          f"same batch and draws: first attack gradient |diff| / |g| "
+          f"{[f'{v:.3e}' for v in grad_rel]} (limit {P1_GRAD_TOL}); x_adv pixels apart "
+          f"{[share(a, b) for a, b in zip(given['x_adv'], one['x_adv'])]}; trained on the "
+          f"ranks' x_adv: losses {ranks[0]['losses']} and {one['losses']}, rel "
+          f"{[f'{v:.3e}' for v in loss_rel]} (limit {P1_LOSS_RTOL}); update |diff| / "
+          f"|update| {[f'{v:.3e}' for v in update_rel]} (limit {P1_UPDATE_TOL}); validation "
+          f"ranks {ranks[0]['val']}, one process {one['val']}; gathered checkpoint = the "
+          f"one-process format and the ranks' state: {ckpt_ok}", flush=True)
+    for tag, res in [(f"rank {r}", ranks[r]) for r in range(M_WORLD)] + [("one process", one)]:
+        print(f"[model p1] {tag}: K1/K2 launches {res['launches'].get('ee_fused_fwd')}/"
+              f"{res['launches'].get('ee_fused_bwd')}; train step ms "
+              f"{[round(t, 1) for t in res['ms']]} ({res['ms'][-1]:.1f} ms/step after the "
+              f"first); peak device memory {res['peak_gb']:.2f} GB; on {device_line}",
+              flush=True)
+    for r, res in enumerate(ranks):
+        _check_launches(f"model p1 rank {r}", res["launches"], want)
+        _record_launches(kernels, f"model_p1_rank{r}", res["launches"])
+    if len(ranks[0]["losses"]) != 2 or not all(
+            math.isfinite(v) for v in ranks[0]["losses"] + one["losses"]):
+        fail("p1: the ranks did not run 2 finite steps")
+    if (len(grad_rel) != 2 or max(grad_rel) > P1_GRAD_TOL or max(loss_rel) > P1_LOSS_RTOL
+            or max(update_rel) > P1_UPDATE_TOL):
+        fail("p1: the model axis's run disagrees with the one process's")
+    if not ckpt_ok:
+        fail("p1: the gathered checkpoint is not the one-process file of the ranks' state")
+
+
+def bf16_variants_phase(torch, kernels, device_line) -> None:
+    """p2. P2_RUNS under the bf16 policy through the driver at full width:
+    one train step and one validation batch each, a finite loss, no kernel
+    launched (their front-ends and blocks are plain PyTorch), ms/step and
+    peak memory, and the reference (logits card vs CPU)."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    for tag, path, over, args in P2_RUNS:
+        cfg = load_config(path, dict(args, **over, half=True, limit_batches=1,
+                                     output=_out_dir(tag)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.time()
+        summary = run(cfg)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _read_counts()
+        steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+        print(f"[slice {tag}] {cfg['arch']} type_canny {cfg.get('type_canny', 'CannyFilter')} "
+              f"{cfg['method_name']} {cfg['cize']} px bs{cfg['batch_size']} bf16 policy, "
+              f"PGD-{cfg['num_steps_1']}: {steps} train step, {evals} eval batch; loss "
+              f"{summary['loss']:.4f}; train step ms "
+              f"{[round(1000 * s_, 1) for s_ in summary['step_seconds']]}; run {wall:.1f} s; "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; on "
+              f"{device_line}", flush=True)
+        _check_launches(tag, launches, {})
+        if steps != 1 or evals != 1:
+            fail(f"{tag}: expected 1 train step and 1 eval batch, got {steps}, {evals}")
+        if not math.isfinite(summary["loss"]):
+            fail(f"{tag}: loss {summary['loss']} is not finite")
+        reference_phase(torch, cfg, summary["checkpoint"])
+        shutil.rmtree(cfg["output"])
 
 
 def torchrun_phase(torch, kernels, device_line) -> None:
@@ -2247,6 +2410,8 @@ def main():
     mesh_step_phase(torch, kernels, smi)
     torchrun_phase(torch, kernels, smi)
     free_at_mesh_phase(torch, kernels, smi)
+    model_axis_phase(torch, kernels, smi)
+    bf16_variants_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):

@@ -11,7 +11,8 @@ from ..parallel import mesh
 
 def _global_statistics(x: torch.Tensor):
     """(x - mean, mean, biased variance) per channel over the global batch
-    of every rank, in two passes: the all-reduced sum and count give the
+    of the data group's ranks (the model ranks of a data row hold the same
+    rows: over the whole world they would count n_model times), in two passes: the all-reduced sum and count give the
     mean, the all-reduced sum of squared deviations the variance. Both
     all-reduces are differentiable."""
     n = x.numel() // x.shape[1]
@@ -35,7 +36,7 @@ class BatchNorm2d(nn.Module):
 
     Under several processes (parallel/mesh.py) train mode takes the
     statistics of the global batch, as the JAX package's BatchNorm does
-    over the mesh's `data` axis, and every rank moves its running
+    over the mesh's `data` axis (reduced over the data group only), and every rank moves its running
     statistics alike."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -59,7 +60,7 @@ class BatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(dtype)
-        if mesh.world_size() > 1:
+        if mesh.data_size() > 1:
             d, mean, var = _global_statistics(x)
             with torch.no_grad():
                 self._update_running(mean, var)

@@ -16,8 +16,9 @@ whole front-end is the pair K1/K2; otherwise the edge map alone is the pair
 K3a/K3b, and the square (any number of queries), the HFS products, the
 smoothing and the clip are plain PyTorch. On a CUDA tensor the kernels
 run, on a CPU tensor their plain versions. The other Canny variants
-(`CannyFilter`, `CannyFilter_BPDA`) are plain PyTorch (ops/canny.py), in
-float32: under the bf16 policy they raise.
+(`CannyFilter`, `CannyFilter_BPDA`) are plain PyTorch (ops/canny.py). Every
+branch computes in its input's dtype: float32, or bfloat16 under the bf16
+policy, as the JAX front-end does.
 """
 
 from __future__ import annotations
@@ -62,16 +63,10 @@ class EEConfig:
         return self.high / 255.0
 
 
-def check_ported(cfg: EEConfig, dtype: Optional[torch.dtype] = None) -> None:
-    """Raise for what the port does not run: the full and BPDA Canny and the
-    U2-NetP edge map (`u2netp`, from the model's U2-NetP) in bfloat16 (the
-    bf16 policy's compute `dtype`; None is float32)."""
+def check_ported(cfg: EEConfig) -> None:
+    """Raise for a Canny variant the front-end does not know."""
     if cfg.type_canny not in (*CANNY_VARIANTS, STEP125, "u2netp"):
         raise NotImplementedError(f"front-end {cfg.type_canny}: unknown Canny variant")
-    if cfg.type_canny != STEP125 and dtype is not None and dtype.itemsize < 4:
-        raise NotImplementedError(
-            f"front-end {cfg.type_canny} in {dtype}: only {STEP125} runs under "
-            "the bf16 policy")
 
 
 def ee_frontend(x: torch.Tensor, cfg: EEConfig,
@@ -82,7 +77,7 @@ def ee_frontend(x: torch.Tensor, cfg: EEConfig,
     in the JAX layout (ops/square.add_square_draws; with n_queries > 1 it is
     called as `square_source(shape, n_queries=n)`); required when
     cfg.square. `edge_map` (B, H, W, 1) replaces the Canny branch."""
-    check_ported(cfg, x.dtype)
+    check_ported(cfg)
     draws = None
     if cfg.square:
         if square_source is None:
@@ -129,4 +124,6 @@ def _frontend_unfused(x, cfg: EEConfig, draws, edge_map):
     if cfg.with_gf:
         # zero padding and a fixed sigma of 1, whatever cfg.sigma is
         edge = stencil2d_nchw(edge, gaussian_kernel(3, 0.0, 1.0), "zero")
-    return clip01(x_hfs + weak_scalar(float(cfg.w), x.dtype) * edge)
+    # a float32 edge map (the U2-NetP's, under the bf16 policy too) takes w
+    # in float32, and the sum promotes to float32, as in JAX
+    return clip01(x_hfs + weak_scalar(float(cfg.w), edge.dtype) * edge)

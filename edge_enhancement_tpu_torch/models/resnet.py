@@ -18,7 +18,11 @@ is cast to bfloat16 before the front-end, the convolutions and the final
 Dense compute in bfloat16 from float32 parameters cast at use, BatchNorm
 keeps float32 parameters and running statistics and computes as flax's
 `nn.BatchNorm(dtype=bf16)` does, and the logits come back as float32. The
-casts are written out: torch.autocast's per-op policy is not JAX's.
+casts are written out: torch.autocast's per-op policy is not JAX's. Where
+JAX hands a float32 tensor on (the U2-NetP's front-end output, a denoising
+block's output), the port does too, and rounds where the next JAX module
+with the policy's dtype rounds (the stem's BatchNorm, the next layer
+group's convolutions, the head).
 
 Input is NHWC in [0, 1], as in the JAX model; the convolutions run NCHW.
 """
@@ -114,7 +118,10 @@ class DenoisingBlock(nn.Module):
     embed=False, softmax=False): f = x Gram(x, x) / (H W), both products
     summed in float32, then cast to x's dtype, a 1x1 convolution with a
     bias, BatchNorm, and x + f. The reference's embedding convolutions
-    (conv1, conv2) take no part in that form and are not kept."""
+    (conv1, conv2) take no part in that form and are not kept. As in JAX
+    the convolution and BatchNorm carry no dtype: a bfloat16 f is promoted
+    against their float32 parameters, and the block returns x + f in
+    float32."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -126,14 +133,15 @@ class DenoisingBlock(nn.Module):
         v = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(b, c, h * w)
         gram = torch.bmm(v, v.transpose(1, 2))
         f = (torch.bmm(gram.transpose(1, 2), v) / (h * w)).to(x.dtype).reshape(b, c, h, w)
+        f = f.to(torch.promote_types(f.dtype, self.conv3.weight.dtype))
         return x + self.bn(self.conv3(f))
 
 
 class ResNet(nn.Module):
     """Plain / EE / EE_square / feature-denoising ResNet. `square_source(shape)`
     supplies the square draws of the EE_square front-end; `denoise` puts a
-    DenoisingBlock after each layer group (float32 only); `dtype` (None or
-    torch.bfloat16) is the compute dtype of the policy above."""
+    DenoisingBlock after each layer group; `dtype` (None or torch.bfloat16)
+    is the compute dtype of the policy above."""
 
     def __init__(self, block=BasicBlock, layers=(2, 2, 2, 2),
                  num_classes: int = 200, ee: Optional[EEConfig] = None,
@@ -142,12 +150,7 @@ class ResNet(nn.Module):
                  dtype: Optional[torch.dtype] = None, denoise: bool = False):
         super().__init__()
         if ee is not None:
-            check_ported(ee, dtype)
-        if denoise and dtype is not None:
-            # the JAX block computes its convolution and BatchNorm in float32
-            # and hands float32 on to bf16 blocks: not ported
-            raise NotImplementedError("the denoising ResNet under the bf16 policy "
-                                      "is not ported")
+            check_ported(ee)
         self.ee, self.square_source, self.dtype = ee, square_source, dtype
         # the learned edge map of type_canny u2netp: a U2-NetP on the input,
         # in the backbone's mode (train mode moves its statistics too)
@@ -187,13 +190,27 @@ class ResNet(nn.Module):
                     else self.u2net(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
             x = ee_frontend(x, self.ee, source, edge_map=edge)
         x = x.permute(0, 3, 1, 2)
-        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        # the stem convolves in its input's dtype (JAX's StemConv casts its
+        # kernel to x.dtype: float32 after the U2-NetP's front-end), its
+        # BatchNorm rounds to the policy's dtype
+        x = self._policy(self.bn1(self.conv1(x)))
+        x = max_pool_3x3_s2(F.relu(x))
         for g in range(1, 5):
+            if g > 1:
+                # a denoising block hands on float32; JAX's next block casts
+                # it in its first convolution and in its projection, which
+                # every group after the first opens with
+                x = self._policy(x)
             x = getattr(self, f"layer{g}")(x)
             if self.denoise:
                 x = getattr(self, f"denoise{g}")(x)
-        x = _global_mean(x)
+        # the mean of a float32 x is float32, and the head casts it
+        x = self._policy(_global_mean(x))
         return self.fc(x).float()
+
+    def _policy(self, x):
+        """x in the policy's compute dtype (as it is without one)."""
+        return x if self.dtype is None else x.to(self.dtype)
 
 
 _LAYOUTS = {18: (BasicBlock, (2, 2, 2, 2)), 34: (BasicBlock, (3, 4, 6, 3)),
@@ -308,7 +325,7 @@ class PreActResNet(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if ee is not None:
-            check_ported(ee, dtype)
+            check_ported(ee)
         if dataset not in PREACT_CLASSES:
             raise NotImplementedError(f"PreActResNet dataset {dataset!r}")
         self.ee, self.square_source, self.dtype = ee, square_source, dtype

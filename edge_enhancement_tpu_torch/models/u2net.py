@@ -8,7 +8,10 @@ outputs. U2NET returns all seven sigmoid maps, U2NETP the fused one.
 Modules carry the reference's torch names (stage1..stage6,
 stage5d..stage1d, side1..side6, outconv; rebnconvin, rebnconv{k},
 rebnconv{k}d; conv_s1, bn_s1), and convert.py maps flax's call-order names
-onto them (U2NET_NAMES). Layout NCHW, float32. The initialisation is
+onto them (U2NET_NAMES). Layout NCHW, in the parameters' dtype: a
+bfloat16 input (the bf16 policy's) is promoted against the float32
+parameters, as flax's Conv with no `dtype` promotes it, so the net and its
+edge map compute in float32. The initialisation is
 flax's default: lecun-normal kernels (truncated at 2 std), zero biases,
 BatchNorm 1 / 0.
 """
@@ -158,6 +161,7 @@ class U2Net(nn.Module):
                 m.bias.zero_()
 
     def forward(self, x):
+        x = x.to(torch.promote_types(x.dtype, self.outconv.weight.dtype))
         encs, hx = [], x
         for i in range(1, 7):
             hx = getattr(self, f"stage{i}")(hx)

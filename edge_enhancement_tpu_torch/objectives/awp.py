@@ -71,6 +71,11 @@ def build_awp_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
     pcfg = PGDConfig(method.epsilon, method.num_steps, method.step_size,
                      random_init="uniform" if method.random else "none")
 
+    if mesh.model_size() > 1:
+        # awp_diff's per-weight norms and the L1 term would need sums over
+        # the model group of a weight's rows
+        raise NotImplementedError("AWP on a mesh with a model axis is not ported")
+
     def step_fn(state: TrainState, x, y, lr: float, awp_on: float):
         x = to_float_pixels(x)
         model, params = state.model, state.params
@@ -96,7 +101,7 @@ def build_awp_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
         loss = cross_entropy(logits, y)
         if awp.l1 > 0:
             loss = loss + awp.l1 * sum(p.abs().sum() for p in params
-                                       if p.ndim > 1) / mesh.world_size()
+                                       if p.ndim > 1) / mesh.data_size()
         grads, metrics = mesh.sum_step(
             torch.autograd.grad(loss, params),
             {"loss": loss.detach(), **topk_accuracy(logits.detach(), y)})

@@ -76,7 +76,7 @@ def build_free_train_step(ops: ModelOps, cfg: FreeFastConfig,
                 noise = _step_noise(noise, g_noise, cfg)
             metrics = ({"loss": loss.detach(), **topk_accuracy(logits.detach(), y)}
                        if r == cfg.n_repeats - 1 else {})
-            grads, metrics = mesh.sum_step(grads, metrics)
+            grads, metrics = mesh.sum_step(grads, metrics, state.model)
             _sgd(state, grads, lr, opt, mask)
         state.step += cfg.n_repeats
         return noise, metrics
@@ -117,7 +117,7 @@ def build_fast_train_step(ops: ModelOps, cfg: FreeFastConfig,
             metrics = ({"loss": loss.detach(), **topk_accuracy(logits.detach(), y)}
                        if r == cfg.n_repeats - 1 else {})
             grads, metrics = mesh.sum_step(torch.autograd.grad(loss, state.params),
-                                           metrics)
+                                           metrics, state.model)
             _sgd(state, grads, lr, opt, mask)
         state.step += cfg.n_repeats
         return noise, metrics

@@ -10,9 +10,11 @@ NCHW inside (the `_nchw` functions), NHWC at the public ones:
 * `canny_step125` (CannyFilter_step125_1, the BPDA-3 Canny): blur, Sobel,
   magnitude, alpha mask, the To_compare threshold at `high`.
 
-The first two are float32 here (the front-end refuses them under the bf16
-policy); the step125 variant also runs in bfloat16, on the kernels of
-ops/cuda/ee_fused.py.
+All three take float32 or bfloat16 (the bf16 policy), each bfloat16
+operation rounded where JAX rounds it: its Python-float constants are taken
+as JAX's weak typing takes them (`weak_scalar`), and its comparisons with a
+Python float compare in bfloat16, as torch's do. The step125 variant runs on
+the kernels of ops/cuda/ee_fused.py.
 """
 
 from __future__ import annotations
@@ -106,9 +108,12 @@ def _nms(magnitude, grad_x, grad_y):
     comparisons only; it is computed from detached gradients, so 0/0's NaN
     never reaches the backward. The test is strict: an exact magnitude tie
     across an edge (an ideal binary step) suppresses both pixels, as in
-    JAX, whose channel-sum-first order computes the same exact tie."""
+    JAX, whose channel-sum-first order computes the same exact tie. In
+    bfloat16 the orientation and its degrees round as JAX rounds them (the
+    constant 360 / pi taken in bfloat16)."""
     orientation = torch.atan(grad_y.detach() / grad_x.detach())
-    degrees = orientation * _DEG_PER_RAD + 180.0
+    degrees = (orientation * weak_scalar(_DEG_PER_RAD, orientation.dtype)
+               + weak_scalar(180.0, orientation.dtype))
     positive_idx = torch.remainder(torch.round(_by(degrees, 45.0)), 8.0)
     directional = [magnitude - shift2d_nchw(magnitude, dr, dc)
                    for dr, dc in direction_offsets()]
@@ -122,19 +127,11 @@ def _nms(magnitude, grad_x, grad_y):
     return thin
 
 
-def _full_precision(x: torch.Tensor, variant: str) -> None:
-    """The full and BPDA Canny are not ported in bfloat16 (nor float16)."""
-    if x.dtype.itemsize < 4:
-        raise NotImplementedError(f"{variant} takes float32 (got {x.dtype}); only "
-                                  "CannyFilter_step125_1 runs under the bf16 policy")
-
-
 def canny_nchw(x: torch.Tensor, low_threshold: Optional[float] = None,
                high_threshold: Optional[float] = None, hysteresis: bool = False,
                *, sigma: float = 1.0, alpha: float = 0.0) -> torch.Tensor:
-    """The full Canny (reference CannyFilter.forward), (B, C, H, W) float32
-    -> (B, 1, H, W)."""
-    _full_precision(x, "CannyFilter")
+    """The full Canny (reference CannyFilter.forward), (B, C, H, W) ->
+    (B, 1, H, W) in x's dtype."""
     grad_x, grad_y, magnitude = _blur_sobel_magnitude_nchw(x, sigma, wide=False)
     magnitude = torch.where(magnitude < alpha, torch.zeros_like(magnitude), magnitude)
     thin = _nms(magnitude, grad_x, grad_y)
@@ -159,9 +156,8 @@ def canny_bpda_nchw(x: torch.Tensor, low_threshold: Optional[float] = None,
                     *, sigma: float = 1.0, alpha: float = 0.0) -> torch.Tensor:
     """The BPDA Canny (reference CannyFilter_BPDA.forward): STE thresholds,
     multiplicative NMS, no alpha mask; the un-thresholded `thin` when only
-    `low_threshold` is given. (B, C, H, W) float32 -> (B, 1, H, W)."""
+    `low_threshold` is given. (B, C, H, W) -> (B, 1, H, W) in x's dtype."""
     del alpha  # kept for the constructor's signature; the BPDA forward never masks
-    _full_precision(x, "CannyFilter_BPDA")
     grad_x, grad_y, magnitude = _blur_sobel_magnitude_nchw(x, sigma, wide=False)
     thin = _nms(magnitude, grad_x, grad_y)
     if low_threshold is None:

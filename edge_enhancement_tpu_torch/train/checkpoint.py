@@ -6,9 +6,12 @@ tools/convert_torch_checkpoint.py reads that format into Orbax, and its
 `--to-torch` writes it back as one .pth file (without the optimizer), so a
 checkpoint crosses between the two packages through that tool. Free-AT's
 replay noise sits beside the checkpoint in `noise.pt`; under several
-processes (parallel/mesh.py) each rank writes its own rows to
+processes (parallel/mesh.py) each data rank writes its own rows to
 `noise_p{rank}.pt`, as the JAX package's `noise_p{rank}.npy`, and only rank
-0 writes the checkpoint (the replicas are equal).
+0 writes the checkpoint (the replicas are equal). Under a `model` axis
+(parallel/sharding.py) the weights and momentum are gathered over the
+model group first, so the file is the one-process format, and a restore
+cuts it to the rank's rows.
 
 Every load is `torch.load(..., weights_only=True)`: the payloads hold
 tensors, ints, floats, strings, bools, lists and dicts (the optimizer's
@@ -23,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from ..parallel import mesh
+from ..parallel import mesh, sharding
 
 FILES = {"last": "checkpoint.pth.tar", "best": "model_best.pth.tar"}
 NOISE_FILE = "noise.pt"
@@ -32,26 +35,29 @@ NOISE_FILE = "noise.pt"
 def save_checkpoint(ckpt_dir: str, state, epoch: int, arch: str,
                     best_prec1: float, is_best: bool, opt, lr: float) -> str:
     """Write the state's checkpoint, the optimizer part in torch.optim.SGD's
-    state_dict format, on rank 0 only; every rank returns its path once the
-    file is whole."""
+    state_dict format, on rank 0 only (a cut state gathered over the model
+    group first, by every rank); every rank returns its path once the file
+    is whole."""
     path = os.path.join(ckpt_dir, FILES["last"])
+    state_dict, momentum = sharding.gather_state(state)
     if mesh.rank() == 0:
-        _write_checkpoint(path, state, epoch, arch, best_prec1, is_best, opt, lr)
+        _write_checkpoint(path, state_dict, momentum, epoch, arch, best_prec1,
+                          is_best, opt, lr)
     mesh.barrier()
     return path
 
 
-def _write_checkpoint(path: str, state, epoch: int, arch: str, best_prec1: float,
-                      is_best: bool, opt, lr: float) -> None:
+def _write_checkpoint(path: str, state_dict: dict, momentum: list, epoch: int,
+                      arch: str, best_prec1: float, is_best: bool, opt,
+                      lr: float) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    n = len(state.momentum_buf)
+    n = len(momentum)
     payload = {
         "epoch": int(epoch), "arch": arch,
-        "state_dict": state.model.state_dict(),
+        "state_dict": state_dict,
         "best_prec1": float(best_prec1),      # a numpy scalar breaks weights_only
         "optimizer": {
-            "state": {i: {"momentum_buffer": b}
-                      for i, b in enumerate(state.momentum_buf)},
+            "state": {i: {"momentum_buffer": b} for i, b in enumerate(momentum)},
             "param_groups": [{"lr": lr, "momentum": opt.momentum,
                               "dampening": 0, "weight_decay": opt.weight_decay,
                               "nesterov": False, "params": list(range(n))}]},
@@ -89,8 +95,9 @@ def restore_into_state(state, payload: dict):
     their devices); returns (state, epoch, best_prec1). Raises ValueError
     naming the tensor on a missing one or a shape mismatch. A payload
     without an optimizer part (the JAX converter's --to-torch export)
-    leaves the momentum buffers at zero."""
-    saved = payload["state_dict"]
+    leaves the momentum buffers at zero. Under a `model` axis the
+    one-process payload is cut to this rank's rows first."""
+    saved = sharding.cut_state_dict(payload["state_dict"])
     live = state.model.state_dict()
     for name, t in live.items():
         if name not in saved:
@@ -104,8 +111,9 @@ def restore_into_state(state, payload: dict):
             key = f"optimizer.state[{i}].momentum_buffer ({name})"
             if "momentum_buffer" not in saved_opt.get(i, {}):
                 raise ValueError(f"checkpoint has no {key}")
-            _check_shape(key, saved_opt[i]["momentum_buffer"], buf)
-            bufs.append(saved_opt[i]["momentum_buffer"])
+            b = sharding.cut_state_dict({name: saved_opt[i]["momentum_buffer"]})[name]
+            _check_shape(key, b, buf)
+            bufs.append(b)
     with torch.no_grad():
         for name, t in live.items():
             t.copy_(saved[name])
@@ -122,20 +130,22 @@ def noise_path(path: str, shard: Optional[int] = None) -> str:
 
 
 def _own_noise_path(path: str) -> str:
-    """This process's noise file: noise.pt alone, noise_p{rank}.pt under
-    several processes."""
-    return noise_path(path, mesh.rank() if mesh.world_size() > 1 else None)
+    """This process's noise file: noise.pt alone, noise_p{data rank}.pt
+    under several data ranks."""
+    return noise_path(path, mesh.data_rank() if mesh.data_size() > 1 else None)
 
 
 def save_noise(ckpt_dir: str, noise: torch.Tensor) -> str:
     """Free-AT's replay noise (this process's rows) beside the checkpoint,
-    written whole or not at all (a temporary file renamed over it);
+    written whole or not at all (a temporary file renamed over it), by
+    model rank 0 of the data row (its model ranks hold the same rows);
     returns its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = _own_noise_path(ckpt_dir)
-    tmp = path + ".tmp"
-    torch.save(noise.detach().cpu(), tmp)
-    os.replace(tmp, path)
+    if mesh.model_rank() == 0:
+        tmp = path + ".tmp"
+        torch.save(noise.detach().cpu(), tmp)
+        os.replace(tmp, path)
     return path
 
 
@@ -145,7 +155,7 @@ def load_noise(path: str) -> Optional[torch.Tensor]:
     with another process count (a single process's `noise.pt`, or rank 0's
     shard for a single process), whose shape the caller then finds wrong,
     as the JAX train.py finds a stale shard; None when neither exists."""
-    other = noise_path(path) if mesh.world_size() > 1 else noise_path(path, 0)
+    other = noise_path(path) if mesh.data_size() > 1 else noise_path(path, 0)
     for p in (_own_noise_path(path), other):
         if os.path.isfile(p):
             return torch.load(p, map_location="cpu", weights_only=True)

@@ -176,7 +176,7 @@ def run_device(cfg) -> torch.device:
 
 def local_batch(cfg) -> int:
     """This process's rows of the config's (global) batch."""
-    bs, w = int(cfg["batch_size"]), mesh.world_size()
+    bs, w = int(cfg["batch_size"]), mesh.data_size()
     if bs % w:
         raise ValueError(f"batch_size {bs} does not divide over {w} processes")
     return bs // w
@@ -219,13 +219,13 @@ def run_validation(log, eval_step, state, ds, batch_size: int, device,
     eval step returns the global batch's metrics. Returns (adv top-1, or
     clean when no attack; clean top-1; batches)."""
     clean1, clean5, adv1, adv5 = (AverageMeter() for _ in range(4))
-    n, w = 0, mesh.world_size()
+    n, w = 0, mesh.data_size()
     if by_rows:
         it = ((mesh.shard_rows(x), mesh.shard_rows(y)) for x, y in
               ds.batches(batch_size, shuffle=False, seed=0, as_uint8=True))
     else:
         it = ds.batches(batch_size // w, shuffle=False, seed=0,
-                        process_index=mesh.rank(), process_count=w, as_uint8=True)
+                        process_index=mesh.data_rank(), process_count=w, as_uint8=True)
     for i, (x, y) in enumerate(it):
         if limit is not None and i >= limit:
             break
@@ -300,7 +300,7 @@ def _batches(ds, batch_size: int, seed: int, epoch: int, limit):
     """This process's batches of `batch_size` rows (its share)."""
     for i, (x, y) in enumerate(ds.batches(
             batch_size, shuffle=True, seed=seed, epoch=epoch,
-            process_index=mesh.rank(), process_count=mesh.world_size(),
+            process_index=mesh.data_rank(), process_count=mesh.data_size(),
             as_uint8=True)):
         if limit is not None and i >= limit:
             break

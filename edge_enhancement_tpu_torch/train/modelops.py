@@ -12,8 +12,8 @@ forward is handed draws (the attacks of attacks/autoattack.py share one
 draw between forwards that JAX runs under one key).
 
 Under several processes (parallel/mesh.py) a loss or metric that JAX
-takes as a mean over the batch is this rank's sum over the GLOBAL batch
-(`batch_mean`): the ranks' values then sum to the global mean, and so do
+takes as a mean over the batch is this rank's sum over the GLOBAL batch of
+the `data` axis (`batch_mean`): the ranks' values then sum to the global mean, and so do
 their parameter gradients. With one process each is the mean it was.
 """
 
@@ -53,7 +53,7 @@ def batch_mean(v: torch.Tensor) -> torch.Tensor:
     """The mean of v over the global batch (v's leading axis, shards of
     equal size): torch.mean in one process, this rank's share of it (the
     local sum over the global element count) under several."""
-    if mesh.world_size() == 1:
+    if mesh.data_size() == 1:
         return torch.mean(v)
     return torch.sum(v) / mesh.global_batch(v.numel())
 
@@ -61,7 +61,7 @@ def batch_mean(v: torch.Tensor) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   reduction: str = "mean") -> torch.Tensor:
     """CE on integer labels; 'mean' over the global batch (`batch_mean`)."""
-    if reduction == "mean" and mesh.world_size() > 1:
+    if reduction == "mean" and mesh.data_size() > 1:
         return batch_mean(F.cross_entropy(logits, labels.long(), reduction="none"))
     return F.cross_entropy(logits, labels.long(), reduction=reduction)
 

@@ -5,9 +5,15 @@ the eval step is the reference validate(): clean accuracy and one attack
 battery (PGD, FGSM or CW) in eval mode.
 PyTorch runs eagerly, so a step is a plain function of the state. Under
 several processes (parallel/mesh.py) each rank runs the step on its rows;
-the train step sums the parameter gradients and the metrics over the
-ranks in one all-reduce before the update, so every replica takes the
-same update, and both steps return the global batch's metrics."""
+the train step sums the parameter gradients and the metrics over the data
+group in one all-reduce before the update, so every replica takes the
+same update, and both steps return the global batch's metrics. A state
+cut over the mesh's `model` axis (parallel/sharding.py's `shard_state`,
+as JAX's step takes `state_sharding`) goes through the same steps: its
+cut layers gather their outputs and sum their input gradients over the
+model group themselves, so a cut parameter's gradient is this rank's rows
+and a replicated one's is averaged over the model group (mesh.sum_step),
+and the eval step runs the cut model."""
 
 from __future__ import annotations
 
@@ -69,7 +75,7 @@ def build_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
         params = state.params
         grads, metrics = mesh.sum_step(
             torch.autograd.grad(loss, params),
-            {"loss": loss.detach(), **topk_accuracy(logits.detach(), y)})
+            {"loss": loss.detach(), **topk_accuracy(logits.detach(), y)}, state.model)
         sgd_update(params, grads, state.momentum_buf, lr=lr,
                    momentum=opt.momentum, weight_decay=opt.weight_decay)
         state.step += 1

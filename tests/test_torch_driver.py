@@ -72,10 +72,28 @@ def test_profile_and_platform_pass_the_port_check():
         _check_ported({"profile": "trace", "steps_per_dispatch": 2})
 
 
+def test_driver_runs_the_full_canny_under_bf16(tmp_path):
+    """ee_at_training.yml's full Canny under the bf16 policy (`half: true`,
+    which the driver refused before the policy reached that front-end):
+    one train step and one validation batch through run(), the model's
+    compute dtype bfloat16, a finite loss and finite weights."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, dict(data="synthetic", synthetic_size=8, batch_size=4,
+                                   epochs=1, limit_batches=1, device="cpu", cize=32,
+                                   num_steps_1=1, type_canny="CannyFilter", half=True,
+                                   output=str(tmp_path)))
+    summary = run(cfg)
+    assert summary["train_steps"] == [1] and summary["eval_batches"] == [1]
+    assert np.isfinite(summary["loss"])
+    log = open(os.path.join(summary["out_dir"], "log", "log.txt")).read()
+    assert "bf16 policy" in log.splitlines()[0]
+    state = torch.load(summary["checkpoint"])["state_dict"]
+    assert all(bool(torch.isfinite(v).all()) for v in state.values())
+
+
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
-    # the full Canny runs in float32 only
-    ({"type_canny": "CannyFilter", "half": True}, NotImplementedError),
     # AWP runs now (objectives/awp.py); the multi-step dispatch does not
     ({"steps_per_dispatch": 2}, NotImplementedError),
     ({"attack_method": "AA"}, NotImplementedError),

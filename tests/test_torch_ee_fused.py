@@ -158,15 +158,10 @@ def test_frontend_matches_jax_unfused(square):
 
 
 def test_unported_variants_raise():
-    """What the front-end still refuses: the full and BPDA Canny and the
-    U2-NetP edge map under the bf16 policy (the step125 Canny runs there),
-    and a variant it does not know."""
+    """What the front-end refuses: a variant it does not know. (The full
+    and BPDA Canny and the U2-NetP edge map run under the bf16 policy:
+    tests/test_torch_frontend_variants.py holds them to JAX.)"""
     x = torch.zeros(1, 8, 8, 3, dtype=torch.bfloat16)
-    for cfg in (tee.EEConfig(type_canny="CannyFilter"),
-                tee.EEConfig(type_canny="CannyFilter_BPDA", with_gf=True),
-                tee.EEConfig(type_canny="u2netp")):
-        with pytest.raises(NotImplementedError):
-            tee.ee_frontend(x, cfg, edge_map=torch.zeros(1, 8, 8, 1, dtype=x.dtype))
     with pytest.raises(NotImplementedError):
         tee.ee_frontend(torch.zeros(1, 8, 8, 3), tee.EEConfig(type_canny="Sobel"))
     out = tee.ee_frontend(x, tee.EEConfig(type_canny="CannyFilter_step125_1", square=True,

@@ -213,13 +213,96 @@ def test_frontend_branch_matches_jax(branch):
                                atol=1e-4, rtol=0)
 
 
+BF = jnp.bfloat16
+# XLA's CPU compiler otherwise drops bf16 roundings that feed a float32
+# upcast (tests/test_torch_ee_fused_bf16.py)
+EXACT_ROUNDING = {"xla_allow_excess_precision": False}
+# The bf16 policy (models/resnet.py casts the input to bfloat16 before the
+# front-end) on the variants that ran in float32 only, against JAX jitted
+# with EXACT_ROUNDING. The Canny edge maps: every bfloat16 operation
+# rounds where JAX's does, so the maps are JAX's at all but BF16_FLIP of
+# the pixels (measured: none flips), and the input gradient within BF16_DX
+# of its largest magnitude (measured 7.4e-3 for CannyFilter and 5.5e-3 for
+# the BPDA Canny: the stencils' adjoints sum their bfloat16 taps in another
+# order than JAX's, one bfloat16 ulp apart here and there). The U2-NetP
+# promotes the bfloat16 input against its float32 parameters, as flax's
+# Conv with no dtype does: its edge map and the front-end's output are
+# float32 on both sides and agree to U2NET_TOL (measured 1.2e-7), the
+# bfloat16 input gradient within BF16_DX of its largest magnitude
+# (measured: equal).
+BF16_FLIP, BF16_DX, U2NET_TOL = 1e-3, 1e-2, 2e-5
+
+
+def _bf16_canny_case(variant):
+    fn = {"CannyFilter": "canny", "CannyFilter_BPDA": "canny_bpda"}[variant]
+    args = (38 / 255, 76 / 255, True)
+    x, u = _images()["noise"], np.random.default_rng(1).standard_normal(
+        (2, 32, 32, 1)).astype(np.float32)
+
+    def pair(a, cot):
+        out, vjp = jax.vjp(lambda v: getattr(jcanny, fn)(v, *args, alpha=0.05), a)
+        return out, vjp(cot)[0]
+    out_j, g_j = jax.jit(pair, compiler_options=EXACT_ROUNDING)(
+        jnp.asarray(x).astype(BF), jnp.asarray(u).astype(BF))
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    out = getattr(tcanny, fn)(xt, *args, alpha=0.05)
+    out.backward(torch.from_numpy(u).to(torch.bfloat16))
+    assert out.dtype == xt.grad.dtype == torch.bfloat16 and out_j.dtype == g_j.dtype == BF
+    return (out.detach().float().numpy(), np.asarray(out_j.astype(jnp.float32)),
+            xt.grad.float().numpy(), np.asarray(g_j.astype(jnp.float32)))
+
+
+def _bf16_u2netp_case():
+    from edge_enhancement_tpu.models import u2net as ju2
+    from edge_enhancement_tpu_torch.convert import u2net_state_dict_from_jax
+    from edge_enhancement_tpu_torch.models import u2net as tu2
+    shape = (2, 16, 16, 3)
+    rng = np.random.default_rng(6)
+    x = rng.random(shape).astype(np.float32)
+    u = rng.standard_normal(shape).astype(np.float32)
+    net = ju2.U2Net(full=False)
+    v = jax.jit(lambda k: net.init(k, jnp.zeros(shape), train=False))(jax.random.PRNGKey(0))
+    cfg = _cfg(type_canny="u2netp")
+
+    def fn(a):
+        edge = net.apply(v, a, train=False)
+        return jee.ee_frontend(a, jee.EEConfig(**cfg), None, edge_map=edge), edge
+
+    def pair(a, cot):
+        (out, edge), vjp = jax.vjp(fn, a)
+        return out, edge, vjp((cot, jnp.zeros_like(edge)))[0]
+    out_j, edge_j, g_j = jax.jit(pair, compiler_options=EXACT_ROUNDING)(
+        jnp.asarray(x).astype(BF), jnp.asarray(u))
+    model = tu2.U2Net(full=False)
+    model.load_state_dict(u2net_state_dict_from_jax(helpers.to_numpy_tree(v["params"]),
+                                                    helpers.to_numpy_tree(v["batch_stats"])))
+    model.eval()
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    edge = model(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    out = tee.ee_frontend(xt, tee.EEConfig(**cfg), edge_map=edge)
+    out.backward(torch.from_numpy(u))
+    assert edge.dtype == out.dtype == torch.float32 and edge_j.dtype == out_j.dtype == jnp.float32
+    assert xt.grad.dtype == torch.bfloat16 and g_j.dtype == BF
+    np.testing.assert_allclose(edge.detach().numpy(), np.asarray(edge_j), atol=U2NET_TOL)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=U2NET_TOL)
+    return xt.grad.float().numpy(), np.asarray(g_j.astype(jnp.float32))
+
+
 @pytest.mark.parametrize("variant", ["CannyFilter", "CannyFilter_BPDA", "u2netp"])
-def test_bf16_policy_refuses_the_float32_variants(variant):
-    cfg = tee.EEConfig(**_cfg(type_canny=variant))
-    with pytest.raises(NotImplementedError, match=variant):
-        tee.check_ported(cfg, torch.bfloat16)
-    tee.check_ported(cfg, torch.float32)
-    tee.check_ported(tee.EEConfig(**_cfg()), torch.bfloat16)
+def test_bf16_policy_runs_the_float32_variants(variant):
+    """The full Canny and the BPDA Canny (as the front-end calls them:
+    hysteresis, the flagship's thresholds), forward and input gradient, and
+    the U2-NetP edge map through the front-end, in bfloat16 against JAX's
+    at bfloat16."""
+    if variant == "u2netp":
+        g, g_j = _bf16_u2netp_case()
+    else:
+        out, out_j, g, g_j = _bf16_canny_case(variant)
+        flips = np.abs(out - out_j) > 0.25
+        assert flips.mean() <= BF16_FLIP, flips.mean()
+        assert 0 < (out > 0).mean() < 1
+    assert np.abs(g_j).max() > 1e-3
+    np.testing.assert_allclose(g, g_j, atol=BF16_DX * np.abs(g_j).max(), rtol=0)
 
 
 # config -> (ee_args beside the flagship's, step fields, tolerances against

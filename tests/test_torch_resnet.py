@@ -97,12 +97,24 @@ def test_init_statistics():
     assert (model.bn1.weight == 1).all() and (model.bn1.bias == 0).all()
 
 
-# resnet18_EE's default front-end, the full Canny, runs in float32; under
-# the bf16 policy it is not ported; Net2 is ported, a PreActResNet of a
-# depth the JAX package lacks is not
-@pytest.mark.parametrize("arch,args", [("resnet200", {}), ("PreActResNet200", {}),
-                                       ("resnet18_EE", {"half": True}),
-                                       ("resnet50_fd", {"dtype": "bfloat16"})])
+# depths the JAX package lacks
+@pytest.mark.parametrize("arch,args", [("resnet200", {}), ("PreActResNet200", {})])
 def test_unported_models_raise(arch, args):
     with pytest.raises(NotImplementedError):
         build_model(arch, args, 200)
+
+
+# resnet18_EE's default front-end (the full Canny) and the denoising
+# ResNets run under the bf16 policy (tests/test_torch_frontend_variants.py
+# and tests/test_torch_model_zoo.py hold them to JAX)
+@pytest.mark.parametrize("arch,args", [("resnet18_EE", {"half": True}),
+                                       ("resnet50_fd", {"dtype": "bfloat16"})])
+def test_bf16_policy_models_run(arch, args):
+    model = build_model(arch, args, 200, generator=torch.Generator().manual_seed(0))
+    assert model.dtype == torch.bfloat16
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 32, 32, 3)).astype(np.float32))
+    # train mode: on the initial running statistics (0 and 1) the denoising
+    # blocks' cubic terms overflow in eval mode, in float32 too
+    logits = model.train()(x)
+    assert logits.dtype == torch.float32 and logits.shape == (2, 200)
+    assert bool(torch.isfinite(logits).all())

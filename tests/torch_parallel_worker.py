@@ -1,10 +1,11 @@
 """One rank of tests/test_torch_parallel.py's multi-process runs, on the
 CPU through gloo:
 
-    python tests/torch_parallel_worker.py <task> <rank> <world> <init url> <dir>
+    python tests/torch_parallel_worker.py <task> <rank> <world> <init url> <dir> [n_model]
 
-joins the group at <init url> (file://...), runs <task> on the inputs the
-test saved in <dir>/inputs.pt and saves this rank's results in
+joins the group at <init url> (file://...) on a (data, model) mesh with a
+`model` axis of n_model (default 1), runs <task> on the inputs the test
+saved in <dir>/inputs.pt and saves this rank's results in
 <dir>/rank<r>.pt. The tasks:
 
 * syncbn: one train-mode BatchNorm2d forward on this rank's rows and the
@@ -16,6 +17,18 @@ test saved in <dir>/inputs.pt and saves this rank's results in
   square stripes and the PGD start), the attack's own x_adv kept and the
   given x_adv (JAX's) used for the update, as torch_port_helpers does.
 * noise: free-AT's replay noise through save_noise / load_noise.
+* tp_step: one train step of the driver's build with the model cut over
+  the `model` axis (parallel/sharding.py), in float64: the first attack
+  gradient, the state, a validation batch's metrics; then the checkpoint
+  (gathered over the model group), a restore from a one-process file and
+  the noise files.
+* tp_replay: one Net2 train step with the model cut over the `model`
+  axis on replayed global draws (the dropout masks and the PGD start, this
+  rank's data rows), the attack's own x_adv kept and the given x_adv used
+  for the update.
+* tp_sum: mesh.sum_step on a cut Net2's parameters, once with gradients
+  that differ on every rank and once with gradients alike on the model
+  ranks of a data row, beside the data group's own sum of the latter.
 
 Imports no JAX."""
 
@@ -118,12 +131,105 @@ def noise(inp):
             "log": log}
 
 
-TASKS = {"syncbn": syncbn, "step": step, "replay": replay, "noise": noise}
+def _first_input_grad(grads):
+    """Wrap the attacks' input gradient so that each call's result is kept."""
+    from edge_enhancement_tpu_torch.attacks import pgd
+    real = pgd._input_grad
+
+    def kept(loss_fn, x):
+        grads.append(real(loss_fn, x))
+        return grads[-1]
+    pgd._input_grad = kept
+
+
+def tp_step(inp):
+    from edge_enhancement_tpu_torch.parallel import sharding
+    from edge_enhancement_tpu_torch.train import checkpoint, driver
+    from edge_enhancement_tpu_torch.train.trainer import (OptimConfig, build_eval_step,
+                                                          build_train_step)
+    cfg, n = inp["cfg"], inp["num_classes"]
+    ops, state, gen = driver.build(cfg, n, torch.device("cpu"))
+    state.model.double()
+    state.momentum_buf = [b.double() for b in state.momentum_buf]
+    mesh.replicate(state.model)
+    sharding.shard_state(state)
+    opt = OptimConfig(inp["momentum"], inp["weight_decay"])
+    grads = []
+    _first_input_grad(grads)
+    train_step = build_train_step(ops, driver.make_method_config(cfg, n), opt, gen)
+    m = train_step(state, _rows(inp["x"]).double(), _rows(inp["y"]), inp["lr"])
+    eval_step = build_eval_step(ops, driver.eval_attack(cfg, n), gen)
+    ev = eval_step(state, _rows(inp["vx"]).double(), _rows(inp["vy"]))
+    result = {**_step_result(state, m), "grad0": grads[0],
+              # copies: the restore below writes into the live tensors
+              "state": {k: v.clone() for k, v in state.model.state_dict().items()},
+              "momentum": [b.clone() for b in state.momentum_buf],
+              "eval": {k: v.item() for k, v in ev.items()},
+              "shapes": {k: tuple(v.shape) for k, v in state.model.state_dict().items()}}
+    checkpoint.save_checkpoint(inp["dir"], state, 1, cfg["arch"], 0.0, False, opt, inp["lr"])
+    state, epoch, _ = checkpoint.restore_into_state(
+        state, checkpoint.load_checkpoint(inp["resume"]))
+    result["restored"] = {"epoch": epoch, "state": state.model.state_dict(),
+                          "momentum": state.momentum_buf}
+    result["noise_path"] = os.path.basename(checkpoint.save_noise(
+        inp["dir"], _rows(inp["x"])))
+    mesh.barrier()
+    return result
+
+
+def tp_replay(inp):
+    from edge_enhancement_tpu_torch.attacks import pgd as tpgd
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    from edge_enhancement_tpu_torch.objectives import methods as tmethods
+    from edge_enhancement_tpu_torch.parallel import sharding
+    from edge_enhancement_tpu_torch.train import trainer
+    from edge_enhancement_tpu_torch.train.modelops import ModelOps
+    model = build_model(inp["arch"], {}, inp["num_classes"])
+    model.load_state_dict(inp["state"])
+    masks = list(inp["masks"])
+    model.dropout_source = lambda shape: _rows(masks.pop(0))
+    noise, x_adv_given, kept = _rows(inp["noise"]), _rows(inp["x_adv"]), {}
+    tpgd.uniform_init_noise = lambda x, eps, gen: noise
+    real = tpgd.pgd_linf
+
+    def spy(*args, **kwargs):
+        kept["x_adv"] = real(*args, **kwargs)
+        return x_adv_given.clone()
+    tmethods.pgd_linf = spy
+    state = sharding.shard_state(trainer.create_train_state(model))
+    train_step = trainer.build_train_step(
+        ModelOps(model), tmethods.MethodConfig(inp["method"], **inp["fields"]),
+        trainer.OptimConfig(inp["momentum"], inp["weight_decay"]))
+    m = train_step(state, _rows(inp["x"]), _rows(inp["y"]), inp["lr"])
+    assert not masks
+    return {**_step_result(state, m), "x_adv": kept["x_adv"]}
+
+
+def tp_sum(inp):
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    from edge_enhancement_tpu_torch.parallel import sharding
+    model = sharding.shard_model(build_model("Net2", {}, 10).double())
+    params = list(model.parameters())
+    r = mesh.rank()
+    apart, _ = mesh.sum_step([torch.full_like(p, r + 1.0) for p in params],
+                             {"loss": torch.tensor(float(r))}, model)
+    gen = torch.Generator().manual_seed(mesh.data_rank())
+    alike = [torch.randn(p.shape, generator=gen, dtype=p.dtype) for p in params]
+    summed, metrics = mesh.sum_step(alike, {"loss": torch.tensor(float(r))}, model)
+    return {"names": [n for n, _ in model.named_parameters()], "apart": apart,
+            "alike": summed, "data_sum": mesh.sum_across(alike),
+            "loss": metrics["loss"].item()}
+
+
+TASKS = {"syncbn": syncbn, "step": step, "replay": replay, "noise": noise,
+         "tp_step": tp_step, "tp_replay": tp_replay, "tp_sum": tp_sum}
 
 
 def main():
     task, rank, world, init, out = sys.argv[1:6]
-    mesh.init("cpu", init_method=init, rank=int(rank), world_size=int(world))
+    n_model = int(sys.argv[6]) if len(sys.argv) > 6 else 1
+    mesh.init("cpu", init_method=init, rank=int(rank), world_size=int(world),
+              n_model=n_model)
     try:
         inp = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
         result = TASKS[task](inp)
