@@ -11,8 +11,9 @@
    hold both HGMMA (wgmma) forms, BF16 for the bf16 K4 and TF32 for the
    float32 K4 (three TF32 products, 3xTF32), and the ee_fused library's a
    bf16 tensor-core instruction with float32 sums (HMMA or HGMMA .F32.BF16)
-   for the bf16 K1/K2's products: a library whose kernels fell back to FP32
-   FMAs fails.
+   for the bf16 K1/K2's products, and packed bf16x2 arithmetic in both
+   bf16 K3a/K3b kernels: a library whose kernels fell back to FP32 FMAs
+   fails.
 3. The kernels against their plain PyTorch versions at the shapes their
    paths give them, errors against stated limits, median times from CUDA
    events, and each kernel's bound (the least time the card could take for
@@ -26,8 +27,10 @@
    100 x 3 x 64 x 64 with no square (the AWP configs' BPDA-3 front-end),
    K3a/K3b also with ImageNet's batch
    of 128 at 224 px, each beside its bound and its plain version's time;
-   K3a/K3b in bfloat16 at fast-AT phase 1's 256 x 3 x 128 x 128 (all four
-   outputs exactly the plain version's, dx within the bf16 limits below);
+   K3a/K3b in bfloat16 at fast-AT phase 1's 256 x 3 x 128 x 128 and phase
+   2's 128 x 3 x 224 x 224 (all four outputs and dx exactly the plain
+   versions'), beside the float32 pair on the same image, with their SASS's
+   conversions and packed bf16x2 instructions;
    K1/K2 in bfloat16 at fast-AT's three phases, 256 x 3 x 128 x 128,
    128 x 3 x 224 x 224 and 96 x 3 x 288 x 288, at the evaluate config's
    128 x 3 x 288 x 288, at 8 x 3 x 224 x 224 and at
@@ -330,8 +333,8 @@ BF16_SHAPES = ((256, 3, 128, 128), (128, 3, 224, 224), (96, 3, 288, 288),
                (128, 3, 288, 288), (8, 3, 224, 224), (100, 3, 64, 64))
 # K3a/K3b's further check: ImageNet's batch at 224 px, 180 MB a launch
 CANNY_LARGE_SHAPES = ((128, 3, 224, 224),)
-# K3a/K3b bfloat16: fast-AT phase 1's shape (the k5 path's)
-CANNY_BF16_SHAPE = (256, 3, 128, 128)
+# K3a/K3b bfloat16: fast-AT phase 1's shape (the k5 path's), then phase 2's
+CANNY_BF16_SHAPES = ((256, 3, 128, 128), (128, 3, 224, 224))
 # k: (tag, config, keys over the config's, driver arguments, the front-end
 # kernels it runs and their launches a train step, or None for a plain
 # PyTorch front-end). Validation batches run PGD-K: K + 2 forwards and K
@@ -498,13 +501,23 @@ def build_phase():
         fail(f"the gemm_conv library lacks an HGMMA form: {forms}")
     # the bfloat16 K1/K2 run their products on the tensor cores: bf16 inputs,
     # float32 sums, as mma.sync (HMMA) or wgmma (HGMMA)
-    mma = re.findall(r"HG?MMA[.\w]*", build.sass(libs["ee_fused"].path))
+    sass = build.sass(libs["ee_fused"].path)
+    mma = re.findall(r"HG?MMA[.\w]*", sass)
     bf16 = sorted({m for m in mma if m.endswith(".F32.BF16")})
     print(f"[build] ee_fused SASS: {len(mma)} tensor-core instructions "
           f"({', '.join(sorted(set(mma)))}); bf16 with float32 sums: {bf16}", flush=True)
     if not bf16:
         fail("the ee_fused library holds no bf16 tensor-core instruction "
              "(HMMA/HGMMA .F32.BF16)")
+    # the bfloat16 K3a/K3b compute in packed bf16x2 instructions (HADD2,
+    # HMUL2, HFMA2.MMA .BF16_V2): kernels that computed in float32 and
+    # rounded value by value would pass their checks
+    k3 = {re.search(r"canny_\w+?_bf16_kernel", k).group(0): v
+          for k, v in build.sass_counts(sass).items() if "_bf16_kernel" in k}
+    print(f"[build] bf16 K3a/K3b SASS, packed bf16x2 instructions: "
+          f"{ {k: v['bf16x2'] for k, v in sorted(k3.items())} }", flush=True)
+    if len(k3) != 2 or not all(v["bf16x2"] for v in k3.values()):
+        fail(f"the bfloat16 K3a/K3b hold no packed bf16x2 arithmetic: {k3}")
 
 
 def _timings(torch, kernel, plain, library=None) -> dict:
@@ -793,14 +806,15 @@ def canny_kernel_phase(torch):
     ]
 
 
-def canny_bf16_kernel_phase(torch):
-    """K3a and K3b in bfloat16 at CANNY_BF16_SHAPE against their plain
-    bfloat16 versions: out, mag, gx and gy exactly; dx within the bf16
-    limits of K2 (BF16_DX_SHARE, BF16_DX_REL); the times and the bounds."""
+def _canny_bf16_case(torch, shape):
+    """K3a and K3b in bfloat16 at `shape` against their plain bfloat16
+    versions, all four outputs and dx bit for bit; the times, the bounds and
+    the float32 pair's times on the same image."""
     from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
+    from edge_enhancement_tpu_torch.utils.cuda_timing import device_ms
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    x = _patched_input(torch, dev, CANNY_BF16_SHAPE).to(bf16)
+    x = _patched_input(torch, dev, shape).to(bf16)
     high, sigma, alpha = 76.0 / 255.0, 1.0, 0.0
     b, c, h, w = x.shape
     u = torch.randn((b, 1, h, w), generator=torch.Generator(device=dev).manual_seed(1),
@@ -813,35 +827,30 @@ def canny_bf16_kernel_phase(torch):
     dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha)
     torch.cuda.synchronize()
     dx_p = F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma, alpha)
-    ulps = F.bf16_ulps(dx_k, dx_p)
-    share, exact = (ulps > 1).float().mean().item(), (ulps == 0).float().mean().item()
+    exact = (F.bf16_ulps(dx_k, dx_p) == 0).float().mean().item()
     bwd_err = (dx_k.float() - dx_p.float()).abs().max().item()
     dx_max = dx_p.float().abs().max().item()
     edge_share = outs_k[0].float().mean().item()
-    tag = "x".join(map(str, CANNY_BF16_SHAPE))
+    tag = "x".join(map(str, shape))
     print(f"[kernels] bf16 at ({tag}): K3a vs plain (out, mag, gx, gy): max |err| "
           f"{fwd_err:.3e} (limit 0), edge share {edge_share:.4f}; K3b vs plain: "
-          f"{100 * exact:.4f}% of dx bit for bit, {100 * share:.4f}% more than one ulp "
-          f"off (limit {100 * BF16_DX_SHARE}%), max |err| {bwd_err:.3e} (limit "
-          f"{BF16_DX_REL * dx_max:.3e}, max |dx| {dx_max:.3f})", flush=True)
+          f"{100 * exact:.4f}% of dx bit for bit (limit 100%), max |err| {bwd_err:.3e}, "
+          f"max |dx| {dx_max:.3f}", flush=True)
     finite = all(bool(torch.isfinite(t).all()) for t in (*outs_k, dx_k))
-    if (not finite or fwd_err > 0 or share > BF16_DX_SHARE or bwd_err > BF16_DX_REL * dx_max
-            or not 0.0 < edge_share < 1.0 or dx_max == 0.0
-            or {t.dtype for t in (*outs_k, dx_k)} != {bf16}):
+    if (not finite or fwd_err > 0 or exact != 1.0 or not 0.0 < edge_share < 1.0
+            or dx_max == 0.0 or {t.dtype for t in (*outs_k, dx_k)} != {bf16}):
         fail(f"a bfloat16 Canny kernel disagrees with its plain version at {tag}")
     t3a = _timings(torch, lambda: F.canny_fused_fwd(x, high, sigma, alpha),
                    lambda: F.canny_fused_fwd_plain(x, high, sigma, alpha))
     t3b = _timings(torch, lambda: F.canny_fused_bwd(u, mag, gx, gy, c, high, sigma, alpha),
                    lambda: F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, sigma, alpha))
     # the float32 pair on the same image, beside: twice the bytes
-    from edge_enhancement_tpu_torch.utils.cuda_timing import device_ms
     x32, u32 = x.float(), u.float()
     _, mag32, gx32, gy32 = F.canny_fused_fwd(x32, high, sigma, alpha)
     f32_ms = (device_ms(lambda: F.canny_fused_fwd(x32, high, sigma, alpha)),
               device_ms(lambda: F.canny_fused_bwd(u32, mag32, gx32, gy32, c, high, sigma,
                                                   alpha)))
-    # the float32 forms' operation counts (the arithmetic runs on the FP32
-    # pipes, each result rounded to bfloat16); bytes: bfloat16 in and out
+    # operations as the float32 forms count them; bytes: bfloat16 in and out
     px = b * h * w
     b3a = bound(_nbytes(x, *outs_k), px * (18 * c + 29), PEAK_F32)
     b3b = bound(_nbytes(u, mag, gx, gy, dx_k), px * 54, PEAK_F32)
@@ -853,15 +862,37 @@ def canny_bf16_kernel_phase(torch):
           f"{b3b['bound_us']:.2f} us ({b3b['bound_by']}), "
           f"{100 * b3b['bound_ms'] / t3b['ms']:.1f}% of it; the float32 K3a / K3b on "
           f"the same image {f32_ms[0]:.4f} / {f32_ms[1]:.4f}", flush=True)
+    return ({"max_abs_err": fwd_err, "f32_ms_same_shape": f32_ms[0], **t3a, **b3a},
+            {"max_abs_err": bwd_err, "share_exact": exact, "f32_ms_same_shape": f32_ms[1],
+             **t3b, **b3b})
+
+
+def canny_bf16_kernel_phase(torch):
+    """K3a and K3b in bfloat16 at CANNY_BF16_SHAPES, each bit for bit its
+    plain version; their SASS's conversions and packed bf16x2 instructions."""
+    from edge_enhancement_tpu_torch.ops.cuda import build
+
+    k3a, k3b = _canny_bf16_case(torch, CANNY_BF16_SHAPES[0])
+    keys = ("max_abs_err", "f32_ms_same_shape", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by")
+    for shape in CANNY_BF16_SHAPES[1:]:
+        l3a, l3b = _canny_bf16_case(torch, shape)
+        at = "at_" + "x".join(map(str, shape))
+        k3a[at] = {k: l3a[k] for k in keys}
+        k3b[at] = {k: l3b[k] for k in keys + ("share_exact",)}
+    counts = build.sass_counts(build.sass(build.load("ee_fused").path))
+    for row, kernel in ((k3a, "canny_fwd_bf16_kernel"), (k3b, "canny_bwd_bf16_kernel")):
+        (c,) = [v for k, v in counts.items() if kernel in k]
+        row["sass"] = {"instructions": c["all"], "F2FP": c["F2FP"], "bf16x2": c["bf16x2"]}
+        print(f"[kernels] {kernel} SASS: {c['all']} instructions, {c['F2FP']} conversions "
+              f"to bfloat16 (F2FP), {c['bf16x2']} packed bf16x2, {c['FMUL/FADD/FFMA']} "
+              f"FP32 mul/add/fma, {c['LDS']} LDS", flush=True)
     src = "edge_enhancement_tpu_torch/csrc/ee_fused.cu"
     return [
         {"name": "canny_fused_fwd_bf16", "route": "cuda", "source": src,
-         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:149",
-         "max_abs_err": fwd_err, "f32_ms_same_shape": f32_ms[0], **t3a, **b3a},
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:149", **k3a},
         {"name": "canny_fused_bwd_bf16", "route": "cuda", "source": src,
-         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:166",
-         "max_abs_err": bwd_err, "share_over_1_ulp": share, "share_exact": exact,
-         "f32_ms_same_shape": f32_ms[1], **t3b, **b3b},
+         "replaces": "edge_enhancement_tpu/ops/pallas/ee_fused.py:166", **k3b},
     ]
 
 

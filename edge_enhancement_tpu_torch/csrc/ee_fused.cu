@@ -54,19 +54,21 @@
 // alone with the residuals mag, gx, gy, and its adjoint from them. A block
 // owns a kCannyRows x kCannyCols tile of one image. Bytes bound them (3.42 us
 // each at 100 x 3 x 64 x 64): the stencils are a few dozen FP32 operations a
-// pixel. They take float32 or bfloat16 (canny_*_kernel<F32>,
-// <BF16Narrow>): JAX's Canny-only kernel computes in the image's dtype, so
-// its bfloat16 form rounds every step to bfloat16 but the channel sum, the
-// division by C and the magnitude included (K1's keep those in float32),
-// and its adjoint tap by tap: the bfloat16 K3b runs that adjoint as JAX
-// writes it (stencil3_adjoint_taps), each product and sum rounded, and
-// gives its bits; the float32 K3b sums the taps in another order.
+// pixel. They take float32 (canny_fwd_kernel, canny_bwd_kernel) or bfloat16
+// (canny_fwd_bf16_kernel, canny_bwd_bf16_kernel): JAX's Canny-only kernel
+// computes in the image's dtype, so its bfloat16 form rounds every step to
+// bfloat16 but the channel sum, the division by C and the magnitude
+// included (K1's keep those in float32), and its adjoint tap by tap. The
+// bfloat16 pair runs that arithmetic on packed bf16x2 instructions, two
+// pixels an instruction, on bfloat16 tiles, and gives its bits (the section
+// "K3a/K3b in bfloat16" below); the float32 K3b sums the taps in another
+// order.
 //
-// All four run one copy of the Canny code, on tiles that hold a plane and
-// its halo in shared memory: staged by cp.async, 16 bytes at a time where the
-// row allows, the halo holding the edge's reads (x) or zeros (cotangents), so
-// no tap clamps; the last stage on quads, 4 pixels a thread, read and
-// written 16 bytes at a time. The forward rounds every product and sum on
+// K1, K2 and the float32 K3a/K3b run one copy of the Canny code, on tiles
+// that hold a plane and its halo in shared memory: staged by cp.async, 16
+// bytes at a time where the row allows, the halo holding the edge's reads
+// (x) or zeros (cotangents), so no tap clamps; the last stage on quads, 4
+// pixels a thread, read and written 16 bytes at a time. The forward rounds every product and sum on
 // its own (__fmul_rn, __fadd_rn: no FMA contraction) in the tap order of the
 // PyTorch composition (row-major), so the edge maps of K1, K3a and the plain
 // version agree exactly: `mag > high` flips on one-ulp differences. The
@@ -142,13 +144,10 @@ struct Params {
 // stores through float32, and r(v), the rounding of a float32 result to what
 // a bfloat16 operation gives (products and sums of two bfloat16 values are
 // exact in float32, so rounding the float32 result is the bfloat16 result).
-// kNarrow: the Canny branch's division by C, magnitude and adjoint round to
-// the type as well (K3a/K3b: JAX's Canny-only kernel computes every step in
-// the image's dtype but the channel sum); otherwise they are float32 (K1/K2:
-// the JAX fused kernel computes them in float32).
+// The Canny branch's division by C, magnitude and adjoint are float32 (the
+// JAX fused kernel computes them in float32).
 struct F32 {
   using T = float;
-  static constexpr bool kNarrow = false;
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
   static __device__ __forceinline__ float r(float v) { return v; }
@@ -156,24 +155,12 @@ struct F32 {
 
 struct BF16 {
   using T = __nv_bfloat16;
-  static constexpr bool kNarrow = false;
   static __device__ __forceinline__ float load(const T* p) { return __bfloat162float(*p); }
   static __device__ __forceinline__ void store(T* p, float v) { *p = __float2bfloat16_rn(v); }
   static __device__ __forceinline__ float r(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
-
-struct BF16Narrow : BF16 {
-  static constexpr bool kNarrow = true;
-};
-
-// v rounded by P where P's Canny branch is narrow, else v.
-template <class P>
-__device__ __forceinline__ float narrow(float v) {
-  if constexpr (P::kNarrow) return P::r(v);
-  return v;
-}
 
 // The float32 values of the low and high bfloat16 of a 32-bit word.
 __device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
@@ -697,24 +684,18 @@ __device__ __forceinline__ void blur_stage(const float* sX, float* sS, const flo
 // square root down their slow paths even where the result is not taken (flat
 // regions make many): they get 1 there, and the zero is selected, bit for bit
 // the same. The Sobel sums round by P; the division, each product and sum of
-// the magnitude and its square root are float32, or round by P where P is
-// narrow (a bfloat16 operation is its float32 result rounded: the IEEE
-// quotient and square root of bfloat16 operands round once more to
-// bfloat16, as XLA's and PyTorch's bfloat16 forms of them do).
+// the magnitude and its square root are float32.
 template <class P, class A>
 __device__ __forceinline__ Grad sobel_mag_tile(A a, int C) {
   float kx[9], ky[9];
   sobel_taps(kx, ky);
   const float cf = (float)C;
-  auto over_c = [&](float v) {
-    return v == 0.f ? v : narrow<P>(__fdiv_rn(v == 0.f ? 1.f : v, cf));
-  };
+  auto over_c = [&](float v) { return v == 0.f ? v : __fdiv_rn(v == 0.f ? 1.f : v, cf); };
   Grad g;
   g.gx = over_c(tap_sum<true, P>(a, kx));
   g.gy = over_c(tap_sum<true, P>(a, ky));
-  const float v = narrow<P>(
-      __fadd_rn(narrow<P>(__fmul_rn(g.gx, g.gx)), narrow<P>(__fmul_rn(g.gy, g.gy))));
-  g.mag = (v == 0.f) ? 0.f : narrow<P>(__fsqrt_rn(v == 0.f ? 1.f : v));
+  const float v = __fadd_rn(__fmul_rn(g.gx, g.gx), __fmul_rn(g.gy, g.gy));
+  g.mag = (v == 0.f) ? 0.f : __fsqrt_rn(v == 0.f ? 1.f : v);
   return g;
 }
 
@@ -770,19 +751,23 @@ __device__ __forceinline__ void canny_tile(const typename P::T* __restrict__ xb,
 
 // The gate of the JAX _canny_bwd_kernel at one pixel, K2's and K3b's: the
 // edge map's cotangent u through the To_compare window (high, 1.001], the
-// alpha gate and d|g|/dg with 1/|g| := 0 at |g| = 0; returns (u_gx, u_gy),
-// each product rounded by P where P is narrow. (In bfloat16 the window's
-// top is 1: no bfloat16 value lies in (1, 1.001].)
-template <class P = F32>
+// alpha gate and d|g|/dg with 1/|g| := 0 at |g| = 0; returns (u_gx, u_gy).
+// (In bfloat16 the window's top is 1: no bfloat16 value lies in (1, 1.001].)
+__device__ __forceinline__ bool gate_keeps(float mag, const Params& p) {
+  const float mag_m = (mag < p.alpha) ? 0.f : mag;
+  return mag_m > p.high && mag_m <= 1.001f && mag >= p.alpha;
+}
+
+// 1 / mag, 0 at mag = 0 (the operand guarded as in sobel_mag_tile).
+__device__ __forceinline__ float inv_mag(float mag) {
+  return (mag == 0.f) ? 0.f : __frcp_rn(mag == 0.f ? 1.f : mag);
+}
+
 __device__ __forceinline__ float2 gate(float u, float mag, float gx, float gy,
                                        const Params& p) {
-  const float mag_m = (mag < p.alpha) ? 0.f : mag;
-  const bool keep = mag_m > p.high && mag_m <= 1.001f && mag >= p.alpha;
-  const float u_mag = keep ? u : 0.f;
-  // as in sobel_mag_tile
-  const float inv = (mag == 0.f) ? 0.f : narrow<P>(__frcp_rn(mag == 0.f ? 1.f : mag));
-  return make_float2(narrow<P>(__fmul_rn(narrow<P>(__fmul_rn(u_mag, gx)), inv)),
-                     narrow<P>(__fmul_rn(narrow<P>(__fmul_rn(u_mag, gy)), inv)));
+  const float u_mag = gate_keeps(mag, p) ? u : 0.f;
+  const float inv = inv_mag(mag);
+  return make_float2(__fmul_rn(__fmul_rn(u_mag, gx), inv), __fmul_rn(__fmul_rn(u_mag, gy), inv));
 }
 
 // Adjoint of the edge-replicated 3x3 stencil k at pixel (h, w) of an (H, W)
@@ -817,44 +802,13 @@ __device__ __forceinline__ float stencil3_adjoint_tile(A a, const float (&k)[9],
   return z;
 }
 
-// The same adjoint as JAX computes it tap by tap (_apply_taps_adjoint), for
-// the narrow policy P: for each tap t of k (row-major, zero taps skipped
-// where SKIP_ZEROS), the cotangent moved back by the tap's offset (dh, dw),
-// rows first, the border row (column) adding the read that the clamp folded
-// onto it; k[t] times that, rounded; the terms summed in tap order, each sum
-// rounded. A bfloat16 adjoint so computed is JAX's bit for bit.
-template <bool SKIP_ZEROS, class P, class A>
-__device__ __forceinline__ float stencil3_adjoint_taps(A a, const float (&k)[9], int H, int W,
-                                                     int h, int w) {
-  const bool top = h == 0, bottom = h == H - 1, left = w == 0, right = w == W - 1;
-  float acc = 0.f;
-  bool first = true;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    if (SKIP_ZEROS && k[t] == 0.f) continue;
-    const int dh = t / 3 - 1, dw = t % 3 - 1;
-    // the rows' adjoint at column offset j
-    auto rows = [&](int j) {
-      const float v = a(-dh, j);
-      return (dh == 1 && bottom) || (dh == -1 && top) ? P::r(__fadd_rn(v, a(0, j))) : v;
-    };
-    float v = rows(-dw);
-    if ((dw == 1 && right) || (dw == -1 && left)) v = P::r(__fadd_rn(v, rows(0)));
-    const float term = P::r(__fmul_rn(k[t], v));
-    acc = first ? term : P::r(__fadd_rn(acc, term));
-    first = false;
-  }
-  return acc;
-}
-
 // K2's and K3b's last stages: from u_gx, u_gy in tiles G (2-pixel halo,
 // zeros off the plane), u_summed = (Sobel-x^T u_gx + Sobel-y^T u_gy) / C on
 // the tile plus 1 in tile sU (zeros off the plane); then epilogue(r, s, v)
 // for every quad of the tile, in the image or not, v's components being the
-// blur's adjoint of u_summed at pixels (h0 + r, w0 + s .. s + 3). A narrow P
-// rounds as JAX does (stencil3_adjoint_taps, the sum and the division by C
-// each rounded); otherwise float32. Ends without a barrier.
-template <int ROWS, int COLS, int THREADS, class P = F32, class Epilogue>
+// blur's adjoint of u_summed at pixels (h0 + r, w0 + s .. s + 3), in
+// float32. Ends without a barrier.
+template <int ROWS, int COLS, int THREADS, class Epilogue>
 __device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float* sG1,
                                                    float* sU, const float (&g)[9], int C,
                                                    int H, int W, int h0, int w0,
@@ -872,14 +826,8 @@ __device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float
       const float* a1 = sG1 + G::at(r, s);
       auto r0 = [&](int di, int dj) { return a0[di * G::kLd + dj]; };
       auto r1 = [&](int di, int dj) { return a1[di * G::kLd + dj]; };
-      if constexpr (P::kNarrow)
-        v = P::r(__fdiv_rn(P::r(__fadd_rn(stencil3_adjoint_taps<true, P>(r0, sx, H, W, h, w),
-                                          stencil3_adjoint_taps<true, P>(r1, sy, H, W, h, w))),
-                           (float)C));
-      else
-        v = (stencil3_adjoint_tile(r0, sx, H, W, h, w) +
-             stencil3_adjoint_tile(r1, sy, H, W, h, w)) /
-            (float)C;
+      v = (stencil3_adjoint_tile(r0, sx, H, W, h, w) + stencil3_adjoint_tile(r1, sy, H, W, h, w)) /
+          (float)C;
     }
     sU[U::at(r, s)] = v;
   }
@@ -889,10 +837,7 @@ __device__ __forceinline__ void canny_adjoint_tail(const float* sG0, const float
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       auto a = [&](int di, int dj) { return win[1 + di][1 + j + dj]; };
-      if constexpr (P::kNarrow)
-        v[j] = stencil3_adjoint_taps<false, P>(a, g, H, W, h0 + r, w0 + s + j);
-      else
-        v[j] = stencil3_adjoint_tile(a, g, H, W, h0 + r, w0 + s + j);
+      v[j] = stencil3_adjoint_tile(a, g, H, W, h0 + r, w0 + s + j);
     }
     epilogue(r, s, make_float4(v[0], v[1], v[2], v[3]));
   });
@@ -1738,30 +1683,29 @@ ee_fused_bwd_bf16_kernel(const bf16* __restrict__ u, const bf16* __restrict__ x,
 // (canny_geometry) mirrors kCannyRows and kCannyCols as CANNY_ROWS and
 // CANNY_COLS, computes the grid and a block's shared memory, and passes both
 // to the launch. K3a: C x tiles and the summed blur's; K3b: four tiles and
-// u_summed's, whatever C.
+// u_summed's, whatever C; float32 tiles (Tile) or bfloat16 ones (Tile2,
+// Mid2).
 
 constexpr int kCannyRows = 16;
 constexpr int kCannyCols = 32;
 constexpr int kCannyThreads = 128;
 constexpr int kCannyMinBlocks = 6;
 
-// K3a: writes out (the edge map), mag, gx, gy, each (B, 1, H, W). P: F32,
-// or BF16Narrow for bfloat16 tensors.
-template <class P>
+// K3a in float32: writes out (the edge map), mag, gx, gy, each (B, 1, H, W).
 __global__ void __launch_bounds__(kCannyThreads, kCannyMinBlocks)
-canny_fwd_kernel(const typename P::T* __restrict__ x, const float* __restrict__ gtaps,
-                 typename P::T* __restrict__ out, typename P::T* __restrict__ mag,
-                 typename P::T* __restrict__ gx, typename P::T* __restrict__ gy, Params p) {
+canny_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gtaps,
+                 float* __restrict__ out, float* __restrict__ mag, float* __restrict__ gx,
+                 float* __restrict__ gy, Params p) {
   extern __shared__ float4 smem4[];
   const int H = p.H, W = p.W, b = blockIdx.z;
   const int h0 = blockIdx.y * kCannyRows, w0 = blockIdx.x * kCannyCols;
   float g[9];
   load_taps(gtaps, g);
-  // the outputs are the wrapper's own tensors: their rows start on 16 (8)
-  // bytes whenever x's do
-  const bool vec = W % 4 == 0 && (sizeof(typename P::T) == 4 ? aligned16(x) : aligned8(x));
+  // the outputs are the wrapper's own tensors: their rows start on 16 bytes
+  // whenever x's do
+  const bool vec = W % 4 == 0 && aligned16(x);
   const size_t plane = (size_t)b * H * W;
-  canny_tile<kCannyRows, kCannyCols, kCannyThreads, P>(
+  canny_tile<kCannyRows, kCannyCols, kCannyThreads, F32>(
       x + plane * p.C, g, p.C, H, W, h0, w0, vec, reinterpret_cast<float*>(smem4),
       [&](int r, int s, const Grad (&q)[4]) {
         const int h = h0 + r, w = w0 + s;
@@ -1777,12 +1721,11 @@ canny_fwd_kernel(const typename P::T* __restrict__ x, const float* __restrict__ 
       });
 }
 
-// K3b: writes dx (B, C, H, W), the same plane in every channel. P as K3a's.
-template <class P>
+// K3b in float32: writes dx (B, C, H, W), the same plane in every channel.
 __global__ void __launch_bounds__(kCannyThreads, kCannyMinBlocks)
-canny_bwd_kernel(const typename P::T* __restrict__ u, const typename P::T* __restrict__ mag,
-                 const typename P::T* __restrict__ gx, const typename P::T* __restrict__ gy,
-                 const float* __restrict__ gtaps, typename P::T* __restrict__ dx, Params p) {
+canny_bwd_kernel(const float* __restrict__ u, const float* __restrict__ mag,
+                 const float* __restrict__ gx, const float* __restrict__ gy,
+                 const float* __restrict__ gtaps, float* __restrict__ dx, Params p) {
   using G = Tile<kCannyRows, kCannyCols, 2>;
   extern __shared__ float4 smem4[];
   // u, mag, gx, gy; the gate turns u's tile into u_gx and mag's into u_gy
@@ -1792,14 +1735,12 @@ canny_bwd_kernel(const typename P::T* __restrict__ u, const typename P::T* __res
   const int h0 = blockIdx.y * kCannyRows, w0 = blockIdx.x * kCannyCols;
   float g[9];
   load_taps(gtaps, g);
-  // dx is the wrapper's own tensor: its rows start on 16 (8) bytes whenever
-  // the inputs' do
-  auto aligned = [](const void* q) {
-    return sizeof(typename P::T) == 4 ? aligned16(q) : aligned8(q);
-  };
-  const bool vec = W % 4 == 0 && aligned(u) && aligned(mag) && aligned(gx) && aligned(gy);
+  // dx is the wrapper's own tensor: its rows start on 16 bytes whenever the
+  // inputs' do
+  const bool vec = W % 4 == 0 && aligned16(u) && aligned16(mag) && aligned16(gx) &&
+                   aligned16(gy);
   const size_t plane = (size_t)b * H * W;
-  stage_tile<G, kCannyThreads, false, P>(
+  stage_tile<G, kCannyThreads, false, F32>(
       sIn, 4,
       [&](int i) { return (i == 0 ? u : i == 1 ? mag : i == 2 ? gx : gy) + plane; }, H, W,
       h0, w0, vec);
@@ -1810,19 +1751,494 @@ canny_bwd_kernel(const typename P::T* __restrict__ u, const typename P::T* __res
     float4* t = reinterpret_cast<float4*>(sIn) + e;
     constexpr int kTile = G::kFloats / 4;
     const float4 vu = t[0], vm = t[kTile], vx = t[2 * kTile], vy = t[3 * kTile];
-    const float2 a0 = gate<P>(vu.x, vm.x, vx.x, vy.x, p), a1 = gate<P>(vu.y, vm.y, vx.y, vy.y, p);
-    const float2 a2 = gate<P>(vu.z, vm.z, vx.z, vy.z, p), a3 = gate<P>(vu.w, vm.w, vx.w, vy.w, p);
+    const float2 a0 = gate(vu.x, vm.x, vx.x, vy.x, p), a1 = gate(vu.y, vm.y, vx.y, vy.y, p);
+    const float2 a2 = gate(vu.z, vm.z, vx.z, vy.z, p), a3 = gate(vu.w, vm.w, vx.w, vy.w, p);
     t[0] = make_float4(a0.x, a1.x, a2.x, a3.x);
     t[kTile] = make_float4(a0.y, a1.y, a2.y, a3.y);
   }
   __syncthreads();
-  canny_adjoint_tail<kCannyRows, kCannyCols, kCannyThreads, P>(
+  canny_adjoint_tail<kCannyRows, kCannyCols, kCannyThreads>(
       sIn, sIn + G::kFloats, sU, g, C, H, W, h0, w0, [&](int r, int s, float4 v) {
         const int h = h0 + r, w = w0 + s;
         if (h >= H || w >= W) return;
-        typename P::T* d = dx + ((size_t)b * C * H + h) * W + w;
+        float* d = dx + ((size_t)b * C * H + h) * W + w;
         for (int c = 0; c < C; ++c, d += (size_t)H * W) store_quad(d, v, vec, W - w);
       });
+}
+
+// ---- K3a/K3b in bfloat16: packed bf16x2 arithmetic on bfloat16 tiles -------
+//
+// JAX's Canny-only kernel computes in the image's dtype: in bfloat16 each
+// product and sum of the blur, the Sobel, the magnitude, the gate and the
+// two adjoints rounds to bfloat16, and so do the division by C, the square
+// root and the reciprocal; only the channel sum is float32, rounded once.
+// A float32 operation on bfloat16 operands rounded once more to bfloat16 is
+// one correct rounding of the exact result (24 >= 2 x 8 + 2 significand
+// bits; tests/test_torch_canny_fused.py holds that on a dense grid), so the
+// correctly rounded bf16x2 instructions give the plain version's bits, two
+// pixels an instruction: mul.rn.bf16x2 and add.rn.bf16x2, never an fma (a
+// contraction would skip a rounding). The division by C, the square root
+// and the reciprocal stay float32 IEEE operations, each pair rounded by one
+// cvt.rn.bf16x2.f32. (Computing each step in float32 and rounding each result
+// on its own costs a conversion and a shift a value, ~92 a pixel in K3a:
+// more time than the bytes.)
+//
+// The tiles hold the bfloat16 planes as loaded, half the bytes of float32
+// tiles. A 32-bit word holds two neighbouring pixels of a row, the left one
+// in the low half. A thread takes a quad, 4 pixels of a row, as two pairs:
+// its 3 x 3 window is 3 words a row, the columns -1, 0, +1 of the first pair
+// being words 0, (0 | 1), 1 and of the second 1, (1 | 2), 2, where (a | b)
+// is a's high pixel with b's low one (a byte permute). A quad that starts on
+// an odd column reads a tile that holds even columns at word boundaries
+// (Tile2, staged from device memory); one that starts on an even column
+// reads a tile that holds odd columns there (Mid2: the summed blur,
+// u_summed), which the odd quads of the stage before write whole words of.
+//
+// At the image's edges no thread takes another path: x is staged with its
+// edge pixels replicated into the halo, and the summed blur's columns off
+// the image are set where the Sobel reads them (replicate_edges); a quad
+// that read pixel by pixel there made its whole warp wait (a third of K3a's
+// time). K3b's folds run only in blocks that touch the plane's border.
+//
+// What bounds them: bytes, 17.53 us each at fast-AT's 256 x 3 x 128 x 128;
+// the arithmetic is ~40 packed operations a pixel and the float32 division,
+// square root and reciprocal of a pair. A block owns 32 x 32 pixels of one
+// image (128 threads, 8 blocks an SM at 64 registers): 16 x 32 tiles spend
+// more of their bytes and blur on the halo, and a block that walked several
+// tiles with the next one's copies in flight was slower than the blocks an
+// SM holds at once. ops/cuda/ee_fused.py mirrors the tile as CANNY_BF16_ROWS
+// and CANNY_BF16_COLS.
+constexpr int kCannyBf16Rows = 32;
+constexpr int kCannyBf16Cols = 32;
+constexpr int kCannyBf16Threads = 128;
+constexpr int kCannyBf16MinBlocks = 8;
+
+__device__ __forceinline__ unsigned mul2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// v, a bfloat16 value held as float32, in both halves.
+__device__ __forceinline__ unsigned splat2(float v) {
+  const unsigned h = __float_as_uint(v) >> 16;
+  return h | (h << 16);
+}
+
+// a's halves where m is set, b's elsewhere.
+__device__ __forceinline__ unsigned pick2(unsigned m, unsigned a, unsigned b) {
+  return (a & m) | (b & ~m);
+}
+
+// The halves of the pair at columns w, w + 1 that lie at column `col`.
+__device__ __forceinline__ unsigned halves_at(int w, int col) {
+  return (w == col ? 0xffffu : 0u) | (w + 1 == col ? 0xffff0000u : 0u);
+}
+
+// f on each half of the pair v in float32, both results rounded at once.
+template <class Fn>
+__device__ __forceinline__ unsigned each2(unsigned v, Fn f) {
+  return pack_bf16(f(bf16_lo(v)), f(bf16_hi(v)));
+}
+
+// k times the pair a, rounded: a Gaussian tap as a splat word, or a Sobel
+// tap as a float the compiler knows (+-1 are exact: a, -a).
+__device__ __forceinline__ unsigned tap2(unsigned k, unsigned a) { return mul2(k, a); }
+__device__ __forceinline__ unsigned tap2(float k, unsigned a) {
+  if (k == 1.f) return a;
+  if (k == -1.f) return a ^ 0x80008000u;
+  return mul2(splat2(k), a);
+}
+
+// Whether a tap is skipped: the Sobel's zeros; every Gaussian tap is taken.
+__device__ __forceinline__ bool zero_tap(unsigned) { return false; }
+__device__ __forceinline__ bool zero_tap(float k) { return k == 0.f; }
+
+// tap_sum on a pair: k's taps row-major, each product and sum rounded.
+template <class K, class A>
+__device__ __forceinline__ unsigned tap_sum2(A a, const K (&k)[9]) {
+  unsigned acc = 0u;
+  bool first = true;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    if (zero_tap(k[t])) continue;
+    const unsigned v = tap2(k[t], a(t / 3 - 1, t % 3 - 1));
+    acc = first ? v : add2(acc, v);
+    first = false;
+  }
+  return acc;
+}
+
+// The adjoint of the edge-replicated 3x3 stencil k on a pair, as JAX
+// computes it tap by tap (_apply_taps_adjoint): for each tap t (row-major),
+// the cotangent a (zeros off the plane) moved back by the tap's offset
+// (dh, dw), rows first, the border row (column) adding the read that the
+// clamp folded onto it; k[t] times that, rounded; the terms summed in tap
+// order, each sum rounded. top and bottom: the pair's row is the plane's
+// first or last; left and right: the halves at its first or last column.
+template <class K, class A>
+__device__ __forceinline__ unsigned adjoint_taps2(A a, const K (&k)[9], bool top, bool bottom,
+                                                  unsigned left, unsigned right) {
+  unsigned acc = 0u;
+  bool first = true;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    if (zero_tap(k[t])) continue;
+    const int dh = t / 3 - 1, dw = t % 3 - 1;
+    const bool fold_row = (dh == 1 && bottom) || (dh == -1 && top);
+    auto rows = [&](int j) {
+      const unsigned v = a(-dh, j);
+      return fold_row ? add2(v, a(0, j)) : v;
+    };
+    unsigned v = rows(-dw);
+    const unsigned m = dw == 1 ? right : dw == -1 ? left : 0u;
+    if (m) v = pick2(m, add2(v, rows(0)), v);
+    const unsigned term = tap2(k[t], v);
+    acc = first ? term : add2(acc, term);
+    first = false;
+  }
+  return acc;
+}
+
+// A bfloat16 tile of one plane: rows [h0 - HALO, h0 + ROWS + HALO) and
+// columns [w0 - 8, w0 + COLS + 8), pixel (h0 + r, w0 + s) at at(r, s); even
+// columns on word boundaries, rows and 8-column units on 16 bytes.
+// ops/cuda/ee_fused.py sizes shared memory by this layout (TILE2_PAD).
+template <int ROWS, int COLS, int HALO>
+struct Tile2 {
+  static_assert(COLS % 8 == 0 && HALO <= 2, "tile");
+  static constexpr int kHalo = HALO;
+  static constexpr int kRows = ROWS + 2 * HALO;
+  static constexpr int kLd = COLS + 16;
+  static constexpr int kElems = kRows * kLd;
+  __host__ __device__ static constexpr int at(int r, int s) {
+    return (r + HALO) * kLd + s + 8;
+  }
+};
+
+// A bfloat16 tile of rows [h0 - 1, h0 + ROWS + 1) and columns
+// [w0 - 1, w0 + COLS + 3): odd columns on word boundaries, an odd quad's
+// two words on 8 bytes (MID2_PAD in ops/cuda/ee_fused.py).
+template <int ROWS, int COLS>
+struct Mid2 {
+  static_assert(COLS % 4 == 0, "tile");
+  static constexpr int kRows = ROWS + 2;
+  static constexpr int kLd = COLS + 4;
+  static constexpr int kElems = kRows * kLd;
+  __host__ __device__ static constexpr int at(int r, int s) { return (r + 1) * kLd + s + 1; }
+};
+
+// Stages n bfloat16 planes (plane(i) points at plane i's pixel (0, 0), rows
+// W apart) into n consecutive tiles T (Tile2) at dst; a read off the plane
+// takes the nearest edge pixel (REPLICATE) or zero. Unit e is 8 columns of
+// one row. Where `vec` holds (W % 8 == 0 and the planes start on 16 bytes),
+// a unit lies in the plane's columns or off them: in them, one 16-byte
+// cp.async a plane (from the nearest edge row, or zeros stored without
+// REPLICATE); off them, the nearest edge pixel loaded once and stored 8
+// times, or zeros. Else every unit is loaded by the thread pixel by pixel.
+// Stores are 16 bytes. A thread that has waited for its own copies may read
+// its own units before any barrier.
+template <class T, int THREADS, bool REPLICATE, class Plane>
+__device__ __forceinline__ void stage_tile2(bf16* dst, int n, Plane plane, int H, int W,
+                                            int h0, int w0, bool vec) {
+  constexpr int kUnitsPerRow = T::kLd / 8;
+  for (int e = threadIdx.x; e < T::kElems / 8; e += THREADS) {
+    const int h = h0 - T::kHalo + e / kUnitsPerRow, w = w0 - 8 + 8 * (e % kUnitsPerRow);
+    bf16* d = dst + 8 * e;
+    const bool row_in = h >= 0 && h < H;
+    if (vec) {
+      const size_t row = (size_t)clampi(h, 0, H - 1) * W;
+      if (!REPLICATE && !row_in) {
+        for (int i = 0; i < n; ++i) *reinterpret_cast<uint4*>(d + i * T::kElems) = uint4{};
+      } else if (w >= 0 && w + 8 <= W) {
+        for (int i = 0; i < n; ++i) cp_async16(d + i * T::kElems, plane(i) + row + w);
+      } else {
+        const size_t q = row + (w < 0 ? 0 : W - 1);
+        for (int i = 0; i < n; ++i) {
+          const unsigned v =
+              REPLICATE ? 0x10001u * __ldg(reinterpret_cast<const unsigned short*>(plane(i)) + q)
+                        : 0u;
+          *reinterpret_cast<uint4*>(d + i * T::kElems) = make_uint4(v, v, v, v);
+        }
+      }
+      continue;
+    }
+    const size_t row = (size_t)clampi(h, 0, H - 1) * W;
+    for (int i = 0; i < n; ++i) {
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(plane(i)) + row;
+      unsigned v[4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = w + j;
+        const bool in = row_in && c >= 0 && c < W;
+        const unsigned b = (!REPLICATE && !in) ? 0u : __ldg(src + clampi(c, 0, W - 1));
+        v[j / 2] = (j & 1) ? v[j / 2] | (b << 16) : b;
+      }
+      *reinterpret_cast<uint4*>(d + i * T::kElems) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The window of the quad (r, s .. s + 3) in tile T: w[i][k] the word whose
+// low pixel is (r + i - 1, s - 1 + 2 k).
+template <class T>
+__device__ __forceinline__ void window2(const bf16* tile, int r, int s, unsigned (&w)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      w[i][k] = *reinterpret_cast<const unsigned*>(tile + T::at(r + i - 1, s - 1 + 2 * k));
+}
+
+// Column w - 1 + c of a quad's window (the quad's first pixel at image
+// column w) set to the value of column w - 2 + c: its nearest edge column
+// where that is column -1 (c = 0) or W (the summed blur's edge
+// replication, set here rather than where the blur computes it).
+__device__ __forceinline__ void replicate_edges(unsigned (&win)[3][3], int w, int W) {
+  const int right = W - w + 1;  // the window column of image column W
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (k == 0 && w == 0) win[i][0] = __byte_perm(win[i][0], 0, 0x3232);
+      if (right == 2 * k + 1) win[i][k] = __byte_perm(win[i][k], 0, 0x1010);
+      if (k > 0 && right == 2 * k)
+        win[i][k] = __byte_perm(win[i][k - 1], win[i][k], 0x7632);
+    }
+}
+
+// fn(r, s, win) for each even quad of pixels (r, s .. s + 3) of the tile,
+// in the image or not, win its window in tile T (Mid2).
+template <class T, class Fn>
+__device__ __forceinline__ void for_each_quad2(const bf16* tile, Fn fn) {
+  constexpr int kQuads = kCannyBf16Cols / 4;
+  for (int e = threadIdx.x; e < kCannyBf16Rows * kQuads; e += kCannyBf16Threads) {
+    const int r = e / kQuads, s = 4 * (e % kQuads);
+    unsigned win[3][3];
+    window2<T>(tile, r, s, win);
+    fn(r, s, win);
+  }
+}
+
+// Pair q (0 or 1) of a quad read at offset (di, dj) from its window.
+__device__ __forceinline__ unsigned pair_at(const unsigned (&w)[3][3], int q, int di, int dj) {
+  const unsigned* row = w[di + 1];
+  return dj == 0 ? __byte_perm(row[q], row[q + 1], 0x5432) : row[q + (dj + 1) / 2];
+}
+
+// v's 4 pixels (two pairs) to p[0 .. 3]: 8 bytes at once when `vec`, else
+// the first n one by one.
+__device__ __forceinline__ void store_pairs(bf16* p, uint2 v, bool vec, int n) {
+  if (vec) {
+    *reinterpret_cast<uint2*>(p) = v;
+    return;
+  }
+  unsigned short* q = reinterpret_cast<unsigned short*>(p);
+  const unsigned short a[4] = {(unsigned short)v.x, (unsigned short)(v.x >> 16),
+                               (unsigned short)v.y, (unsigned short)(v.y >> 16)};
+  for (int j = 0; j < n && j < 4; ++j) q[j] = a[j];
+}
+
+// The Gaussian taps, rounded to bfloat16 by the wrapper, as splat words.
+__device__ __forceinline__ void load_taps2(const float* __restrict__ gtaps, unsigned (&g)[9]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) g[i] = splat2(__ldg(gtaps + i));
+}
+
+// K3a in bfloat16: out (the edge map), mag, gx, gy, each (B, 1, H, W). x
+// staged with a 2-pixel edge-replicated halo (Tile2); the summed blur (Mid2,
+// a 1-pixel halo holding the nearest edge pixel's value: the Sobel's edge
+// replication) by odd quads, each channel blurred in packed bf16 and the
+// channels summed in float32, rounded once; then Sobel / C, the zero-safe
+// magnitude and the edge map by even quads.
+__global__ void __launch_bounds__(kCannyBf16Threads, kCannyBf16MinBlocks)
+canny_fwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gtaps,
+                      bf16* __restrict__ out, bf16* __restrict__ mag, bf16* __restrict__ gx,
+                      bf16* __restrict__ gy, Params p) {
+  using X = Tile2<kCannyBf16Rows, kCannyBf16Cols, 2>;
+  using S = Mid2<kCannyBf16Rows, kCannyBf16Cols>;
+  extern __shared__ uint4 smem16[];
+  const int C = p.C, H = p.H, W = p.W, b = blockIdx.z;
+  const int h0 = blockIdx.y * kCannyBf16Rows, w0 = blockIdx.x * kCannyBf16Cols;
+  bf16* sX = reinterpret_cast<bf16*>(smem16);
+  bf16* sS = sX + C * X::kElems;
+  unsigned g[9];
+  load_taps2(gtaps, g);
+  const size_t plane = (size_t)b * H * W;
+  const bf16* xb = x + plane * C;
+  stage_tile2<X, kCannyBf16Threads, true>(
+      sX, C, [&](int c) { return xb + (size_t)c * H * W; }, H, W, h0, w0,
+      W % 8 == 0 && aligned16(x));
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // the summed blur at S's rows -1 .. ROWS and the quads from column -1; off
+  // the image a row is its nearest edge row; a column off the image is set
+  // to its nearest edge column's value where the Sobel reads it
+  constexpr int kQuads = kCannyBf16Cols / 4 + 1;
+  for (int e = threadIdx.x; e < (kCannyBf16Rows + 2) * kQuads; e += kCannyBf16Threads) {
+    const int r = e / kQuads - 1, s = 4 * (e % kQuads) - 1;
+    const int hr = clampi(h0 + r, 0, H - 1) - h0;
+    float sum[4];
+    for (int c = 0; c < C; ++c) {
+      unsigned win[3][3];
+      window2<X>(sX + c * X::kElems, hr, s, win);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        // channel c's blur of pair q, summed in float32
+        const unsigned v = tap_sum2([&](int di, int dj) { return pair_at(win, q, di, dj); }, g);
+        sum[2 * q] = c == 0 ? bf16_lo(v) : __fadd_rn(sum[2 * q], bf16_lo(v));
+        sum[2 * q + 1] = c == 0 ? bf16_hi(v) : __fadd_rn(sum[2 * q + 1], bf16_hi(v));
+      }
+    }
+    *reinterpret_cast<uint2*>(sS + S::at(r, s)) =
+        make_uint2(pack_bf16(sum[0], sum[1]), pack_bf16(sum[2], sum[3]));
+  }
+  __syncthreads();
+  float kx[9], ky[9];
+  sobel_taps(kx, ky);
+  const float cf = (float)C;
+  const bool quads = W % 4 == 0;  // the outputs are the wrapper's own tensors
+  for_each_quad2<S>(sS, [&](int r, int s, unsigned (&win)[3][3]) {
+    const int h = h0 + r, w = w0 + s;
+    replicate_edges(win, w, W);
+    unsigned vx[2], vy[2], vm[2], ve[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      auto a = [&](int di, int dj) { return pair_at(win, q, di, dj); };
+      // as in sobel_mag_tile: zero operands kept off the slow paths
+      auto over_c = [&](float v) { return v == 0.f ? v : __fdiv_rn(v == 0.f ? 1.f : v, cf); };
+      vx[q] = each2(tap_sum2(a, kx), over_c);
+      vy[q] = each2(tap_sum2(a, ky), over_c);
+      vm[q] = each2(add2(mul2(vx[q], vx[q]), mul2(vy[q], vy[q])), [](float v) {
+        return v == 0.f ? 0.f : __fsqrt_rn(v == 0.f ? 1.f : v);
+      });
+      ve[q] = (edge_of(bf16_lo(vm[q]), p) != 0.f ? 0x3f80u : 0u) |
+              (edge_of(bf16_hi(vm[q]), p) != 0.f ? 0x3f800000u : 0u);
+    }
+    if (h >= H || w >= W) return;
+    const size_t at = plane + (size_t)h * W + w;
+    store_pairs(out + at, make_uint2(ve[0], ve[1]), quads, W - w);
+    store_pairs(mag + at, make_uint2(vm[0], vm[1]), quads, W - w);
+    store_pairs(gx + at, make_uint2(vx[0], vx[1]), quads, W - w);
+    store_pairs(gy + at, make_uint2(vy[0], vy[1]), quads, W - w);
+  });
+}
+
+// The gate on a pair (gate, in packed bf16): (u_gx, u_gy).
+__device__ __forceinline__ uint2 gate2(unsigned u, unsigned mag, unsigned gx, unsigned gy,
+                                       const Params& p) {
+  const unsigned keep = (gate_keeps(bf16_lo(mag), p) ? 0xffffu : 0u) |
+                        (gate_keeps(bf16_hi(mag), p) ? 0xffff0000u : 0u);
+  const unsigned u_mag = u & keep;
+  const unsigned inv = each2(mag, [](float m) { return inv_mag(m); });
+  return make_uint2(mul2(mul2(u_mag, gx), inv), mul2(mul2(u_mag, gy), inv));
+}
+
+// adjoint_taps2 of k on pair q of a quad's window, the pair's first pixel at
+// (h, w), with the folds of the plane's border where EDGE (a block that
+// touches the border) and none elsewhere.
+template <bool EDGE, class K>
+__device__ __forceinline__ unsigned adjoint_pair(const unsigned (&win)[3][3], int q,
+                                                 const K (&k)[9], int h, int w, int H, int W) {
+  return adjoint_taps2([&](int di, int dj) { return pair_at(win, q, di, dj); }, k,
+                       EDGE && h == 0, EDGE && h == H - 1, EDGE ? halves_at(w, 0) : 0u,
+                       EDGE ? halves_at(w, W - 1) : 0u);
+}
+
+// K3b in bfloat16: dx (B, C, H, W), the same plane in every channel. u, mag,
+// gx, gy staged with a 2-pixel zero halo (Tile2) and gated in place (u's
+// tile becomes u_gx, mag's u_gy); u_summed = (Sobel-x^T u_gx + Sobel-y^T
+// u_gy) / C by odd quads into Mid2 (zeros off the plane); the blur's adjoint
+// of u_summed by even quads, written to every channel. A block that touches
+// no border of the plane runs the adjoints without their folds; the Gaussian
+// taps are loaded for the last stage only, out of the Sobel adjoints'
+// registers.
+__global__ void __launch_bounds__(kCannyBf16Threads, kCannyBf16MinBlocks)
+canny_bwd_bf16_kernel(const bf16* __restrict__ u, const bf16* __restrict__ mag,
+                      const bf16* __restrict__ gx, const bf16* __restrict__ gy,
+                      const float* __restrict__ gtaps, bf16* __restrict__ dx, Params p) {
+  using G = Tile2<kCannyBf16Rows, kCannyBf16Cols, 2>;
+  using U = Mid2<kCannyBf16Rows, kCannyBf16Cols>;
+  extern __shared__ uint4 smem16[];
+  const int C = p.C, H = p.H, W = p.W, b = blockIdx.z;
+  const int h0 = blockIdx.y * kCannyBf16Rows, w0 = blockIdx.x * kCannyBf16Cols;
+  // u, mag, gx, gy; the gate turns u's tile into u_gx and mag's into u_gy
+  bf16* sIn = reinterpret_cast<bf16*>(smem16);
+  bf16* sU = sIn + 4 * G::kElems;
+  const size_t plane = (size_t)b * H * W;
+  stage_tile2<G, kCannyBf16Threads, false>(
+      sIn, 4,
+      [&](int i) { return (i == 0 ? u : i == 1 ? mag : i == 2 ? gx : gy) + plane; }, H, W,
+      h0, w0,
+      W % 8 == 0 && aligned16(u) && aligned16(mag) && aligned16(gx) && aligned16(gy));
+  cp_async_commit();
+  cp_async_wait_all();
+  // the gate on this thread's own units, in place
+  constexpr int kTile = G::kElems / 8;
+  for (int e = threadIdx.x; e < kTile; e += kCannyBf16Threads) {
+    uint4* t = reinterpret_cast<uint4*>(sIn) + e;
+    const uint4 vu = t[0], vm = t[kTile], vx = t[2 * kTile], vy = t[3 * kTile];
+    const uint2 a0 = gate2(vu.x, vm.x, vx.x, vy.x, p), a1 = gate2(vu.y, vm.y, vx.y, vy.y, p);
+    const uint2 a2 = gate2(vu.z, vm.z, vx.z, vy.z, p), a3 = gate2(vu.w, vm.w, vx.w, vy.w, p);
+    t[0] = make_uint4(a0.x, a1.x, a2.x, a3.x);
+    t[kTile] = make_uint4(a0.y, a1.y, a2.y, a3.y);
+  }
+  __syncthreads();
+  const float cf = (float)C;
+  auto adjoints = [&](auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    float sx[9], sy[9];
+    sobel_taps(sx, sy);
+    // u_summed at U's rows -1 .. ROWS and the quads from column -1
+    constexpr int kQuads = kCannyBf16Cols / 4 + 1;
+    for (int e = threadIdx.x; e < (kCannyBf16Rows + 2) * kQuads; e += kCannyBf16Threads) {
+      const int r = e / kQuads - 1, s = 4 * (e % kQuads) - 1, h = h0 + r;
+      uint2 v = make_uint2(0u, 0u);
+      if (h >= 0 && h < H) {
+        unsigned wx[3][3], wy[3][3];
+        window2<G>(sIn, r, s, wx);
+        window2<G>(sIn + G::kElems, r, s, wy);
+        unsigned o[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int w = w0 + s + 2 * q;
+          const unsigned sum = add2(adjoint_pair<kEdge>(wx, q, sx, h, w, H, W),
+                                    adjoint_pair<kEdge>(wy, q, sy, h, w, H, W));
+          const unsigned in = (w >= 0 && w < W ? 0xffffu : 0u) |
+                              (w + 1 >= 0 && w + 1 < W ? 0xffff0000u : 0u);
+          o[q] = in & each2(sum, [&](float v) {
+                   return v == 0.f ? v : __fdiv_rn(v == 0.f ? 1.f : v, cf);
+                 });
+        }
+        v = make_uint2(o[0], o[1]);
+      }
+      *reinterpret_cast<uint2*>(sU + U::at(r, s)) = v;
+    }
+    __syncthreads();
+    unsigned g[9];
+    load_taps2(gtaps, g);
+    const bool quads = W % 4 == 0;  // dx is the wrapper's own tensor
+    for_each_quad2<U>(sU, [&](int r, int s, const unsigned (&win)[3][3]) {
+      const int h = h0 + r, w = w0 + s;
+      const uint2 o = make_uint2(adjoint_pair<kEdge>(win, 0, g, h, w, H, W),
+                                 adjoint_pair<kEdge>(win, 1, g, h, w + 2, H, W));
+      if (h >= H || w >= W) return;
+      bf16* d = dx + ((size_t)b * C * H + h) * W + w;
+      for (int c = 0; c < C; ++c, d += (size_t)H * W) store_pairs(d, o, quads, W - w);
+    });
+  };
+  // the folds reach u_summed's rows and columns -1 .. ROWS (COLS + 2)
+  if (h0 == 0 || h0 + kCannyBf16Rows + 1 >= H || w0 == 0 || w0 + kCannyBf16Cols + 3 >= W)
+    adjoints(std::true_type{});
+  else
+    adjoints(std::false_type{});
 }
 
 constexpr int kMaxDevices = 64;
@@ -1928,7 +2344,7 @@ int canny_fused_fwd(const float* x, const float* gtaps, float* out, float* mag,
                     float* gx, float* gy, int B, int C, int H, int W,
                     float alpha, float high, int tiles_w, int tiles_h,
                     size_t smem_bytes, void* stream) {
-  return launch(canny_fwd_kernel<F32>, g_canny_fwd_smem, dim3(tiles_w, tiles_h, B),
+  return launch(canny_fwd_kernel, g_canny_fwd_smem, dim3(tiles_w, tiles_h, B),
                 kCannyThreads, smem_bytes, stream, x, gtaps, out, mag, gx, gy,
                 Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }
@@ -1937,7 +2353,7 @@ int canny_fused_bwd(const float* u, const float* mag, const float* gx,
                     const float* gy, const float* gtaps, float* dx, int B,
                     int C, int H, int W, float alpha, float high, int tiles_w,
                     int tiles_h, size_t smem_bytes, void* stream) {
-  return launch(canny_bwd_kernel<F32>, g_canny_bwd_smem, dim3(tiles_w, tiles_h, B),
+  return launch(canny_bwd_kernel, g_canny_bwd_smem, dim3(tiles_w, tiles_h, B),
                 kCannyThreads, smem_bytes, stream, u, mag, gx, gy, gtaps, dx,
                 Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }
@@ -1949,8 +2365,8 @@ int canny_fused_fwd_bf16(const void* x, const float* gtaps, void* out, void* mag
                          float alpha, float high, int tiles_w, int tiles_h,
                          size_t smem_bytes, void* stream) {
   auto o = [](void* t) { return static_cast<bf16*>(t); };
-  return launch(canny_fwd_kernel<BF16Narrow>, g_canny_fwd_bf16_smem,
-                dim3(tiles_w, tiles_h, B), kCannyThreads, smem_bytes, stream,
+  return launch(canny_fwd_bf16_kernel, g_canny_fwd_bf16_smem,
+                dim3(tiles_w, tiles_h, B), kCannyBf16Threads, smem_bytes, stream,
                 static_cast<const bf16*>(x), gtaps, o(out), o(mag), o(gx), o(gy),
                 Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }
@@ -1960,8 +2376,8 @@ int canny_fused_bwd_bf16(const void* u, const void* mag, const void* gx,
                          int C, int H, int W, float alpha, float high, int tiles_w,
                          int tiles_h, size_t smem_bytes, void* stream) {
   auto in = [](const void* t) { return static_cast<const bf16*>(t); };
-  return launch(canny_bwd_kernel<BF16Narrow>, g_canny_bwd_bf16_smem,
-                dim3(tiles_w, tiles_h, B), kCannyThreads, smem_bytes, stream, in(u),
+  return launch(canny_bwd_bf16_kernel, g_canny_bwd_bf16_smem,
+                dim3(tiles_w, tiles_h, B), kCannyBf16Threads, smem_bytes, stream, in(u),
                 in(mag), in(gx), in(gy), gtaps, static_cast<bf16*>(dx),
                 Params{B, C, H, W, 0.f, 0.f, alpha, high, 0});
 }

@@ -11,9 +11,11 @@ a failed compile raises: there is no fallback for a CUDA tensor.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -92,3 +94,33 @@ def sass(path: str) -> str:
     """The SASS of a built library, as cuobjdump --dump-sass prints it."""
     return subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", path],
                           capture_output=True, text=True, check=True).stdout
+
+
+# SASS instruction classes: the conversions that round to bfloat16 (F2FP),
+# the FP32 pipe's products and sums, packed bf16x2 arithmetic (HFMA2.MMA is
+# the form that issues to the second pipe), shared-memory loads and stores,
+# byte permutes, the special-function unit
+SASS_CLASSES = {
+    "F2FP": r"F2FP\.\S*", "FMUL/FADD/FFMA": r"F(?:MUL|ADD|FMA)(?:\.\S*)?",
+    "bf16x2": r"H(?:ADD|MUL|FMA)2(?:\.MMA)?\.BF16\S*", "LDS": r"LDS(?:\.\S*)?",
+    "STS": r"STS(?:\.\S*)?", "PRMT": r"PRMT", "MUFU": r"MUFU\.\S*",
+}
+
+
+def sass_counts(sass_text: str, pattern: str = "canny") -> dict:
+    """{kernel: {class: count, "all": instructions}} of the kernels in
+    `sass_text` (as `sass` prints it) whose mangled names hold `pattern`:
+    static counts, each instruction of the code once."""
+    out = {}
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass_text,
+                                 re.S):
+        if pattern not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", body)
+        counts = collections.Counter()
+        for op in ops:
+            for cls, rx in SASS_CLASSES.items():
+                if re.fullmatch(rx, op):
+                    counts[cls] += 1
+        out[name] = {"all": len(ops), **{c: counts[c] for c in SASS_CLASSES}}
+    return out

@@ -26,7 +26,9 @@ draws come in x's dtype too; the bfloat16 forms run their HFS products on
 the tensor cores, with their own block geometry, mma_geometry). K3a/K3b
 take float32 or bfloat16 too: JAX's Canny-only kernel computes in the
 image's dtype, and its bfloat16 form rounds every step but the channel
-sum, where K1's keeps the division and the magnitude in float32. On a CPU
+sum, where K1's keeps the division and the magnitude in float32 (the
+bfloat16 K3a/K3b compute on pixel pairs in packed bf16x2 instructions, on
+bfloat16 tiles of their own size: canny_geometry takes the dtype). On a CPU
 tensor the wrappers run the plain versions; on a CUDA tensor they launch
 the kernel or raise, and never convert a tensor to reach another form.
 The plain versions are also the oracle of the tests and of chip_smoke.py.
@@ -80,6 +82,13 @@ MMA_STAGE_BYTES = 2 * 2 * MMA_CHUNK * (MMA_PANEL + MMA_PAD)
 CANNY_ROWS, CANNY_COLS = 16, 32
 # csrc/ee_fused.cu's Tile<ROWS, COLS, HALO>: rows +- HALO, columns +- TILE_PAD
 TILE_PAD = 4
+# The bfloat16 K3a/K3b's own tile, CANNY_BF16_ROWS x CANNY_BF16_COLS pixels
+# (csrc/ee_fused.cu's kCannyBf16Rows and kCannyBf16Cols), and their tiles in
+# shared memory: Tile2<ROWS, COLS, HALO>, rows +- HALO and columns
+# +- TILE2_PAD; Mid2<ROWS, COLS>, rows +- 1 and COLS + MID2_PAD columns (the
+# CPU test reads all four from the source)
+CANNY_BF16_ROWS, CANNY_BF16_COLS = 32, 32
+TILE2_PAD, MID2_PAD = 8, 4
 
 
 def _tile_floats(rows: int, cols: int, halo: int) -> int:
@@ -654,11 +663,12 @@ def ee_fused(x, stripes, sq_delta, k: FusedConsts):
 @dataclasses.dataclass(frozen=True)
 class CannyGeometry:
     """Where K3a/K3b put a (C, H, W) problem: tiles_h x tiles_w tiles of
-    CANNY_ROWS x CANNY_COLS pixels per image, tile (i, j) owning rows from
-    i * CANNY_ROWS and columns from j * CANNY_COLS; the dynamic shared memory
-    of a K3a block (C x tiles and the summed blur's) and of a K3b block (u,
-    mag, gx, gy and u_summed, whatever C); and the most channels a K3a block
-    holds, above which both wrappers refuse."""
+    rows x cols pixels per image (CANNY_ROWS x CANNY_COLS in float32,
+    CANNY_BF16_ROWS x CANNY_BF16_COLS in bfloat16), one block each, tile
+    (i, j) owning rows from i * rows and columns from j * cols; the dynamic
+    shared memory of a K3a block (C x tiles and the summed blur's) and of a
+    K3b block (u, mag, gx, gy and u_summed, whatever C); and the most
+    channels a K3a block holds, above which both wrappers refuse."""
     tiles_h: int
     tiles_w: int
     fwd_smem_bytes: int
@@ -667,14 +677,22 @@ class CannyGeometry:
 
 
 @functools.lru_cache(maxsize=None)
-def canny_geometry(c: int, h: int, w: int) -> CannyGeometry:
-    """K3a's and K3b's grid and shared memory for C channels of H x W."""
-    x_tile = _tile_floats(CANNY_ROWS, CANNY_COLS, 2)   # x; K3b's u, mag, gx, gy
-    s_tile = _tile_floats(CANNY_ROWS, CANNY_COLS, 1)   # summed blur; u_summed
-    return CannyGeometry(tiles_h=-(-h // CANNY_ROWS), tiles_w=-(-w // CANNY_COLS),
-                         fwd_smem_bytes=4 * (c * x_tile + s_tile),
-                         bwd_smem_bytes=4 * (4 * x_tile + s_tile),
-                         max_channels=(MAX_SMEM_BYTES // 4 - s_tile) // x_tile)
+def canny_geometry(c: int, h: int, w: int, dtype=torch.float32) -> CannyGeometry:
+    """K3a's and K3b's grid and shared memory for C channels of H x W in
+    `dtype`. Bytes of a tile: x's and K3b's u, mag, gx, gy; the summed
+    blur's and u_summed's."""
+    if dtype == torch.bfloat16:
+        rows, cols = CANNY_BF16_ROWS, CANNY_BF16_COLS
+        x_tile = 2 * (rows + 4) * (cols + 2 * TILE2_PAD)
+        s_tile = 2 * (rows + 2) * (cols + MID2_PAD)
+    else:
+        rows, cols = CANNY_ROWS, CANNY_COLS
+        x_tile = 4 * _tile_floats(rows, cols, 2)
+        s_tile = 4 * _tile_floats(rows, cols, 1)
+    return CannyGeometry(tiles_h=-(-h // rows), tiles_w=-(-w // cols),
+                         fwd_smem_bytes=c * x_tile + s_tile,
+                         bwd_smem_bytes=4 * x_tile + s_tile,
+                         max_channels=(MAX_SMEM_BYTES - s_tile) // x_tile)
 
 
 def _check_canny(x, *planes) -> CannyGeometry:
@@ -687,7 +705,7 @@ def _check_canny(x, *planes) -> CannyGeometry:
         raise ValueError("x and dx must be contiguous (B, C, H, W) float32 or bfloat16 "
                          f"tensors (got {x.dtype}, shape {tuple(x.shape)})")
     b, c, h, w = x.shape
-    geo = canny_geometry(c, h, w)
+    geo = canny_geometry(c, h, w, x.dtype)
     if c > geo.max_channels:
         raise ValueError(f"{c} channels need {geo.fwd_smem_bytes} bytes of shared memory "
                          f"per block, above {MAX_SMEM_BYTES}: the Canny kernels take at "

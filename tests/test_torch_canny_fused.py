@@ -125,3 +125,106 @@ def test_gf_train_step_matches_jax(monkeypatch):
         monkeypatch, ee_args=dict(helpers.EE_ARGS, gf=True))
     assert port[2].ee.with_gf
     helpers.assert_train_steps_agree(port, jax_side)
+
+
+# ---- the rounding premise of the bfloat16 K3a/K3b --------------------------
+# The plain bfloat16 version computes each step in float32 and rounds the
+# result to bfloat16; the kernels round once, in packed bf16x2 instructions
+# (products and sums) or by one conversion of a float32 IEEE result (the
+# division by C, the square root). Both give the same bits because a float32
+# operation on bfloat16 operands, rounded to bfloat16, is one correct
+# rounding of the exact result (24 >= 2 x 8 + 2 significand bits). Checked on
+# every finite bfloat16 against 40 operands (or every C up to the kernels'
+# 66 channels): the exact result computed in float64 and rounded in numpy,
+# or bracketed between the neighbouring rounding boundaries by comparisons
+# that float64 makes exactly.
+
+def _finite_bf16():
+    """Every finite bfloat16 value, as float64."""
+    bits = torch.arange(0, 1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    v = bits.double().numpy()
+    return v[np.isfinite(v)]
+
+
+def _ulp_above(r):
+    """The bfloat16 spacing above |r| (2^-133 below the normal range)."""
+    _, e = np.frexp(np.abs(r))
+    return np.ldexp(1.0, np.maximum(e, -125) - 8)
+
+
+def _rne_bf16(v, sticky=None):
+    """v (float64) rounded to the nearest bfloat16, ties to even, without
+    passing through float32; `sticky`'s sign says on which side of v the
+    exact value lies where v itself is not exact."""
+    q = _ulp_above(v)
+    t = v / q                                    # exact: a power of two
+    r = np.round(t)                              # ties to even
+    if sticky is not None:
+        tie = t - np.floor(t) == 0.5
+        r = np.where(tie & (sticky > 0), np.floor(t) + 1, r)
+        r = np.where(tie & (sticky < 0), np.floor(t), r)
+    out = r * q
+    return np.where(np.abs(out) >= 2.0 ** 128, np.copysign(np.inf, v), out)
+
+
+def _via_float32(f32):
+    """A float32 result rounded to bfloat16 as the plain version rounds it."""
+    return torch.from_numpy(np.ascontiguousarray(f32)).to(torch.bfloat16).double().numpy()
+
+
+def _bracketed(r, compare):
+    """Whether r (bfloat16 values >= 0) is the nearest-even rounding of the
+    exact x >= 0 that compare(m) sets against each boundary m (sign of
+    x - m, computed exactly)."""
+    q_hi = _ulp_above(r)
+    m, e = np.frexp(r)
+    q_lo = np.where((m == 0.5) & (e >= -124), q_hi / 2, q_hi)
+    even = (torch.from_numpy(r).to(torch.bfloat16).view(torch.int16).numpy() & 1) == 0
+    below = np.where(r == 0, 1, compare(r - q_lo / 2))   # x >= 0: nothing rounds below 0
+    above = compare(r + q_hi / 2)
+    return ((below > 0) | ((below == 0) & even)) & ((above < 0) | ((above == 0) & even))
+
+
+def _operands():
+    """40 bfloat16 operands: the Sobel's and the Gaussian's taps, signs,
+    the subnormal and normal extremes, and random bit patterns."""
+    rng = np.random.default_rng(7)
+    taps = [float(t) for t in tfused.gaussian_taps(1.0, "cpu", torch.bfloat16)[:2]]
+    special = [1.0, -1.0, 0.5, -0.5, 2.0 ** -133, 2.0 ** -126, -3.3895313892515355e38] + taps
+    bits = rng.integers(0, 1 << 16, 64).astype(np.int16)
+    rand = torch.from_numpy(bits).view(torch.bfloat16).double().numpy()
+    rand = rand[np.isfinite(rand)][:40 - len(special)]
+    return np.concatenate([special, rand])
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "div", "sqrt"])
+def test_bfloat16_steps_round_once(op):
+    """A float32 x, +, / C or sqrt of bfloat16 operands, rounded to
+    bfloat16, is the exact result rounded once to nearest-even."""
+    a = _finite_bf16()
+    a32 = a.astype(np.float32)                   # exact: bfloat16 values
+    checked = 0
+    with np.errstate(over="ignore", invalid="ignore"):
+        if op in ("mul", "add"):
+            for b in _operands():
+                got = _via_float32(a32 * np.float32(b) if op == "mul" else a32 + np.float32(b))
+                if op == "mul":
+                    want = _rne_bf16(a * b)      # exact: 16 significand bits
+                else:
+                    s = a + b                    # TwoSum: s + err is exact
+                    bb = s - a
+                    want = _rne_bf16(s, (a - (s - bb)) + (b - bb))
+                np.testing.assert_array_equal(got, want)
+                assert np.array_equal(np.signbit(got), np.signbit(want))
+                checked += a.size
+        elif op == "div":
+            for c in range(1, 67):
+                got = np.abs(_via_float32(a32 / np.float32(c)))
+                assert _bracketed(got, lambda m: np.sign(np.abs(a) - c * m)).all(), c
+                checked += a.size
+        else:
+            x = a[a >= 0]
+            got = _via_float32(np.sqrt(x.astype(np.float32)))
+            assert _bracketed(got, lambda m: np.sign(x - m * m)).all()
+            checked += x.size
+    assert checked >= 32000

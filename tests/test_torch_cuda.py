@@ -271,6 +271,31 @@ def test_canny_bf16_kernels_match_plain(cuda, shape, alpha, sigma):
     assert 0 < outs_k[0].float().mean() < 1 and dx_k.float().abs().max() > 0.01
 
 
+# the bfloat16 pair's own 32 x 32 tiles at widths of every residue mod 4 and
+# 8: the summed blur's edge columns are set where the Sobel reads them, the
+# image's right edge at each lane of a quad; a 1 x 1 image; rows past a tile;
+# the most channels canny_geometry admits in bfloat16 (66)
+@pytest.mark.parametrize("shape", [(2, 3, 35, 39), (1, 3, 7, 3), (2, 2, 1, 1), (1, 3, 33, 67),
+                                   (2, 3, 34, 34), (2, 3, 40, 64), (1, 1, 66, 97),
+                                   (1, 66, 20, 20)])
+def test_canny_bf16_kernels_at_odd_sizes(cuda, shape):
+    """K3a/K3b in bfloat16 give their plain versions' bits where the image's
+    edges fall anywhere in a tile."""
+    x, _, _, _ = _operands(shape, False, cuda, seed=5)
+    x = x.bfloat16()
+    b, c, h, w = shape
+    u = torch.randn((b, 1, h, w), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4)).bfloat16()
+    high = 76 / 255
+    outs_k = F.canny_fused_fwd(x, high, 1.0, 0.0)
+    for got, want in zip(outs_k, F.canny_fused_fwd_plain(x, high, 1.0, 0.0)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    _, mag, gx, gy = outs_k
+    dx_k = F.canny_fused_bwd(u, mag, gx, gy, c, high, 1.0, 0.0)
+    torch.testing.assert_close(dx_k, F.canny_fused_bwd_plain(u, mag, gx, gy, c, high, 1.0,
+                                                             0.0), atol=0, rtol=0)
+
+
 def test_canny_kernels_take_the_largest_channel_count(cuda):
     """The most channels canny_geometry admits run and agree; one more is
     refused before any launch, by K3a and by K3b."""

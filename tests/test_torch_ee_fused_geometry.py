@@ -102,12 +102,14 @@ def test_the_constants_are_the_kernel_sources():
     compiled with."""
     with open(SOURCE) as f:
         src = f.read()
-    names = "kBandRows|kBandThreads|kChunk|kStripW|kCannyRows|kCannyCols"
+    names = ("kBandRows|kBandThreads|kChunk|kStripW|kCannyRows|kCannyCols|kCannyBf16Rows|"
+             "kCannyBf16Cols")
     found = {name: int(v) for name, v in
              re.findall(rf"constexpr int ({names}) = (\d+);", src)}
     assert found == {"kBandRows": F.BAND_ROWS, "kBandThreads": F.BAND_THREADS,
                      "kChunk": F.CHUNK, "kStripW": F.STRIP_W,
-                     "kCannyRows": F.CANNY_ROWS, "kCannyCols": F.CANNY_COLS}
+                     "kCannyRows": F.CANNY_ROWS, "kCannyCols": F.CANNY_COLS,
+                     "kCannyBf16Rows": F.CANNY_BF16_ROWS, "kCannyBf16Cols": F.CANNY_BF16_COLS}
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["K1", "K2"])
@@ -130,16 +132,26 @@ def test_band_layout_is_aligned_and_disjoint(c, h, w, backward):
 
 # the shipped step125 sizes, then the card tests' K3 shapes: ragged tiles
 # with W not a multiple of 4, one tile smaller than the halo, several tiles
-# with ragged last ones, the card tests' largest C
+# with ragged last ones, the card tests' largest C; in float32, then the
+# same in bfloat16 (its own tiles) with the bfloat16 card tests' odd sizes
+# and its largest C
 CANNY_SHAPES = ([(c, n, n) for _, c, n in STEP125]
                 + [(3, 32, 64), (3, 37, 45), (3, 2, 5), (3, 100, 100), (3, 224, 224),
                    (3, 72, 72), (F.canny_geometry(1, 20, 20).max_channels, 20, 20)])
+CANNY_BF16_SHAPES = (CANNY_SHAPES[:-1]
+                     + [(3, 35, 39), (3, 7, 3), (2, 1, 1), (3, 33, 67), (3, 40, 64),
+                        (F.canny_geometry(1, 20, 20, torch.bfloat16).max_channels, 20, 20)])
 
 
-@pytest.mark.parametrize("c,h,w", CANNY_SHAPES)
-def test_canny_geometry_fits_and_tiles_every_pixel(c, h, w):
-    geo = F.canny_geometry(c, h, w)
-    rows, cols = F.CANNY_ROWS, F.CANNY_COLS
+@pytest.mark.parametrize("c,h,w,dtype",
+                         [pytest.param(c, h, w, torch.float32, id=f"{c}-{h}-{w}")
+                          for c, h, w in CANNY_SHAPES]
+                         + [pytest.param(c, h, w, torch.bfloat16, id=f"{c}-{h}-{w}-bf16")
+                            for c, h, w in CANNY_BF16_SHAPES])
+def test_canny_geometry_fits_and_tiles_every_pixel(c, h, w, dtype):
+    geo = F.canny_geometry(c, h, w, dtype)
+    rows, cols = ((F.CANNY_BF16_ROWS, F.CANNY_BF16_COLS) if dtype == torch.bfloat16
+                  else (F.CANNY_ROWS, F.CANNY_COLS))
     assert c <= geo.max_channels
     assert 0 < geo.fwd_smem_bytes <= F.MAX_SMEM_BYTES
     assert 0 < geo.bwd_smem_bytes <= F.MAX_SMEM_BYTES
@@ -151,24 +163,29 @@ def test_canny_geometry_fits_and_tiles_every_pixel(c, h, w):
     assert (seen == 1).all()
 
 
-def test_the_canny_envelope_in_channels():
+@pytest.mark.parametrize("dtype,envelope", [(torch.float32, 71), (torch.bfloat16, 66)],
+                         ids=["f32", "bf16"])
+def test_the_canny_envelope_in_channels(dtype, envelope):
     """K3a's block holds C tiles of x: the most channels that fit is what
     both wrappers refuse above, before any launch (the checks run on any
-    host; the device is checked last)."""
-    geo = F.canny_geometry(1, 64, 64)
+    host; the device is checked last). A bfloat16 tile holds half the bytes
+    of a float32 one; the bfloat16 block's tile is 32 x 32 pixels, twice the
+    float32 one's."""
+    geo = F.canny_geometry(1, 64, 64, dtype)
     top = geo.max_channels
-    assert F.canny_geometry(top, 64, 64).fwd_smem_bytes <= F.MAX_SMEM_BYTES
-    assert F.canny_geometry(top + 1, 64, 64).fwd_smem_bytes > F.MAX_SMEM_BYTES
-    assert F.canny_geometry(top + 1, 64, 64).bwd_smem_bytes == geo.bwd_smem_bytes
+    assert top == envelope
+    assert F.canny_geometry(top, 64, 64, dtype).fwd_smem_bytes <= F.MAX_SMEM_BYTES
+    assert F.canny_geometry(top + 1, 64, 64, dtype).fwd_smem_bytes > F.MAX_SMEM_BYTES
+    assert F.canny_geometry(top + 1, 64, 64, dtype).bwd_smem_bytes == geo.bwd_smem_bytes
     with pytest.raises(ValueError, match="channels"):
-        F._check_canny(torch.zeros(1, top + 1, 64, 64))
+        F._check_canny(torch.zeros(1, top + 1, 64, 64, dtype=dtype))
     with pytest.raises(ValueError, match="CUDA"):
-        F._check_canny(torch.zeros(1, top, 64, 64))
-    plane = torch.zeros(1, 1, 64, 64)
+        F._check_canny(torch.zeros(1, top, 64, 64, dtype=dtype))
+    plane = torch.zeros(1, 1, 64, 64, dtype=dtype)
     with pytest.raises(ValueError, match="channels"):     # K3b's dx
-        F._check_canny(torch.zeros(1, top + 1, 64, 64), plane, plane, plane, plane)
+        F._check_canny(torch.zeros(1, top + 1, 64, 64, dtype=dtype), plane, plane, plane, plane)
     with pytest.raises(ValueError, match="CUDA"):
-        F._check_canny(torch.zeros(1, top, 64, 64), plane, plane, plane, plane)
+        F._check_canny(torch.zeros(1, top, 64, 64, dtype=dtype), plane, plane, plane, plane)
 
 
 def _body(src, function):
@@ -182,6 +199,46 @@ def _tiles(body):
     return {n: int(h) for n, h in re.findall(r"using (\w) = Tile<\w+, \w+, (\d+)>;", body)}
 
 
+def _struct(src, name):
+    """The source text of the struct `name`."""
+    body = src[src.index(f"\nstruct {name} {{"):]
+    return body[:body.index("\n};\n")]
+
+
+@pytest.mark.parametrize("c,h,w", [(3, 64, 64), (3, 128, 128), (3, 37, 45), (3, 224, 224),
+                                   (1, 20, 20), (3, 288, 288)])
+def test_the_bf16_shared_memory_holds_the_kernel_sources_tiles(c, h, w):
+    """The bfloat16 K3a takes C x tiles (Tile2, halo 2) and the summed
+    blur's (Mid2), K3b four input tiles (Tile2) and u_summed's (Mid2), of
+    bfloat16: canny_geometry sizes them by the source's padding, halos and
+    counts."""
+    with open(SOURCE) as f:
+        src = f.read()
+    tile2, mid2 = _struct(src, "Tile2"), _struct(src, "Mid2")
+    (pad,) = re.findall(r"kLd = COLS \+ (\d+);", tile2)
+    (mid_pad,) = re.findall(r"kLd = COLS \+ (\d+);", mid2)
+    assert (int(pad), int(mid_pad)) == (2 * F.TILE2_PAD, F.MID2_PAD)
+    assert "kRows = ROWS + 2 * HALO;" in tile2 and "kRows = ROWS + 2;" in mid2
+    fwd, bwd = _body(src, "canny_fwd_bf16_kernel"), _body(src, "canny_bwd_bf16_kernel")
+    (x_halo,) = re.findall(r"using X = Tile2<kCannyBf16Rows, kCannyBf16Cols, (\d)>;", fwd)
+    (g_halo,) = re.findall(r"using G = Tile2<kCannyBf16Rows, kCannyBf16Cols, (\d)>;", bwd)
+    assert "using S = Mid2<kCannyBf16Rows, kCannyBf16Cols>;" in fwd
+    assert "using U = Mid2<kCannyBf16Rows, kCannyBf16Cols>;" in bwd
+    assert "bf16* sS = sX + C * X::kElems;" in fwd
+    (n_in,) = re.findall(r"bf16\* sU = sIn \+ (\d+) \* G::kElems;", bwd)
+    rows, cols = F.CANNY_BF16_ROWS, F.CANNY_BF16_COLS
+
+    def tile(halo):
+        return 2 * (rows + 2 * halo) * (cols + int(pad))
+    mid = 2 * (rows + 2) * (cols + int(mid_pad))
+    geo = F.canny_geometry(c, h, w, torch.bfloat16)
+    assert geo.fwd_smem_bytes == c * tile(int(x_halo)) + mid
+    assert geo.bwd_smem_bytes == int(n_in) * tile(int(g_halo)) + mid
+    # 16-byte units of 8 columns, rows on 16 bytes; an odd quad's 8-byte stores
+    assert (cols + int(pad)) % 8 == 0 and (cols + int(mid_pad)) % 4 == 0
+    assert geo.fwd_smem_bytes % 16 == 0 and geo.bwd_smem_bytes % 16 == 0
+
+
 @pytest.mark.parametrize("c,h,w", [(1, 28, 28), (3, 64, 64), (3, 37, 45), (3, 224, 224),
                                    (14, 64, 64), (3, 288, 288)])
 def test_the_shared_memory_holds_the_kernel_sources_tiles(c, h, w):
@@ -192,7 +249,7 @@ def test_the_shared_memory_holds_the_kernel_sources_tiles(c, h, w):
     region they share with the HFS stages."""
     with open(SOURCE) as f:
         src = f.read()
-    (pad,) = re.findall(r"kLd = COLS \+ (\d+);", src)
+    (pad,) = re.findall(r"kLd = COLS \+ (\d+);", _struct(src, "Tile"))
     assert int(pad) == 2 * F.TILE_PAD
 
     def floats(rows, cols, halo):
@@ -312,7 +369,7 @@ def test_the_column_bands_hold_the_kernel_sources_tiles(c, h, w):
     assert ("constexpr int ROWS = COLUMNS ? kStripW : kBandRows, "
             "COLS = COLUMNS ? kBandRows : kStripW;") in body
     halos = _tiles(body)
-    (pad,) = re.findall(r"kLd = COLS \+ (\d+);", src)
+    (pad,) = re.findall(r"kLd = COLS \+ (\d+);", _struct(src, "Tile"))
     tile = lambda halo: (F.STRIP_W + 2 * halo) * (F.BAND_ROWS + int(pad))
     geo = F.mma_geometry(c, h, w, True)
     need = c * tile(halos["X"]) + tile(halos["S"]) + 2 * tile(halos["G"]) + tile(1)
@@ -416,6 +473,56 @@ def test_the_profile_tool_marks_every_phase_of_the_source():
     marks = {int(i) for i in re.findall(r"prof_mark\((-?\d+)\);", src)}
     assert marks == set(range(-1, len(prof.PHASES)))
     assert src.count("prof_init();") == 2 and src.count("prof_flush(stripes);") == 2
+
+
+def test_the_profile_tool_marks_every_canny_kernel(monkeypatch):
+    """The K3 marks: a K3Prof opens the body of every Canny-only kernel, in
+    float32 and bfloat16, and every barrier after the helpers ends a phase;
+    a kernel of the earlier form, a template on the number policy, takes
+    the same marks."""
+    from edge_enhancement_tpu_torch.tools import profile_ee_fused as prof
+    src = prof.k3_instrumented_source()
+    names = prof.K3_KERNEL.findall(src)
+    assert sorted(names) == ["canny_bwd_bf16_kernel", "canny_bwd_kernel",
+                             "canny_fwd_bf16_kernel", "canny_fwd_kernel"]
+    assert src.count("K3Prof k3_prof(gtaps);") == 4
+    for name in names:
+        body = src[src.index(f"\n{name}("):]
+        assert body[body.index("{\n") + 2:].startswith("  K3Prof k3_prof(gtaps);")
+    assert src.index("#define __syncthreads() k3_barrier()") < src.index("\ncanny_fwd_kernel(")
+    earlier = ("namespace {\ntemplate <class P>\n__global__ void __launch_bounds__(128, 6)\n"
+               "canny_fwd_kernel(const typename P::T* __restrict__ x, const float* "
+               "__restrict__ gtaps, Params p) {\n  __syncthreads();\n}\n}  // namespace\n")
+    monkeypatch.setattr(prof, "_source", lambda: earlier)
+    marked = prof.k3_instrumented_source()
+    assert "Params p) {\n  K3Prof k3_prof(gtaps);\n  __syncthreads();" in marked
+
+
+def test_sass_counts_classes_each_kernels_instructions():
+    """build.sass_counts on cuobjdump's layout: one count a kernel whose
+    name holds the pattern, predicated instructions included, packed bf16x2
+    in both of ptxas's forms."""
+    from edge_enhancement_tpu_torch.ops.cuda import build
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_121canny_fwd_bf16_kernelEPK13__nv_bfloat16
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/                   HFMA2.MMA.BF16_V2 R16, R24, R17, -RZ ;   /* 0x0 */
+        /*0020*/              @P0  HADD2.BF16_V2 R0, R1, R2 ;      /* 0x0 */
+        /*0030*/                   HMUL2.BF16_V2 R0, R25, R0 ;     /* 0x0 */
+        /*0040*/                   F2FP.BF16.F32.PACK_AB R6, R19, R18 ;   /* 0x0 */
+        /*0050*/             @!P1  FADD R18, R18, R9 ;             /* 0x0 */
+        /*0060*/                   LDS.64 R4, [R2] ;               /* 0x0 */
+        /*0070*/                   PRMT R18, R17, 0x5432, R19 ;    /* 0x0 */
+        /*0080*/                   EXIT ;                          /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_118ee_fused_fwd_kernelEPKf
+        /*0000*/                   HADD2.BF16_V2 R0, R1, R2 ;      /* 0x0 */
+"""
+    counts = build.sass_counts(sass)
+    assert list(counts) == ["_ZN12_GLOBAL__N_121canny_fwd_bf16_kernelEPK13__nv_bfloat16"]
+    (c,) = counts.values()
+    assert c == {"all": 9, "F2FP": 1, "FMUL/FADD/FFMA": 1, "bf16x2": 3, "LDS": 1, "STS": 0,
+                 "PRMT": 1, "MUFU": 0}
 
 
 def test_bf16_and_float32_entry_points():
