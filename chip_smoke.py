@@ -177,6 +177,23 @@
       full Canny), the same with the BPDA Canny, ee_at_u2netp.yml and
       imagenet/targeted_feature_denoising_training.yml (resnet18_fd, 224
       px bs256); no kernel launched, ms/step, peak memory, the reference.
+   q. steps_per_dispatch (train/graphs.py: K train steps a dispatch, one
+      train step captured as a CUDA graph and replayed), after p:
+      q1. the flagship at full width (bs100, 64 px, f32, TF32 off,
+      PGD-10) through run() with K = 4 on 1000 synthetic images: 10 train
+      steps in chains of 4, 4 and the tail's 2, and 5 validation batches;
+      one capture, the log naming the CUDA graph, a finite loss, K1/K2
+      exactly 170/150 (phase a's formula; path chained); ms/step over the
+      full chains after the first dispatch beside the same run with
+      single steps, in turns (eager, chained, chained, eager), and phase
+      a's; the capture's seconds, peak memory. q2. two eager runs of 3
+      flagship steps and one chained dispatch of 3 (step 1 eager, the
+      capture, 2 replays) from one seed on the same batches, cuDNN
+      deterministic: parameters, momentum, BatchNorm statistics and the
+      last loss equal bit for bit. q3. phase i's 9 Tiny-ImageNet
+      objectives with K = 2, one dispatch of 2 steps and 1 validation
+      batch each: a capture each, exact K1/K2 counts by phase i's
+      per-kind formulas (path chained_objectives).
 5. The reference, for slices a to d, k, l, m2 and p2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -450,6 +467,19 @@ P2_RUNS = (
      OBJECTIVE_ARGS),
     ("p2_fd_bf16", os.path.join(CONFIGS, "imagenet", "targeted_feature_denoising_training.yml"),
      {}, IMAGENET_ARGS))
+# q: steps_per_dispatch (train/graphs.py). q1: the flagship at full width
+# through run() with K = 4 on 1000 synthetic images, 10 train batches
+# (chains of 4, 4 and the tail's 2) and 5 validation batches; beside it the
+# same run with single steps, in turns (eager, chained, chained, eager)
+CHAINED_ARGS = dict(data="synthetic", synthetic_size=1000, epochs=1, limit_batches=10,
+                    device="cuda")
+CHAINED_K, CHAINED_STEPS, CHAINED_EVALS = 4, 10, 5
+# q2: 3 eager steps against one chained dispatch of 3, from one seed; then
+# Q2_TIMED more dispatches of the graph, timed on the host and the device
+Q2_STEPS, Q2_TIMED = 3, 3
+# q3: phase i's 9 Tiny-ImageNet configs, K = 2: one dispatch of 2 steps and
+# 1 validation batch each
+Q3_ARGS = dict(OBJECTIVE_ARGS, steps_per_dispatch=2)
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -1021,7 +1051,7 @@ def slice_phase(torch, kernels, device_line, gf: bool):
     print(f"[slice {tag}] train step ms: {[round(1000 * s, 1) for s in secs]}; "
           f"median after the first {ms:.1f} ms/step = {bs / ms * 1000:.1f} img/s "
           f"(bs{bs}, f32, PGD-10) on {device_line}", flush=True)
-    return cfg, summary["checkpoint"]
+    return cfg, summary["checkpoint"], ms
 
 
 def _kernel_ms(kernels, name: str, at: str) -> float:
@@ -2406,6 +2436,220 @@ def export_phase(torch, kernels, device_line, checkpoint: str) -> None:
     shutil.rmtree(os.path.dirname(out))
 
 
+def _chained_run(torch, tag: str, spd: int) -> tuple:
+    """q1's run of the flagship through run() with `spd` steps a dispatch:
+    (config, summary, launches, the run's peak device GB above what was
+    allocated before it)."""
+    import gc
+
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG, dict(CHAINED_ARGS, steps_per_dispatch=spd,
+                                   output=_out_dir(tag)))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _reset_counts()
+    summary = run(cfg)
+    torch.cuda.synchronize()
+    return (cfg, summary, _read_counts(),
+            (torch.cuda.max_memory_allocated() - held) / 1e9)
+
+
+def _check_chained_run(tag: str, summary, spd: int, device_line: str) -> None:
+    """q1's and q3's checks of a run: a finite loss; with K > 1 a capture
+    and the log's first line naming the CUDA graph, with K = 1 neither."""
+    with open(os.path.join(summary["out_dir"], "log", "log.txt")) as f:
+        first = f.readline()
+    capture = summary["capture_seconds"]
+    print(f"[chained {tag}] K {spd}: {sum(summary['train_steps'])} train steps, "
+          f"{sum(summary['eval_batches'])} eval batches; loss {summary['loss']:.4f}; "
+          f"capture {capture} s on {device_line}; first log line: {first.strip()}",
+          flush=True)
+    if not math.isfinite(summary["loss"]):
+        fail(f"{tag}: loss {summary['loss']} is not finite")
+    chained = spd > 1
+    if (capture is not None) != chained or chained != (
+            f"steps_per_dispatch {spd} (CUDA graph)" in first):
+        fail(f"{tag}: K {spd} but capture {capture}, log {first!r}")
+
+
+def _median_ms(secs) -> float:
+    return 1000.0 * sorted(secs)[len(secs) // 2]
+
+
+def chained_run_phase(torch, kernels, device_line, eager_ms: float) -> None:
+    """q1. The flagship with K = 4 through run(): 10 steps, 5 validation
+    batches, K1/K2 by phase a's formula, one capture; ms/step over the full
+    chains after the first dispatch beside the single-step runs' in turns
+    and phase a's."""
+    rows = []
+    for tag, spd in (("q1_eager", 1), ("q1_chained", CHAINED_K),
+                     ("q1_chained_2", CHAINED_K), ("q1_eager_2", 1)):
+        cfg, summary, launches, peak_gb = _chained_run(torch, tag, spd)
+        _check_chained_run(tag, summary, spd, device_line)
+        steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+        n_steps = int(cfg["num_steps_1"])
+        if steps != CHAINED_STEPS or evals != CHAINED_EVALS:
+            fail(f"{tag}: expected {CHAINED_STEPS} train steps and {CHAINED_EVALS} eval "
+                 f"batches, got {steps}, {evals}")
+        _check_launches(tag, launches, {"ee_fused_fwd": steps * (n_steps + 1)
+                                        + evals * (n_steps + 2),
+                                        "ee_fused_bwd": (steps + evals) * n_steps})
+        if tag == "q1_chained":
+            _record_launches(kernels, "chained", launches)
+        secs = summary["step_seconds"]
+        # the full chains after the first dispatch: steps K .. K * (n // K) - 1
+        window = secs[CHAINED_K:CHAINED_K * (CHAINED_STEPS // CHAINED_K)]
+        rows.append((tag, _median_ms(window), _median_ms(secs[1:]), peak_gb,
+                     summary["capture_seconds"]))
+        print(f"[chained {tag}] train step ms: {[round(1000 * s_, 1) for s_ in secs]}; "
+              f"median over steps {CHAINED_K}-{CHAINED_K * (CHAINED_STEPS // CHAINED_K) - 1} "
+              f"{rows[-1][1]:.1f} ms/step, after the first {rows[-1][2]:.1f}; the run's "
+              f"peak device memory {peak_gb:.3f} GB; on {device_line}", flush=True)
+    chained = [r for r in rows if "chained" in r[0]]
+    eager = [r for r in rows if "eager" in r[0]]
+    print(f"[chained q1] ms/step over the full chains after the first dispatch: "
+          f"chained {[round(r[1], 1) for r in chained]}, eager "
+          f"{[round(r[1], 1) for r in eager]} (same steps), chained / eager "
+          f"{sum(r[1] for r in chained) / sum(r[1] for r in eager):.3f}; phase a's eager "
+          f"{eager_ms:.1f}; capture {[round(r[4], 3) for r in chained]} s; the runs' "
+          f"peak memory chained {[round(r[3], 3) for r in chained]} GB, eager "
+          f"{[round(r[3], 3) for r in eager]}; on {device_line}", flush=True)
+
+
+def _q2_steps(torch, cfg, batches, chained: bool, timed: list = None) -> dict:
+    """Q2_STEPS flagship steps from the config's seed on `batches`, eager
+    or as one chained dispatch: the state's tensors by name and the last
+    loss. With `timed` (chained), Q2_TIMED more dispatches of the same
+    batches after it, each's host seconds (to the device sync) and device
+    seconds (CUDA events around it) appended."""
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.train.trainer import (OptimConfig,
+                                                          build_chained_train_step,
+                                                          build_train_step)
+    device = torch.device(cfg["device"])
+    ops, state, gen = driver.build(cfg, 200, device)
+    opt = OptimConfig(momentum=float(cfg["momentum"]),
+                      weight_decay=float(cfg["weight_decay"]))
+    method = driver.make_method_config(cfg, 200)
+    lr = driver.epoch_lr(cfg, 0)
+    xs = torch.stack([torch.from_numpy(x) for x, _ in batches]).to(device)
+    ys = torch.stack([torch.from_numpy(y) for _, y in batches]).to(device)
+    if chained:
+        step = build_chained_train_step(ops, method, opt, gen)
+        m = step(state, xs, ys, lr)
+        if step.capture_seconds is None:
+            fail("q2: the chained dispatch did not capture")
+    else:
+        step = build_train_step(ops, method, opt, gen)
+        for x, y in zip(xs, ys):
+            m = step(state, x, y, lr)
+    if state.step != Q2_STEPS:
+        fail(f"q2: state.step {state.step}, expected {Q2_STEPS}")
+    names = [n for n, _ in state.model.named_parameters()]
+    tensors = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    tensors.update({f"momentum {n}": b.clone() for n, b in zip(names, state.momentum_buf)})
+    tensors["loss"] = m["loss"].detach().clone()
+    for _ in range(Q2_TIMED if timed is not None else 0):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step(state, xs, ys, lr)
+        end.record()
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t0, start.elapsed_time(end) / 1e3))
+    return tensors
+
+
+def _differ(torch, a: dict, b: dict) -> list:
+    return [(k, float((a[k].double() - b[k].double()).abs().max())) for k in a
+            if not torch.equal(a[k], b[k])]
+
+
+def chained_exact_phase(torch, device_line) -> None:
+    """q2. Two eager runs of Q2_STEPS flagship steps and one chained
+    dispatch of Q2_STEPS (step 1 eager, the capture, 2 replays) from one
+    seed on the same batches, cuDNN deterministic: parameters, momentum,
+    BatchNorm statistics and the last loss equal bit for bit."""
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG, dict(CHAINED_ARGS, output=_out_dir("q2")))
+    driver.pin_precision(cfg)
+    train_ds, _, _ = driver.load_datasets(cfg, train=True)
+    batches = [(x, y) for _, x, y in driver._batches(train_ds, int(cfg["batch_size"]),
+                                                      int(cfg["seed"]), 0, Q2_STEPS)]
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        eager = _q2_steps(torch, cfg, batches, False)
+        again = _q2_steps(torch, cfg, batches, False)
+        timed = []
+        graphed = _q2_steps(torch, cfg, batches, True, timed)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    twice, apart = _differ(torch, eager, again), _differ(torch, eager, graphed)
+    print(f"[chained q2] {Q2_STEPS} flagship steps, cuDNN deterministic: eager against "
+          f"eager: {len(twice)} of {len(eager)} tensors differ {twice[:8]}; the chained "
+          f"dispatch (1 eager, capture, {Q2_STEPS - 1} replays) against eager: "
+          f"{len(apart)} differ {apart[:8]}; last loss {float(eager['loss']):.6f} / "
+          f"{float(graphed['loss']):.6f}; on {device_line}", flush=True)
+    host, dev = (1e3 * sum(t[j] for t in timed) / (len(timed) * Q2_STEPS) for j in (0, 1))
+    print(f"[chained q2] {len(timed)} more dispatches of {Q2_STEPS} replays: {host:.2f} "
+          f"ms/step on the host clock, {dev:.2f} on the device's (CUDA events around "
+          f"each dispatch): the device idle {100 * (1 - dev / host):.2f}% of a dispatch; "
+          f"on {device_line}", flush=True)
+    if twice:
+        fail("q2: two eager runs differ, so the graph cannot be held bit for bit")
+    if apart:
+        fail("q2: the replayed graph differs from the eager steps")
+
+
+def chained_objectives_phase(torch, kernels, device_line) -> None:
+    """q3. Phase i's 9 Tiny-ImageNet configs with K = 2 through run(): one
+    dispatch of 2 steps (eager, capture, replay) and 1 validation batch
+    each, K1/K2 by phase i's per-kind counts."""
+    from edge_enhancement_tpu_torch.objectives.methods import canonical_method
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+
+    total = {}
+    for name in OBJECTIVE_CONFIGS:
+        cfg = load_config(os.path.join(CONFIGS, "tiny_imagenet", f"{name}.yml"),
+                          dict(Q3_ARGS, output=_out_dir(f"q3/{name}")))
+        kind, k = canonical_method(cfg["method_name"]), int(cfg["num_steps_1"])
+        _reset_counts()
+        summary = run(cfg)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        _check_chained_run(f"q3 {name}", summary, 2, device_line)
+        steps, evals = sum(summary["train_steps"]), sum(summary["eval_batches"])
+        if steps != 2 or evals != 1:
+            fail(f"q3 {name}: expected 2 train steps and 1 eval batch, got {steps}, {evals}")
+        fwd, bwd = step_launches(kind, k)
+        _check_launches(f"q3 {name}", launches,
+                        {"ee_fused_fwd": steps * fwd + evals * (k + 2),
+                         "ee_fused_bwd": steps * bwd + evals * k}
+                        if "_EE" in cfg["arch"] else {})
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+        shutil.rmtree(cfg["output"])
+    _record_launches(kernels, "chained_objectives", total)
+    print(f"[chained q3] {len(OBJECTIVE_CONFIGS)} objectives captured and replayed; "
+          f"launches {total}; on {device_line}", flush=True)
+
+
+def chained_phase(torch, kernels, device_line, eager_ms: float) -> None:
+    """q. steps_per_dispatch: q1, q2, q3."""
+    chained_run_phase(torch, kernels, device_line, eager_ms)
+    chained_exact_phase(torch, device_line)
+    chained_objectives_phase(torch, kernels, device_line)
+
+
 def main():
     import torch
 
@@ -2418,8 +2662,9 @@ def main():
     kernels += canny_bf16_kernel_phase(torch)
     kernels += conv_kernel_phase(torch)
     checkpoints = {}
+    eager_ms = {}
     for gf in (False, True):
-        cfg, checkpoints[gf] = slice_phase(torch, kernels, smi, gf)
+        cfg, checkpoints[gf], eager_ms[gf] = slice_phase(torch, kernels, smi, gf)
         reference_phase(torch, cfg, checkpoints[gf])
     for tag, path, fwd, bwd, per_step in IMAGENET_SLICES:
         cfg, summary = imagenet_slice_phase(torch, kernels, smi, tag, path,
@@ -2443,6 +2688,7 @@ def main():
     free_at_mesh_phase(torch, kernels, smi)
     model_axis_phase(torch, kernels, smi)
     bf16_variants_phase(torch, kernels, smi)
+    chained_phase(torch, kernels, smi, eager_ms[False])
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):

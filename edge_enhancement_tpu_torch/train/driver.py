@@ -26,6 +26,16 @@ with the AWP step (objectives/awp.py), its learning rate set every
 minibatch at epoch + (i + 1) / n_batches, the perturbation off for the
 first `awp_warmup` epochs.
 
+`--steps-per-dispatch K` (the config's `steps_per_dispatch`) runs the
+generic loop's train steps K at a time, as the JAX train.py's chained
+dispatch: every K batches make one dispatch and the epoch's last batches a
+shorter one, with one host synchronisation (the loss read) a dispatch. On
+a card the train step is captured once as a CUDA graph and replayed
+(train/graphs.py), on the CPU it runs in a loop; the run's first log line
+says which. AWP, free-AT, fast-AT and --evaluate keep single steps and
+ignore K, as the JAX driver does; on CUDA under more than one rank the
+chained run refuses (gloo's collectives cannot be captured).
+
 One process a card under torchrun trains on the global batch that one
 process would (parallel/mesh.py):
 
@@ -69,8 +79,10 @@ from . import schedules
 from .checkpoint import (load_checkpoint, load_noise, load_pretrained,
                          restore_into_state, save_checkpoint, save_noise)
 from .modelops import ModelOps
-from .trainer import (EvalAttackConfig, OptimConfig, build_eval_step,
-                      build_train_step, create_train_state, eval_protocol)
+from .graphs import check_chained
+from .trainer import (EvalAttackConfig, OptimConfig, build_chained_train_step,
+                      build_eval_step, build_train_step, create_train_state,
+                      eval_protocol)
 
 
 class Logger:
@@ -136,8 +148,17 @@ def epoch_lr(cfg, epoch: float) -> float:
 def _check_ported(cfg) -> None:
     if cfg.get("attack_method", "PGD") not in ("PGD", "FGSM", "CW", "none"):
         raise NotImplementedError(f"eval attack {cfg['attack_method']!r} is not ported")
-    if int(cfg.get("steps_per_dispatch") or 1) != 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is not ported")
+
+
+def steps_per_dispatch(cfg) -> int:
+    """K train steps a dispatch for the generic loop's objectives, 1 where
+    the run keeps single steps: the JAX train.py's max(K, 1), and 1 for
+    AWP (it sets the learning rate every minibatch), free-AT, fast-AT and
+    --evaluate, which ignore K there too."""
+    if (cfg.get("evaluate") or cfg.get("awp_gamma") is not None
+            or cfg["method_name"] in ("free_AT", "fast_AT")):
+        return 1
+    return max(int(cfg.get("steps_per_dispatch") or 1), 1)
 
 
 def awp_config(cfg) -> Optional[AWPConfig]:
@@ -264,15 +285,26 @@ class _Steps:
         self.dt.update(self.waits[-1])
         self.t0 = time.time()
 
-    def done(self, i: int, m: dict, n: int) -> float:
-        loss = float(m["loss"])                # waits for the step to finish
-        self.seconds.append(time.time() - self.t0)
-        self.count += 1
-        self.losses.update(loss, n)
-        self.top1.update(float(m["top1"]), n)
-        self.top5.update(float(m["top5"]), n)
-        self.bt.update(time.time() - self.end)
-        if i % self.print_freq == 0:
+    def done(self, i: int, m: dict, n: int, k: int = 1, setup: float = 0.0,
+             first: Optional[float] = None) -> float:
+        """A dispatch of k steps that ended at batch i, n rows a batch, and
+        its last step's metrics: k steps of (seconds - setup) / k each, or
+        with `first` the first step's seconds and the rest's share of what
+        is left; the meters moved by the last step's values for the k
+        batches, a log line where a batch of the dispatch falls on
+        print_freq."""
+        loss = float(m["loss"])                # waits for the dispatch to finish
+        rest = time.time() - self.t0 - setup
+        if first is None:
+            self.seconds += [rest / k] * k
+        else:
+            self.seconds += [first] + [(rest - first) / (k - 1)] * (k - 1)
+        self.count += k
+        self.losses.update(loss, n * k)
+        self.top1.update(float(m["top1"]), n * k)
+        self.top5.update(float(m["top5"]), n * k)
+        self.bt.update((time.time() - self.end) / k, k)
+        if any((i - j) % self.print_freq == 0 for j in range(k)):
             self.log(train_line(self.epoch, i, self.n_batches, self.bt, self.dt,
                                 self.losses, self.top1, self.top5))
         self.end = time.time()
@@ -377,7 +409,8 @@ def load_datasets(cfg, train: bool = True):
 
 def run(cfg) -> dict:
     """Drive one config; returns what the run did: train steps and eval
-    batches per epoch, the last loss, per-step seconds, the checkpoint
+    batches per epoch, the last loss, per-step seconds, the checkpoint,
+    the CUDA graph's capture seconds of a chained run on a card
     (with --evaluate: the tiers' eval batches and seconds, no checkpoint).
     Under torchrun with no process group yet, the run starts one on this
     rank's device and destroys it however the run ends; a group the caller
@@ -398,6 +431,9 @@ def _run(cfg, device) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     ops, state, run_gen = build(cfg, num_classes, device)
+    spd = steps_per_dispatch(cfg)
+    if spd > 1:
+        check_chained(device.type, mesh.world_size())
 
     run_name = (f"{cfg['method_name']}/{cfg['arch']}-bs{cfg['batch_size']}"
                 f"-lr{cfg['lr']}-seed{seed}")
@@ -408,7 +444,9 @@ def _run(cfg, device) -> dict:
         + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
         + f", {precision}"
         + (f", {mesh.world_size()} processes ({torch.distributed.get_backend()}), "
-           f"{local_batch(cfg)} images a process" if mesh.initialized() else ""))
+           f"{local_batch(cfg)} images a process" if mesh.initialized() else "")
+        + (f", steps_per_dispatch {spd} ("
+           f"{'CUDA graph' if device.type == 'cuda' else 'loop'})" if spd > 1 else ""))
     if any(isinstance(ds, StreamingImageFolder) for ds in (train_ds, val_ds)):
         log(f"=> image folder {cfg['data']}: JPEGs decoded by {native.decode_path()}")
     if cfg.get("pretrained"):
@@ -443,7 +481,9 @@ def _run(cfg, device) -> dict:
                       weight_decay=float(cfg.get("weight_decay", 0.0)))
     method = make_method_config(cfg, num_classes)
     awp = awp_config(cfg)
-    if awp is None:
+    if spd > 1:
+        chained = build_chained_train_step(ops, method, opt, run_gen)
+    elif awp is None:
         train_step = build_train_step(ops, method, opt, run_gen)
     else:
         awp_step = build_awp_train_step(ops, method, opt, awp, run_gen)
@@ -460,17 +500,25 @@ def _run(cfg, device) -> dict:
         n_batches = len(train_ds) // mesh.global_batch(batch_size)
         steps = _Steps(log, epoch, n_batches, int(cfg.get("print_freq", 50)),
                        summary)
+        pending = []                    # the host batches of the next dispatch
         for i, x, y in _batches(train_ds, batch_size, seed, epoch, limit):
             steps.loaded()
             profile.before(epoch, i)
-            x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
-            if awp is None:
-                m = train_step(state, x, y, lr)
+            if spd > 1:
+                pending.append((x, y))
+                if len(pending) == spd:
+                    loss = _dispatch(chained, state, pending, lr, device, steps, i, log)
             else:
-                lr = epoch_lr(cfg, epoch + (i + 1) / max(n_batches, 1))
-                m = awp_step(state, x, y, lr, 1.0 if epoch >= awp.warmup else 0.0)
-            loss = steps.done(i, m, len(y))
+                x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+                if awp is None:
+                    m = train_step(state, x, y, lr)
+                else:
+                    lr = epoch_lr(cfg, epoch + (i + 1) / max(n_batches, 1))
+                    m = awp_step(state, x, y, lr, 1.0 if epoch >= awp.warmup else 0.0)
+                loss = steps.done(i, m, len(y))
             profile.after(i)
+        if pending:                     # the epoch's tail: a shorter chain
+            loss = _dispatch(chained, state, pending, lr, device, steps, i, log)
         profile.stop()
         t0 = time.time()
         prec1, _, n_eval = run_validation(log, eval_step, state, val_ds,
@@ -484,8 +532,33 @@ def _run(cfg, device) -> dict:
             best_prec1, is_best, opt, lr)
         steps.close(int(cfg["batch_size"]), time.time() - t0, device)
     log(f"=> done. best robust-eval Prec@1 {best_prec1:.3f}")
-    summary.update(loss=loss, best_prec1=best_prec1)
+    summary.update(loss=loss, best_prec1=best_prec1,
+                   capture_seconds=chained.capture_seconds if spd > 1 else None)
     return summary
+
+
+def _dispatch(chained, state, pending: list, lr: float, device, steps: _Steps,
+              i: int, log) -> float:
+    """One chained dispatch of the host batches in `pending` (emptied),
+    the last of them batch i: the stacks moved to the device in one copy
+    each, the K steps, their bookkeeping (the capture's seconds, on the
+    run's first dispatch, logged apart and left out of the step times; the
+    eager first step before it timed on its own, so the epoch's first step
+    alone pays the warm-up, as with single steps). Returns the last step's
+    loss."""
+    xs = torch.from_numpy(np.stack([x for x, _ in pending])).to(device)
+    ys = torch.from_numpy(np.stack([y for _, y in pending])).to(device)
+    captured = chained.capture_seconds
+    m = chained(state, xs, ys, lr)
+    setup, first = 0.0, None
+    if captured is None and chained.capture_seconds is not None:
+        setup, first = chained.capture_seconds, chained.first_seconds
+    loss = steps.done(i, m, len(pending[-1][1]), len(pending), setup, first)
+    if setup:
+        log(f"=> train step captured as a CUDA graph in {setup:.3f} s (once a run; "
+            "left out of the step times)")
+    pending.clear()
+    return loss
 
 
 def run_evaluate(cfg, ops, state, val_ds, log, summary: dict,

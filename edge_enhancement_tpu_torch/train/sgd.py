@@ -13,10 +13,13 @@ import torch
 
 
 @torch.no_grad()
-def sgd_update(params, grads, momentum_buf, *, lr: float, momentum: float,
+def sgd_update(params, grads, momentum_buf, *, lr, momentum: float,
                weight_decay: float,
                decay_mask: Optional[Sequence[float]] = None) -> None:
-    """`decay_mask`: one 0.0 or 1.0 for each parameter, scaling its decay."""
+    """`decay_mask`: one 0.0 or 1.0 for each parameter, scaling its decay.
+    `lr` may be a 0-dim float32 tensor on the parameters' device, which a
+    captured CUDA graph reads at each replay (train/graphs.py): the update
+    takes the same bits as from the float."""
     masks = [1.0] * len(params) if decay_mask is None else decay_mask
     for p, g, b, m in zip(params, grads, momentum_buf, masks):
         b.copy_(momentum * b + g + weight_decay * m * p)

@@ -28,16 +28,25 @@ from ..attacks.pgd import PGDConfig, fgsm, pgd_linf, random_targets
 from ..objectives.methods import MethodConfig, Objective
 from ..ops.square import add_square, add_square_draws, draw_squares
 from ..parallel import mesh
+from .graphs import ChainedTrainStep
 from .modelops import ModelOps, cross_entropy, topk_accuracy
 from .sgd import sgd_update
+
+
+_PIXEL_SCALE: dict = {}
 
 
 def to_float_pixels(x: torch.Tensor) -> torch.Tensor:
     """uint8 -> [0, 1] float32 by true division (the reciprocal form that
     CUDA uses for a Python-scalar divisor differs by one ulp for 126 of the
-    256 values); float input passes through."""
+    256 values); float input passes through. The divisor is a 0-dim tensor
+    made once per device (a fill, not a host-to-device copy, which a CUDA
+    graph's capture refuses)."""
     if x.dtype == torch.uint8:
-        return x.float() / torch.tensor(255.0, device=x.device)
+        key = str(x.device)
+        if key not in _PIXEL_SCALE:
+            _PIXEL_SCALE[key] = torch.full((), 255.0, device=x.device)
+        return x.float() / _PIXEL_SCALE[key]
     return x
 
 
@@ -66,7 +75,8 @@ class OptimConfig:
 def build_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
                      generator: Optional[torch.Generator] = None) -> Callable:
     """step(state, x, y, lr) -> metrics {loss, top1, top5} (0-dim tensors);
-    updates state in place."""
+    updates state in place. `lr` is a float or a 0-dim float32 tensor on
+    the state's device (the same bits)."""
     objective = Objective(ops, method, generator)
 
     def step_fn(state: TrainState, x, y, lr: float):
@@ -82,6 +92,20 @@ def build_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
         return metrics
 
     return step_fn
+
+
+def build_chained_train_step(ops: ModelOps, method: MethodConfig, opt: OptimConfig,
+                             generator: Optional[torch.Generator] = None
+                             ) -> ChainedTrainStep:
+    """K train steps a dispatch, as the JAX package's
+    build_chained_train_step: step(state, xs, ys, lr) on stacks of K
+    batches, the state updated in place, state.step advanced by K, the
+    last step's metrics returned. The math is K build_train_step calls in
+    order, the draws taken from `generator` in step order (JAX draws a
+    chain's keys apart from its single-step key stream); on CUDA tensors
+    one train step is captured as a CUDA graph and replayed, on CPU
+    tensors the step runs in a loop (train/graphs.py)."""
+    return ChainedTrainStep(build_train_step(ops, method, opt, generator), generator)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -47,8 +47,7 @@ def load_config(path: str, cli_overrides: Optional[Mapping[str, Any]] = None) ->
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
-    """The JAX trainer's flags that the port's drivers read (the JAX-only
-    --steps-per-dispatch is left out)."""
+    """The JAX trainer's flags, which the port's drivers read."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", required=True, help="YAML config path")
     p.add_argument("--data", default=None,
@@ -64,6 +63,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--batch-size", dest="batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--steps-per-dispatch", dest="steps_per_dispatch",
+                   type=int, default=None,
+                   help="device-side multi-step loop: K train steps per "
+                        "dispatch (a CUDA graph of the step replayed K times "
+                        "on a card, a loop on the CPU)")
     p.add_argument("--restarts", type=int, default=None,
                    help="PGD restarts for the validation battery")
     p.add_argument("--limit-batches", dest="limit_batches", type=int, default=None,

@@ -597,3 +597,65 @@ def test_eval_battery_on_the_card_matches_the_cpu(cuda, branch, monkeypatch):
     if branch != "none":
         assert m_gpu["adv_top1"] == m_cpu["adv_top1"]
         np.testing.assert_allclose(m_gpu["adv_loss"], m_cpu["adv_loss"], rtol=1e-4)
+
+
+def _chained_flagship(dev, chained: bool, steps: int = 3):
+    """`steps` flagship train steps (resnet18_EE_square, 10 classes, PGD-2)
+    at 8 x 32 x 32 on the card, from one seed: eager, or one chained
+    dispatch (train/graphs.py: step 1 eager, the capture, the rest
+    replayed). Returns the state's tensors, the last loss and the step."""
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    from edge_enhancement_tpu_torch.objectives.methods import MethodConfig
+    from edge_enhancement_tpu_torch.train import trainer
+    from edge_enhancement_tpu_torch.train.modelops import ModelOps
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = dict(r=8, w=1.0, low=38.0, high=76.0, alpha=0.0, sigma=1.0, gf=False,
+                type_canny="CannyFilter_step125_1", epsilon=EPS, n_queries=1)
+    model = build_model("resnet18_EE_square", args, 10,
+                        square_source=lambda shape: add_square_draws(shape, gen),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    data = torch.Generator().manual_seed(1)
+    xs = torch.randint(0, 256, (steps, 8, 32, 32, 3), generator=data,
+                       dtype=torch.uint8).to(dev)
+    ys = torch.randint(0, 10, (steps, 8), generator=data).to(dev)
+    method = MethodConfig("EE_BPDA3_AT_square", epsilon=EPS, num_steps=2,
+                          step_size=2 / 255, num_classes=10)
+    args = (ModelOps(model), method, trainer.OptimConfig(0.9, 2e-4), gen)
+    state = trainer.create_train_state(model)
+    if chained:
+        step = trainer.build_chained_train_step(*args)
+        m = step(state, xs, ys, 0.1)
+        assert step.capture_seconds is not None
+    else:
+        step = trainer.build_train_step(*args)
+        for x, y in zip(xs, ys):
+            m = step(state, x, y, 0.1)
+    return [*model.state_dict().values(), *state.momentum_buf], m["loss"], state.step
+
+
+def test_chained_graph_replays_the_eager_steps_bit_for_bit(cuda):
+    """chip_smoke.py's q2 at a small size: one chained dispatch of 3 steps
+    (eager, capture, 2 replays) against 3 eager steps from one seed,
+    cuDNN deterministic and TF32 off: parameters, BatchNorm statistics,
+    momentum and the last loss equal bit for bit, after two eager runs
+    were found equal; the K1/K2 launch counts of the replays counted."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        eager, loss, n = _chained_flagship(cuda, False)
+        again, loss2, _ = _chained_flagship(cuda, False)
+        F.reset_launches()
+        graphed, loss3, n3 = _chained_flagship(cuda, True)
+        torch.cuda.synchronize()
+        launches = dict(F.LAUNCHES)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = saved
+    assert all(torch.equal(a, b) for a, b in zip(eager, again)) and torch.equal(loss, loss2)
+    assert n == n3 == 3
+    assert all(torch.equal(a, b) for a, b in zip(eager, graphed)) and torch.equal(loss, loss3)
+    # 3 steps of PGD-2: K1 3 a step, K2 2 a step, the capture's not counted
+    assert launches["ee_fused_fwd"] == 9 and launches["ee_fused_bwd"] == 6

@@ -63,13 +63,14 @@ def test_driver_runs_gf_on_cpu(tmp_path):
 
 
 def test_profile_and_platform_pass_the_port_check():
-    """--profile and --platform are ported (the driver traces with
-    torch.profiler and picks the device); steps_per_dispatch > 1 is not."""
+    """--profile, --platform and --steps-per-dispatch are ported (the driver
+    traces with torch.profiler, picks the device, and chains K train steps
+    a dispatch): the port's check passes each."""
     from edge_enhancement_tpu_torch.train.driver import _check_ported
-    for key, value in (("profile", "trace"), ("platform", "cpu"), ("platform", "gpu")):
+    for key, value in (("profile", "trace"), ("platform", "cpu"), ("platform", "gpu"),
+                       ("steps_per_dispatch", 4)):
         _check_ported({key: value})
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        _check_ported({"profile": "trace", "steps_per_dispatch": 2})
+    _check_ported({"profile": "trace", "steps_per_dispatch": 2})
 
 
 def test_driver_runs_the_full_canny_under_bf16(tmp_path):
@@ -94,8 +95,9 @@ def test_driver_runs_the_full_canny_under_bf16(tmp_path):
 
 @pytest.mark.parametrize("override,error", [
     ({"device": "cuda"}, RuntimeError),
-    # AWP runs now (objectives/awp.py); the multi-step dispatch does not
-    ({"steps_per_dispatch": 2}, NotImplementedError),
+    # AWP and the multi-step dispatch run now (objectives/awp.py,
+    # train/graphs.py): a chained run is refused only for what else it asks
+    ({"steps_per_dispatch": 2, "platform": "tpu"}, NotImplementedError),
     ({"attack_method": "AA"}, NotImplementedError),
 ])
 def test_driver_refuses(override, error):
@@ -105,8 +107,83 @@ def test_driver_refuses(override, error):
         pytest.skip("CUDA is present")
     cfg = load_config(CONFIG, {**dict(data="synthetic", synthetic_size=8,
                                       batch_size=4, device="cpu"), **override})
-    with pytest.raises(error):
+    with pytest.raises(error) as refused:
         run(cfg)
+    assert "steps_per_dispatch" not in str(refused.value)
+
+
+@pytest.mark.parametrize("device_type,world,refused", [
+    ("cuda", 2, True), ("cuda", 8, True), ("cuda", 1, False),
+    ("cpu", 2, False), ("cpu", 1, False)])
+def test_chained_dispatch_refuses_cuda_under_several_ranks(device_type, world, refused):
+    """The chained step runs as a CUDA graph on one rank a card and as a
+    loop on the CPU under any group; on CUDA under more than one rank
+    (gloo's collectives, which a capture cannot hold) it refuses."""
+    from edge_enhancement_tpu_torch.train.graphs import check_chained
+    if refused:
+        with pytest.raises(NotImplementedError, match="ranks"):
+            check_chained(device_type, world)
+    else:
+        check_chained(device_type, world)
+
+
+def _run_cpu(tmp_path, config, tag, **over):
+    """run() of `config` on the CPU at a tiny size into tmp_path/tag:
+    (summary, the checkpoint's state_dict and momentum, the log's lines)."""
+    from edge_enhancement_tpu_torch.train.driver import run
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    cfg = load_config(config, {**dict(data="synthetic", device="cpu", epochs=1,
+                                      output=str(tmp_path / tag)), **over})
+    summary = run(cfg)
+    ckpt = torch.load(summary["checkpoint"])
+    mom = [v["momentum_buffer"] for _, v in sorted(ckpt["optimizer"]["state"].items())]
+    with open(os.path.join(summary["out_dir"], "log", "log.txt")) as f:
+        return summary, ckpt["state_dict"], mom, f.read().splitlines()
+
+
+def _same_training(a, b):
+    (sa, sda, ma, _), (sb, sdb, mb, _) = a, b
+    assert sa["train_steps"] == sb["train_steps"] and sa["loss"] == sb["loss"]
+    assert sorted(sda) == sorted(sdb)
+    assert all(torch.equal(sda[k], sdb[k]) for k in sda)
+    assert len(ma) == len(mb) and all(torch.equal(u, v) for u, v in zip(ma, mb))
+
+
+def test_driver_chains_steps_on_cpu(tmp_path):
+    """run() with steps_per_dispatch 2 and 3 batches (chains of 2 and 1)
+    trains as steps_per_dispatch 1 does, bit for bit: the same last loss,
+    step count, checkpoint and momentum; its first log line says the loop
+    form, and its step times are 3 (each dispatch's split over its
+    steps)."""
+    over = dict(synthetic_size=12, batch_size=4, limit_batches=3, cize=32,
+                num_steps_1=1, print_freq=1)
+    single = _run_cpu(tmp_path, CONFIG, "single", **over)
+    chained = _run_cpu(tmp_path, CONFIG, "chained", steps_per_dispatch=2, **over)
+    _same_training(single, chained)
+    assert chained[0]["train_steps"] == [3] and len(chained[0]["step_seconds"]) == 3
+    assert chained[0]["capture_seconds"] is None
+    assert "steps_per_dispatch 2 (loop)" in chained[3][0]
+    assert "steps_per_dispatch" not in single[3][0]
+    # a dispatch's log line at its last batch, where a batch falls on print_freq
+    assert [ln.split("\t")[0] for ln in chained[3] if ln.startswith("Epoch:")] == [
+        "Epoch: [0][1/3]", "Epoch: [0][2/3]"]
+
+
+@pytest.mark.parametrize("config,over", [
+    ("awp_cifar100/at_awp.yml", dict(synthetic_size=8, batch_size=4, limit_batches=2,
+                                     num_steps_1=1)),
+    ("free_imagenet/free_at_ee.yml", dict(synthetic_size=4, batch_size=2, cize=32,
+                                          limit_batches=2, num_steps_1=1))])
+def test_single_step_paths_ignore_steps_per_dispatch(tmp_path, config, over):
+    """AWP (its learning rate set every minibatch) and free-AT keep single
+    steps and ignore steps_per_dispatch, as the JAX driver does: with 2
+    they train as with 1, bit for bit, and the log names no chained
+    dispatch."""
+    path = os.path.join(IMAGENET, config)
+    single = _run_cpu(tmp_path, path, "single", **over)
+    chained = _run_cpu(tmp_path, path, "k2", steps_per_dispatch=2, **over)
+    _same_training(single, chained)
+    assert "steps_per_dispatch" not in chained[3][0]
 
 
 IMAGENET = os.path.join(REPO, "edge_enhancement_tpu", "configs")

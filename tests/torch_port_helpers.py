@@ -466,3 +466,133 @@ def native_decode_spy(monkeypatch, *modules) -> list:
 
         monkeypatch.setattr(mod, "stream_decode_files", spy)
     return hits
+
+
+class _JaxStream:
+    """Hands the next of `items` (tuples of float32 numpy arrays) to a
+    traced JAX program at each call, in program order (an ordered
+    io_callback): so a fake that a lax.scan body traces once gives each
+    step its own draws. (The callback runs on the runtime's thread, which
+    jax.enable_x64 does not reach: a float64 item would come back as
+    float32, so the fakes widen what they get.)"""
+
+    def __init__(self, items):
+        self.items, self.calls = list(items), 0
+
+    def _next(self):
+        item = self.items[self.calls]
+        self.calls += 1
+        return item
+
+    def __call__(self):
+        from jax.experimental import io_callback
+        shapes = tuple(jax.ShapeDtypeStruct(a.shape, a.dtype) for a in self.items[0])
+        return io_callback(self._next, shapes, ordered=True)
+
+
+def chained_step_pair(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1):
+    """K flagship train steps (EE_BPDA3_AT_square) as one chained dispatch
+    in the JAX package (build_chained_train_step: a lax.scan over the
+    batch stack, its keys split as the JAX driver splits a chain's) and in
+    the port (build_chained_train_step: the CPU loop), on carried weights,
+    with each step's square draws and PGD start noise made with numpy and
+    replayed on both sides in step order. The port's attack runs, but the
+    port takes JAX's x_adv of each step for its update. Both sides run in
+    float64 (JAX under jax.enable_x64): in float32 the second step's
+    gradient at this size moves by ~40% of its largest value for a 4e-5
+    move of conv1's weights (the first step's float32 difference between
+    the two libraries), so only float64 can hold K steps. Returns the
+    port's (metrics, state, model, [x_adv a step]) and JAX's (metrics,
+    state, [x_adv a step])."""
+    ops_j, params, bs, model = jax_and_port_models(shape)
+    wide = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)
+    rng = np.random.default_rng(0)
+    b = shape[0]
+    xs = rng.random((k,) + shape)
+    ys = rng.integers(0, 200, (k, b)).astype(np.int32)
+    noise = [rng.uniform(-EPS, EPS, shape).astype(np.float32) for _ in range(k)]
+    n_fwd, order = port_forwards("at", pgd_steps)
+    draws = square_draws(k * n_fwd, shape)
+
+    # ---- JAX: each fake traced once in the scan body, its draws streamed --
+    squares = _JaxStream([draws[s * n_fwd + i] for s in range(k) for i in order])
+    starts = _JaxStream([(n,) for n in noise])
+
+    def add_square(x, key, *, epsilon, n_queries=1, **_):
+        stripes, mask, sign = (a.astype(x.dtype) for a in squares())
+        x_best = jnp.clip(x + epsilon * stripes, 0.0, 1.0)
+        x_best = x_best + 2.0 * epsilon * sign * mask[None, :, :, None]
+        x_best = jnp.minimum(jnp.maximum(x_best, x - epsilon), x + epsilon)
+        return jnp.clip(x_best, 0.0, 1.0)
+
+    def init(cfg, key, xx):
+        (n,) = starts()
+        return jnp.clip(xx + n.astype(xx.dtype), 0.0, 1.0)
+
+    x_adv_j = []
+    real_pgd = jmethods.pgd_linf
+
+    def spy(*args, **kwargs):
+        # x_adv's float64 bits as uint32 pairs: a float64 array would come
+        # back rounded to float32 (_JaxStream says why)
+        out = real_pgd(*args, **kwargs)
+        jax.debug.callback(lambda a: x_adv_j.append(np.asarray(a).view(np.float64)[..., 0]),
+                           jax.lax.bitcast_convert_type(out[0], jnp.uint32), ordered=True)
+        return out
+    monkeypatch.setattr(jee, "add_square", add_square)
+    monkeypatch.setattr(jpgd, "_init_perturbation", init)
+    monkeypatch.setattr(jmethods, "pgd_linf", spy)
+    common = dict(epsilon=EPS, num_steps=pgd_steps, step_size=STEP_SIZE, num_classes=200)
+    step_j = jtrainer.build_chained_train_step(
+        ops_j, jmethods.MethodConfig("EE_BPDA3_AT_square", **common),
+        jtrainer.OptimConfig(MOMENTUM, WD))
+    with jax.enable_x64(True):
+        state_j = jtrainer.TrainState(params=wide(params), batch_stats=wide(bs),
+                                      momentum_buf=init_momentum(wide(params)),
+                                      step=jnp.zeros((), jnp.int32))
+        keys = jax.random.split(jax.random.split(jax.random.PRNGKey(0))[1], k)
+        state_j, m_j = step_j(state_j, jnp.asarray(xs), jnp.asarray(ys), keys,
+                              jnp.asarray(LR))
+        jax.block_until_ready(state_j)
+        jax.effects_barrier()                   # the x_adv callbacks have run
+        assert state_j.params["Conv_0"]["kernel"].dtype == jnp.float64
+    assert squares.calls == len(squares.items) and starts.calls == k
+    assert int(state_j.step) == k and len(x_adv_j) == k
+
+    # ---- the port --------------------------------------------------------
+    t = torch.from_numpy
+    model.double()
+    sq_t = model.square_source = TorchSquareReplay(draws)
+    noise_t = iter(noise)
+    monkeypatch.setattr(tpgd, "uniform_init_noise",
+                        lambda xx, eps, gen: t(next(noise_t)).to(xx.dtype))
+    x_adv_t, real_port = [], tpgd.pgd_linf
+
+    def port_spy(*args, **kwargs):
+        x_adv_t.append(real_port(*args, **kwargs).numpy())
+        return t(x_adv_j[len(x_adv_t) - 1].copy()).to(args[1].dtype)
+    monkeypatch.setattr(tmethods, "pgd_linf", port_spy)
+    state = ttrainer.create_train_state(model)
+    step = ttrainer.build_chained_train_step(
+        ModelOps(model), tmethods.MethodConfig("EE_BPDA3_AT_square", **common),
+        ttrainer.OptimConfig(MOMENTUM, WD))
+    m = step(state, t(xs), t(ys).long(), LR)
+    assert sq_t.calls == len(draws) and len(x_adv_t) == k
+    return (m, state, model, x_adv_t), (m_j, state_j, x_adv_j)
+
+
+def assert_chained_steps_agree(port, jax_side, tol=None):
+    """`chained_step_pair`'s two dispatches at JAX_TOL's tolerances (or
+    `tol`'s): each step's x_adv share off JAX's, then the state after the
+    K steps and the last step's metrics."""
+    tol = {**JAX_TOL, **(tol or {})}
+    (m, state, model, x_adv), (m_j, state_j, x_adv_j) = port, jax_side
+    assert state.step == len(x_adv_j)
+    for a, a_j in zip(x_adv, x_adv_j):
+        assert (np.abs(a - a_j) > 1e-6).mean() <= tol["share"]
+    np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]), rtol=tol["loss"])
+    assert float(m["top1"]) == float(m_j["top1"])
+    tree = to_numpy_tree
+    _assert_states_close(*_state_dicts(state, model, tree(state_j.params),
+                                       tree(state_j.batch_stats),
+                                       tree(state_j.momentum_buf), "resnet18", None), tol)
