@@ -194,6 +194,25 @@
       objectives with K = 2, one dispatch of 2 steps and 1 validation
       batch each: a capture each, exact K1/K2 counts by phase i's
       per-kind formulas (path chained_objectives).
+   r. the chained step under several ranks and AWP on the model axis,
+      after q: r1. m1's flagship (bs100, 50 a rank) on 2 ranks on cuda:0
+      through gloo, the chained step in its loop form: 3 eager steps and
+      one chained dispatch of 3 from one seed, cuDNN deterministic, equal
+      bit for bit on each rank, the replicas alike, K1/K2 33/30 a rank
+      (path chained_ranks_gloo); one more dispatch timed. r2. the same
+      through NCCL in the graph form, the step's all-reduces captured with
+      it (path chained_ranks_nccl): one rank a card where the machine has
+      2, else both on cuda:0 with NCCL_HOSTID set apart for each rank
+      (NCCL takes them as two hosts, over its socket transport on the
+      loopback); the capture's seconds, ms/step a rank. Where NCCL
+      refuses, the refusal prints and r2' runs instead: a world-1 NCCL
+      group's all-reduce captured beside K1 and replayed, equal to eager.
+      r3. AWP (awp_tiny_imagenet/ee_bpda_3_at_awp.yml, the gate on) on 2
+      ranks of data 1 x model 2 through gloo, as p1: each step against one
+      process from the ranks' gathered state, its perturbation within
+      R3_DIFF_TOL, then on the ranks' perturbation within P1_*; K1/K2
+      36/30 a rank (path awp_model_axis). `python3 chip_smoke.py --phase
+      r` runs the device, the build and phase r alone.
 5. The reference, for slices a to d, k, l, m2 and p2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -480,6 +499,28 @@ Q2_STEPS, Q2_TIMED = 3, 3
 # q3: phase i's 9 Tiny-ImageNet configs, K = 2: one dispatch of 2 steps and
 # 1 validation batch each
 Q3_ARGS = dict(OBJECTIVE_ARGS, steps_per_dispatch=2)
+# r: the chained step under M_WORLD ranks and AWP on the model axis. r1 and
+# r2: m1's flagship (bs100, 50 a rank) from one seed, R_STEPS eager steps
+# and one chained dispatch of R_STEPS, cuDNN deterministic, equal bit for
+# bit; then R_TIMED more dispatches timed. r1 through gloo (the loop form),
+# r2 through NCCL (the graph form, its all-reduces captured), one rank a
+# card where the machine has M_WORLD cards, else both on the one card with
+# NCCL_HOSTID set apart for each rank (NCCL refuses two ranks of one host
+# on one card, and takes them as two hosts over its socket transport on
+# the loopback). Where NCCL refuses all the same, r2' instead captures a
+# world-1 NCCL group's all-reduce beside K1 and replays it. r3: AWP
+# (awp_tiny_imagenet/ee_bpda_3_at_awp.yml, PreActResNet18_EE_BPDA_3, the
+# gate on) on data 1 x model P1_MODEL through gloo, as p1 runs the
+# flagship, held to one process within P1_*. A rank process of r2 runs
+# under R2_TIMEOUT seconds.
+R_STEPS, R_TIMED, R2_TIMEOUT = 3, 1, 300
+# r3's perturbation against the one process's: d = (w + proxy_lr g) - w
+# rounds in float32 (the proxy's step is small beside w), so two runs whose
+# proxy gradients part by 1.4e-6 part there by 1.32e-5 to 1.38e-5 (H100,
+# 700 W); held to about seven times that. Norms of a cut weight's rows
+# alone would move it by tens of percent
+R3_DIFF_TOL = 1e-4
+R3_CONFIG = os.path.join(CONFIGS, "awp_tiny_imagenet", "ee_bpda_3_at_awp.yml")
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -1734,17 +1775,20 @@ def zoo_phase(torch, kernels, device_line) -> None:
     _record_launches(kernels, "zoo", total)
 
 
-def _spawn_ranks(task: str, out: str, timeout: float = M_TIMEOUT) -> list:
+def _spawn_ranks(task: str, out: str, timeout: float = M_TIMEOUT,
+                 rank_env=None) -> list:
     """M_WORLD rank processes of this script (`--rank <task>`) joined by a
-    file store in `out`, each under `timeout` seconds; one that fails (or
-    the clock) kills them all. Returns each rank's saved result."""
+    file store in `out`, each under `timeout` seconds, with `rank_env(r)`'s
+    variables added to rank r's environment; one that fails (or the clock)
+    kills them all. Returns each rank's saved result."""
     import torch
     store = os.path.join(out, "store")
     logs = [os.path.join(out, f"rank{r}.log") for r in range(M_WORLD)]
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", task,
                                str(r), f"file://{store}", out],
-                              cwd=ROOT, env=env, stdout=open(logs[r], "w"),
+                              cwd=ROOT, env=dict(env, **(rank_env(r) if rank_env else {})),
+                              stdout=open(logs[r], "w"),
                               stderr=subprocess.STDOUT) for r in range(M_WORLD)]
     deadline = time.time() + timeout
     try:
@@ -1768,19 +1812,19 @@ def _spawn_ranks(task: str, out: str, timeout: float = M_TIMEOUT) -> list:
             for r in range(M_WORLD)]
 
 
-def _m1_batches(rank: int, world: int):
-    """(config, this process's 2 train batches, its validation batch) of m1:
-    rows `rank` of `world` of each global batch of 100, as the driver
-    loads them."""
+def _m1_batches(rank: int, world: int, path: str = CONFIG, n: int = 2):
+    """(config, this process's n train batches, its validation batch) of m1
+    (of the config at `path` with m1's settings): rows `rank` of `world` of
+    each global batch of 100, as the driver loads them."""
     import torch
     from edge_enhancement_tpu_torch.train import driver
     from edge_enhancement_tpu_torch.utils.config import load_config
-    cfg = load_config(CONFIG, M1_ARGS)
+    cfg = load_config(path, M1_ARGS)
     train_ds, val_ds, _ = driver.load_datasets(cfg)
     b = int(cfg["batch_size"]) // world
     kw = dict(process_index=rank, process_count=world, as_uint8=True)
     train = [(torch.from_numpy(x), torch.from_numpy(y)) for x, y in itertools.islice(
-        train_ds.batches(b, shuffle=True, seed=int(cfg["seed"]), **kw), 2)]
+        train_ds.batches(b, shuffle=True, seed=int(cfg["seed"]), **kw), n)]
     vx, vy = next(val_ds.batches(b, shuffle=False, seed=0, **kw))
     return cfg, train, (torch.from_numpy(vx), torch.from_numpy(vy))
 
@@ -1803,9 +1847,13 @@ def _m1_run(torch, cfg, train, val, given=None, ckpt_dir=None) -> dict:
     each step. With `given` (another run's result) each step starts from
     that run's state before it, and its attack runs and is kept, but that
     run's x_adv trains the model: each step is held alone. With `ckpt_dir`
-    the run ends with the driver's checkpoint there."""
+    the run ends with the driver's checkpoint there. An AWP config
+    (`awp_gamma`) trains with the AWP step, the gate on: each step's
+    perturbation (objectives/awp.py's awp_diff, gathered) is kept too, and
+    `given` may also hold another run's ("diffs"), which then perturbs the
+    weights in place of this run's own."""
     from edge_enhancement_tpu_torch.attacks import pgd
-    from edge_enhancement_tpu_torch.objectives import methods
+    from edge_enhancement_tpu_torch.objectives import awp as awp_step, methods
     from edge_enhancement_tpu_torch.parallel import mesh, sharding
     from edge_enhancement_tpu_torch.train import checkpoint, driver
     from edge_enhancement_tpu_torch.train.trainer import (OptimConfig, build_eval_step,
@@ -1816,9 +1864,24 @@ def _m1_run(torch, cfg, train, val, given=None, ckpt_dir=None) -> dict:
     mesh.replicate(state.model)
     sharding.shard_state(state)
     opt = OptimConfig(momentum=float(cfg["momentum"]), weight_decay=float(cfg["weight_decay"]))
-    step = build_train_step(ops, driver.make_method_config(cfg, 200), opt, gen)
+    method, awp = driver.make_method_config(cfg, 200), driver.awp_config(cfg)
+    diffs, real_diff = [], awp_step.awp_diff
+    kept_diff = real_diff
+    if awp is None:
+        step, attacks = build_train_step(ops, method, opt, gen), methods
+    else:
+        one = awp_step.build_awp_train_step(ops, method, opt, awp, gen)
+        step, attacks = (lambda st, x, y, lr: one(st, x, y, lr, 1.0)), awp_step
+
+        def kept_diff(params, grads, proxy_lr, cut):
+            out = real_diff(params, grads, proxy_lr, cut)
+            diffs.append([(mesh.gather_model(d, 0) if c else d).cpu()
+                          for d, c in zip(out, cut)])
+            if given is None or "diffs" not in given:
+                return out
+            return [d.to(p.device) for d, p in zip(given["diffs"][len(diffs) - 1], params)]
     eval_step = build_eval_step(ops, driver.eval_attack(cfg, 200), gen)
-    x_adv, grads, real, real_grad = [], [], methods.pgd_linf, pgd._input_grad
+    x_adv, grads, real, real_grad = [], [], attacks.pgd_linf, pgd._input_grad
 
     def kept(*args, **kwargs):
         n = len(grads)
@@ -1837,7 +1900,7 @@ def _m1_run(torch, cfg, train, val, given=None, ckpt_dir=None) -> dict:
     _reset_counts()
     losses, ms, after = [], [], []
     start = _snapshot(state)
-    methods.pgd_linf, pgd._input_grad = kept, first_grad
+    attacks.pgd_linf, pgd._input_grad, awp_step.awp_diff = kept, first_grad, kept_diff
     try:
         for i, (x, y) in enumerate(train):
             if given is not None:
@@ -1853,7 +1916,8 @@ def _m1_run(torch, cfg, train, val, given=None, ckpt_dir=None) -> dict:
             ms.append(1e3 * (time.time() - t0))
             after.append(_snapshot(state))
     finally:
-        methods.pgd_linf, pgd._input_grad = real, real_grad
+        attacks.pgd_linf, pgd._input_grad = real, real_grad
+        awp_step.awp_diff = real_diff
     metrics = eval_step(state, val[0].to(device), val[1].to(device))
     torch.cuda.synchronize()
     launches, peak_gb = _read_counts(), torch.cuda.max_memory_allocated(device) / 1e9
@@ -1863,7 +1927,7 @@ def _m1_run(torch, cfg, train, val, given=None, ckpt_dir=None) -> dict:
     return {"losses": losses, "ms": ms,
             "starts": [start] + after[:-1], "after": after,
             "x_adv": [a.detach().cpu() for a in x_adv],
-            "grads": [g.cpu() for g in grads],
+            "grads": [g.cpu() for g in grads], "diffs": diffs,
             "val": {k: float(v) for k, v in metrics.items()},
             "peak_gb": peak_gb, "launches": launches}
 
@@ -1911,17 +1975,110 @@ def _m3_run(torch, out: str) -> dict:
     return runs
 
 
+def _r_chain_run(torch, cfg, train) -> dict:
+    """r1 or r2 on one rank of the group: R_STEPS eager flagship steps on
+    this rank's rows from the config's seed, then one chained dispatch of
+    them from a fresh build, cuDNN deterministic, the launch counters set
+    to 0 before each and read after; then R_TIMED more dispatches of the
+    chained step, each's host seconds (to the device sync) and device
+    seconds (CUDA events). The state's tensors (on the CPU) and the last
+    loss of both runs, the form the chained step took and its capture
+    seconds, each eager step's ms."""
+    from edge_enhancement_tpu_torch.parallel import mesh
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.train.graphs import chained_form
+    from edge_enhancement_tpu_torch.train.trainer import (OptimConfig,
+                                                          build_chained_train_step,
+                                                          build_train_step)
+    device = torch.device("cuda", torch.cuda.current_device())
+    driver.pin_precision(cfg)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    opt = OptimConfig(momentum=float(cfg["momentum"]), weight_decay=float(cfg["weight_decay"]))
+    method, lr = driver.make_method_config(cfg, 200), driver.epoch_lr(cfg, 0)
+    xs = torch.stack([x for x, _ in train]).to(device)
+    ys = torch.stack([y for _, y in train]).to(device)
+    result = {"form": chained_form(device.type, mesh.backend(), mesh.world_size()),
+              "backend": mesh.backend(), "device": str(device), "eager_ms": []}
+    for run in ("eager", "chained"):
+        ops, state, gen = driver.build(cfg, 200, device)
+        mesh.replicate(state.model)
+        torch.cuda.synchronize()
+        _reset_counts()
+        if run == "eager":
+            step = build_train_step(ops, method, opt, gen)
+            for x, y in zip(xs, ys):
+                t0 = time.perf_counter()
+                m = step(state, x, y, lr)
+                torch.cuda.synchronize()
+                result["eager_ms"].append(1e3 * (time.perf_counter() - t0))
+        else:
+            step = build_chained_train_step(ops, method, opt, gen)
+            m = step(state, xs, ys, lr)
+            torch.cuda.synchronize()
+        names = [n for n, _ in state.model.named_parameters()]
+        tensors = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        tensors.update({f"momentum {n}": b.cpu().clone()
+                        for n, b in zip(names, state.momentum_buf)})
+        tensors["loss"] = m["loss"].detach().cpu().clone()
+        result[run] = {"tensors": tensors, "launches": _read_counts(), "step": state.step}
+    result["capture_seconds"] = step.capture_seconds
+    result["timed"] = []
+    for _ in range(R_TIMED):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step(state, xs, ys, lr)
+        end.record()
+        torch.cuda.synchronize()
+        result["timed"].append((time.perf_counter() - t0, start.elapsed_time(end) / 1e3))
+    return result
+
+
+def _nccl_refusal(torch, device) -> str:
+    """'' where this rank's NCCL group all-reduces a probe (which creates
+    its communicator), else NCCL's error."""
+    try:
+        probe = torch.ones(1, device=device)
+        torch.distributed.all_reduce(probe)
+        torch.cuda.synchronize()
+    except RuntimeError as e:             # DistBackendError is one
+        return f"{type(e).__name__}: {e}"
+    if probe.item() != M_WORLD:
+        fail(f"r2: the NCCL probe summed to {probe.item()}, not {M_WORLD}")
+    return ""
+
+
 def rank_main(argv) -> None:
-    """One rank of phases m and p: `--rank <m1|m3|p1> <rank> <store url>
-    <out dir>`, on cuda:0 through gloo (p1: a model axis of P1_MODEL);
-    saves its result to <out>/rank<r>.pt."""
+    """One rank of phases m, p and r: `--rank <m1|m3|p1|r1|r2|r3> <rank>
+    <store url> <out dir>`, on cuda:0 through gloo (p1 and r3: a model axis
+    of P1_MODEL); r2 through NCCL, on cuda:<rank> where the machine has a
+    card a rank, else on cuda:0; saves its result to <out>/rank<r>.pt."""
     import torch
     from edge_enhancement_tpu_torch.parallel import mesh
     task, rank, store, out = argv[0], int(argv[1]), argv[2], argv[3]
-    mesh.init("cuda:0", backend="gloo", init_method=store, rank=rank, world_size=M_WORLD,
-              n_model=P1_MODEL if task == "p1" else 1)
+    device, backend = "cuda:0", "gloo"
+    if task == "r2":
+        backend = "nccl"
+        if torch.cuda.device_count() >= M_WORLD:
+            device = f"cuda:{rank}"
+    mesh.init(device, backend=backend, init_method=store, rank=rank, world_size=M_WORLD,
+              n_model=P1_MODEL if task in ("p1", "r3") else 1)
     try:
-        if task == "p1":
+        if task in ("r1", "r2"):
+            refused = _nccl_refusal(torch, device) if task == "r2" else ""
+            if refused:
+                result = {"refused": refused}
+            else:
+                cfg, train, _ = _m1_batches(rank, M_WORLD, n=R_STEPS)
+                result = _r_chain_run(torch, cfg, train)
+        elif task == "r3":
+            cfg, train, val = _m1_batches(mesh.data_rank(), mesh.data_size(), R3_CONFIG)
+            result = _m1_run(torch, cfg, train, val)
+            result["model_rank"], result["n_model"] = mesh.model_rank(), mesh.model_size()
+            if rank:                  # the perturbations are compared on rank 0's
+                result["diffs"] = []
+        elif task == "p1":
             cfg, train, val = _m1_batches(mesh.data_rank(), mesh.data_size())
             result = _m1_run(torch, cfg, train, val, ckpt_dir=os.path.join(out, "ckpt"))
             result["model_rank"], result["n_model"] = mesh.model_rank(), mesh.model_size()
@@ -2024,6 +2181,22 @@ def mesh_step_phase(torch, kernels, device_line) -> None:
         fail("m1: the ranks' run disagrees with the one process's")
 
 
+def _against_one_process(torch, cfg, rank: dict, one: dict) -> tuple:
+    """A model-axis rank's run against one process's from its state on the
+    same batches and x_adv (p1, r3): each step's first attack gradient,
+    |diff| / |g|; its loss, relative; its update, |diff| / |update|."""
+    names = [n for n, _ in _param_names(cfg)]
+    flat = lambda sd: torch.cat([sd[n].reshape(-1).double() for n in names])
+    grad_rel, loss_rel, update_rel = [], [], []
+    for i, g in enumerate(one["grads"]):
+        grad_rel.append(((rank["grads"][i] - g).norm() / g.norm()).item())
+        loss_rel.append(abs(rank["losses"][i] - one["losses"][i]) / abs(one["losses"][i]))
+        (sd_r, _), (sd_1, _) = rank["after"][i], one["after"][i]
+        update_rel.append(((flat(sd_r) - flat(sd_1)).norm()
+                           / (flat(sd_1) - flat(rank["starts"][i][0])).norm()).item())
+    return grad_rel, loss_rel, update_rel
+
+
 def model_axis_phase(torch, kernels, device_line) -> None:
     """p1. The flagship on M_WORLD ranks of data 1 x model P1_MODEL (the
     mesh's model axis), then one process on the same batches: m1's checks
@@ -2044,16 +2217,8 @@ def model_axis_phase(torch, kernels, device_line) -> None:
     k = int(cfg["num_steps_1"])
     want = {k_: 0 for k_ in one["launches"]}
     want.update({"ee_fused_fwd": 2 * (k + 1) + (k + 2), "ee_fused_bwd": 2 * k + k})
-    names = [n for n, _ in _param_names(cfg)]
-    flat = lambda sd: torch.cat([sd[n].reshape(-1).double() for n in names])
+    grad_rel, loss_rel, update_rel = _against_one_process(torch, cfg, ranks[0], one)
     share = lambda a, b: float((a - b).abs().gt(1e-6).float().mean())
-    grad_rel, loss_rel, update_rel = [], [], []
-    for i, g in enumerate(one["grads"]):
-        grad_rel.append(((ranks[0]["grads"][i] - g).norm() / g.norm()).item())
-        loss_rel.append(abs(ranks[0]["losses"][i] - one["losses"][i]) / abs(one["losses"][i]))
-        (sd_r, _), (sd_1, _) = ranks[0]["after"][i], one["after"][i]
-        update_rel.append(((flat(sd_r) - flat(sd_1)).norm()
-                           / (flat(sd_1) - flat(ranks[0]["starts"][i][0])).norm()).item())
     payload = checkpoint.load_checkpoint(os.path.join(out, "ckpt"))
     sd_last, mom_last = ranks[0]["after"][-1]
     one_sd = one["after"][-1][0]
@@ -2650,6 +2815,203 @@ def chained_phase(torch, kernels, device_line, eager_ms: float) -> None:
     chained_objectives_phase(torch, kernels, device_line)
 
 
+def _r_check(torch, tag: str, ranks: list, form: str, kernels, device_line) -> None:
+    """r1's and r2's checks of each rank: the form, the chained dispatch
+    equal to the eager steps bit for bit, the replicas alike, both runs'
+    K1/K2 counts a rank by phase a's formula; the times printed."""
+    from edge_enhancement_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, M1_ARGS)
+    k = int(cfg["num_steps_1"])
+    want = {"ee_fused_fwd": R_STEPS * (k + 1), "ee_fused_bwd": R_STEPS * k}
+    for r, res in enumerate(ranks):
+        eager, chained = res["eager"]["tensors"], res["chained"]["tensors"]
+        apart = _differ(torch, eager, chained)
+        host, dev = (1e3 * sum(t[j] for t in res["timed"]) / (len(res["timed"]) * R_STEPS)
+                     for j in (0, 1))
+        print(f"[ranks {tag}] rank {r} of {M_WORLD} ({res['backend']}, {res['device']}): the "
+              f"chained step's form {res['form']}; {R_STEPS} flagship steps (bs"
+              f"{cfg['batch_size']}, {int(cfg['batch_size']) // M_WORLD} a rank, PGD-{k}, cuDNN "
+              f"deterministic) eager against one chained dispatch: {len(apart)} of "
+              f"{len(eager)} tensors differ {apart[:8]}; last loss "
+              f"{float(eager['loss']):.6f} / {float(chained['loss']):.6f}; K1/K2 eager "
+              f"{res['eager']['launches'].get('ee_fused_fwd')}/"
+              f"{res['eager']['launches'].get('ee_fused_bwd')}, chained "
+              f"{res['chained']['launches'].get('ee_fused_fwd')}/"
+              f"{res['chained']['launches'].get('ee_fused_bwd')}; eager step ms "
+              f"{[round(t, 1) for t in res['eager_ms']]}; {len(res['timed'])} more dispatches "
+              f"of {R_STEPS}: {host:.2f} ms/step on the host clock, {dev:.2f} on the "
+              f"device's; capture {res['capture_seconds']} s; on {device_line}", flush=True)
+        if res["form"] != form:
+            fail(f"{tag} rank {r}: the chained step took the {res['form']} form, not {form}")
+        if (res["capture_seconds"] is None) != (form == "loop"):
+            fail(f"{tag} rank {r}: form {form} but capture {res['capture_seconds']}")
+        if res["eager"]["step"] != R_STEPS or res["chained"]["step"] != R_STEPS:
+            fail(f"{tag} rank {r}: state.step {res['eager']['step']} / "
+                 f"{res['chained']['step']}, expected {R_STEPS}")
+        if not math.isfinite(float(chained["loss"])):
+            fail(f"{tag} rank {r}: the loss is not finite")
+        if apart:
+            fail(f"{tag} rank {r}: the chained dispatch differs from the eager steps")
+        _check_launches(f"{tag} rank {r} eager", res["eager"]["launches"], want)
+        _check_launches(f"{tag} rank {r} chained", res["chained"]["launches"], want)
+        _record_launches(kernels, f"chained_ranks_{res['backend']}_rank{r}",
+                         res["chained"]["launches"])
+    if _differ(torch, ranks[0]["chained"]["tensors"], ranks[1]["chained"]["tensors"]):
+        fail(f"{tag}: the ranks' replicas differ")
+
+
+def _nccl_one_rank_capture(torch, device_line) -> None:
+    """r2'. A world-1 NCCL group: K1 on the slice's batch and the
+    all-reduce of `mesh._sum_over` on its outputs (one flat buffer, as
+    sum_step's), eager and then captured in a CUDA graph and replayed on
+    two inputs: the replays equal the eager calls bit for bit."""
+    from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
+    from edge_enhancement_tpu_torch.ops.square import add_square_draws, kernel_layout
+    from edge_enhancement_tpu_torch.parallel import mesh
+    out = _out_dir("mesh/r2_one")
+    os.makedirs(out)
+    mesh.init("cuda:0", backend="nccl", init_method=f"file://{os.path.join(out, 'store')}",
+              rank=0, world_size=1)
+    try:
+        dev = torch.device("cuda:0")
+        b, c, h, w = shape = (100, 3, 64, 64)
+        k = F.FusedConsts(**FLAGSHIP_CONSTS)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st, sqd = kernel_layout(add_square_draws((b, h, w, c), gen), k.eps)
+
+        def work(x):
+            y, edge = F.ee_fused_fwd(x, st, sqd, k)
+            return mesh._sum_over([y * 2.0, edge], None)
+
+        inputs = [_patched_input(torch, dev, shape)]
+        inputs.append(inputs[0].flip(-1).contiguous())
+        eager = [[t.clone() for t in work(x)] for x in inputs]   # creates the communicator
+        torch.cuda.synchronize()
+        static = inputs[0].clone()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            outs = work(static)
+        capture = time.perf_counter() - t0
+        same = []
+        for x, want in zip(inputs, eager):
+            static.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(all(torch.equal(a, b_) for a, b_ in zip(outs, want)))
+    finally:
+        mesh.shutdown()
+    print(f"[ranks r2'] a world-1 NCCL group on cuda:0: K1 (100x3x64x64) and the flat "
+          f"all-reduce of mesh._sum_over captured in a CUDA graph in {capture:.3f} s; "
+          f"replays equal to the eager calls bit for bit on 2 inputs: {same}; on "
+          f"{device_line}", flush=True)
+    if same != [True, True]:
+        fail("r2': the replayed NCCL all-reduce differs from the eager one")
+    shutil.rmtree(out)
+
+
+def chained_ranks_phase(torch, kernels, device_line) -> None:
+    """r1. The flagship's chained step on M_WORLD gloo ranks on cuda:0 (the
+    loop form) against eager steps; r2 the same on NCCL ranks (the graph
+    form), or r2' where NCCL refuses."""
+    for tag, form in (("r1", "loop"), ("r2", "graph")):
+        out = _out_dir(f"mesh/{tag}")
+        os.makedirs(out)
+        rank_env, timeout = None, M_TIMEOUT
+        if tag == "r2":
+            timeout = R2_TIMEOUT
+            if torch.cuda.device_count() < M_WORLD:
+                # two hosts to NCCL: its socket transport on the loopback
+                rank_env = lambda r: {"NCCL_HOSTID": f"chip-smoke-rank{r}",
+                                      "NCCL_SOCKET_IFNAME": "lo", "NCCL_DEBUG": "WARN"}
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(tag, out, timeout, rank_env)
+        refused = [res["refused"] for res in ranks if "refused" in res]
+        if refused:
+            print(f"[ranks {tag}] NCCL refused {M_WORLD} ranks on "
+                  f"{min(torch.cuda.device_count(), M_WORLD)} card(s) "
+                  f"(NCCL_HOSTID set apart: {rank_env is not None}): {refused[0]}; "
+                  f"r2' runs instead, and two-rank NCCL capture stays open", flush=True)
+            _nccl_one_rank_capture(torch, device_line)
+        else:
+            _r_check(torch, tag, ranks, form, kernels, device_line)
+        print(f"[ranks {tag}] {time.perf_counter() - t0:.1f} s wall", flush=True)
+        shutil.rmtree(out)
+
+
+def awp_model_axis_phase(torch, kernels, device_line) -> None:
+    """r3. AWP (R3_CONFIG, the gate on) on M_WORLD ranks of data 1 x model
+    P1_MODEL on cuda:0 through gloo, then one process from the ranks'
+    gathered state on the same batches and x_adv, held to P1_*: each
+    step's perturbation against the one process's own (R3_DIFF_TOL), then the one
+    process trained on the ranks' perturbation (its update, as the loss
+    and the attack gradient, is then held as p1's). A run with its own
+    perturbation is printed beside it, not held: in float32 the
+    perturbations' ~1e-5 rounding apart moves AWP's update by ~1e-3."""
+    out = _out_dir("mesh/r3")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("r3", out)
+    for r in ranks[1:]:
+        if (r["losses"] != ranks[0]["losses"]
+                or any(not torch.equal(a, b) for a, b in zip(r["x_adv"], ranks[0]["x_adv"]))
+                or any(not torch.equal(a, b) for a, b in zip(r["grads"], ranks[0]["grads"]))):
+            fail("r3: the model ranks' losses, x_adv or attack gradients differ")
+    cfg, train, val = _m1_batches(0, 1, R3_CONFIG)
+    given = {"starts": ranks[0]["starts"], "x_adv": ranks[0]["x_adv"]}
+    own = _m1_run(torch, cfg, train, val, given)
+    one = _m1_run(torch, cfg, train, val, dict(given, diffs=ranks[0]["diffs"]))
+    flat = lambda ds: torch.cat([d.reshape(-1).double() for d in ds])
+    diff_rel = [((flat(a) - flat(b)).norm() / flat(b).norm()).item()
+                for a, b in zip(ranks[0]["diffs"], one["diffs"])]
+    k = int(cfg["num_steps_1"])
+    # a step: the attack's k forwards and backwards, then the proxy's and the
+    # robust forward, whose backwards need no input gradient; the
+    # validation batch k + 2 and k
+    want = {"ee_fused_fwd": 2 * (k + 2) + (k + 2), "ee_fused_bwd": 2 * k + k}
+    grad_rel, loss_rel, update_rel = _against_one_process(torch, cfg, ranks[0], one)
+    own_update = _against_one_process(torch, cfg, ranks[0], own)[2]
+    print(f"[ranks r3] {cfg['arch']} AWP (gamma {cfg['awp_gamma']}, the gate on) bs"
+          f"{cfg['batch_size']} f32 PGD-{k} on synthetic-hard, {M_WORLD} ranks of data 1 x "
+          f"model {ranks[0]['n_model']} ({ranks[0]['backend']}, cuda:0); each step against "
+          f"one process from the ranks' gathered state on the same batch and x_adv: first "
+          f"attack gradient |diff| / |g| {[f'{v:.3e}' for v in grad_rel]} (limit "
+          f"{P1_GRAD_TOL}); the perturbation (whole-tensor norms over the model group) "
+          f"|diff| / |d| {[f'{v:.3e}' for v in diff_rel]} (limit {R3_DIFF_TOL}); on the "
+          f"ranks' perturbation: losses {ranks[0]['losses']} and {one['losses']}, rel "
+          f"{[f'{v:.3e}' for v in loss_rel]} (limit {P1_LOSS_RTOL}); update |diff| / "
+          f"|update| {[f'{v:.3e}' for v in update_rel]} (limit {P1_UPDATE_TOL}); on its own "
+          f"perturbation {[f'{v:.3e}' for v in own_update]} (not held); validation ranks "
+          f"{ranks[0]['val']}, one process {one['val']}", flush=True)
+    for tag, res in [(f"rank {r}", ranks[r]) for r in range(M_WORLD)] + [("one process", one)]:
+        print(f"[ranks r3] {tag}: K1/K2 launches {res['launches'].get('ee_fused_fwd')}/"
+              f"{res['launches'].get('ee_fused_bwd')}; train step ms "
+              f"{[round(t, 1) for t in res['ms']]} ({res['ms'][-1]:.1f} ms/step after the "
+              f"first); peak device memory {res['peak_gb']:.2f} GB; on {device_line}",
+              flush=True)
+    for r, res in enumerate(ranks):
+        _check_launches(f"r3 rank {r}", res["launches"], want)
+        _record_launches(kernels, f"awp_model_axis_rank{r}", res["launches"])
+    _check_launches("r3 one process", one["launches"], want)
+    if len(ranks[0]["losses"]) != 2 or not all(
+            math.isfinite(v) for v in ranks[0]["losses"] + one["losses"]):
+        fail("r3: the ranks did not run 2 finite steps")
+    if (len(grad_rel) != 2 or len(diff_rel) != 2 or max(grad_rel) > P1_GRAD_TOL
+            or max(diff_rel) > R3_DIFF_TOL or max(loss_rel) > P1_LOSS_RTOL
+            or max(update_rel) > P1_UPDATE_TOL):
+        fail("r3: AWP on the model axis disagrees with the one process")
+    print(f"[ranks r3] {time.perf_counter() - t0:.1f} s wall", flush=True)
+    shutil.rmtree(out)
+
+
+def ranks_phase(torch, kernels, device_line) -> None:
+    """r. The chained step under several ranks (r1, r2 or r2') and AWP on
+    the model axis (r3)."""
+    torch.cuda.empty_cache()            # the ranks share the card
+    chained_ranks_phase(torch, kernels, device_line)
+    awp_model_axis_phase(torch, kernels, device_line)
+
+
 def main():
     import torch
 
@@ -2689,6 +3051,7 @@ def main():
     model_axis_phase(torch, kernels, smi)
     bf16_variants_phase(torch, kernels, smi)
     chained_phase(torch, kernels, smi, eager_ms[False])
+    ranks_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):
@@ -2699,9 +3062,24 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
+def ranks_main() -> None:
+    """`--phase r`: the device, the build and phase r alone (on a machine
+    with one card, or with a card a rank for r2); no kernels line and no
+    final line."""
+    import torch
+
+    name, smi = device_phase(torch)
+    sys.path.insert(0, ROOT)
+    build_phase()
+    ranks_phase(torch, [], smi)
+    print(f"chip_smoke: phase r passed on {torch.cuda.device_count()} x {name}", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.path.insert(0, ROOT)
         rank_main(sys.argv[2:])
+    elif sys.argv[1:] == ["--phase", "r"]:
+        ranks_main()
     else:
         main()

@@ -32,6 +32,18 @@ layers' output channels over the model group of a data row
 
 With no process group every function here is the identity, and every path
 runs as a single process does.
+
+Every collective of a train step (`all_reduce_sum` and its backward,
+`_sum_over` under `sum_step`, `sum_model`, the model axis's `_CopyToModel`
+and `_gather`) can be captured in a CUDA graph under NCCL
+(train/graphs.py): each is device work on the caller's current stream (a
+clone, a cat or a zero fill, then `dist.all_reduce`, which ProcessGroupNCCL
+joins to its own stream through events that the capture records), with no
+host read and no host-to-device copy. A capture cannot create an NCCL
+communicator: a group makes its own at its first collective, which the
+chained step's eager first step runs before the capture. Gloo's
+collectives on CUDA tensors pass through host memory and cannot be
+captured.
 """
 
 from __future__ import annotations
@@ -59,6 +71,11 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if initialized() else 1
+
+
+def backend() -> Optional[str]:
+    """The process group's backend ("nccl", "gloo"), None without a group."""
+    return dist.get_backend() if initialized() else None
 
 
 def model_size() -> int:
@@ -251,6 +268,31 @@ def all_reduce_model(t: torch.Tensor) -> torch.Tensor:
     if model_size() == 1:
         return t
     return _CopyToModel.apply(t)
+
+
+class _SumModel(torch.autograd.Function):
+    """SUM over the model group of a value that every model rank then uses
+    alike; each rank's gradient is the output gradient (d sum / d part is
+    1, and the output gradient is the same on every model rank)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = t.clone()
+        dist.all_reduce(out, group=model_group())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def sum_model(t: torch.Tensor) -> torch.Tensor:
+    """The SUM of t over the model group, differentiable: the whole of a
+    sum whose terms are cut over the model axis (a cut weight's norm or
+    L1 norm is the sum of its model ranks' parts)."""
+    if model_size() == 1:
+        return t
+    return _SumModel.apply(t)
 
 
 def _gather(t: torch.Tensor, dim: int) -> torch.Tensor:

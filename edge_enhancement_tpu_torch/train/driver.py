@@ -30,11 +30,16 @@ first `awp_warmup` epochs.
 generic loop's train steps K at a time, as the JAX train.py's chained
 dispatch: every K batches make one dispatch and the epoch's last batches a
 shorter one, with one host synchronisation (the loss read) a dispatch. On
-a card the train step is captured once as a CUDA graph and replayed
-(train/graphs.py), on the CPU it runs in a loop; the run's first log line
-says which. AWP, free-AT, fast-AT and --evaluate keep single steps and
-ignore K, as the JAX driver does; on CUDA under more than one rank the
-chained run refuses (gloo's collectives cannot be captured).
+a card the train step is captured once as a CUDA graph and replayed,
+its all-reduces with it under NCCL (train/graphs.py); on the CPU, and on
+a card under gloo (whose collectives cannot be captured), it runs in a
+loop. The run's first log line says which, with the backend and the
+world: `steps_per_dispatch K (CUDA graph | loop), backend B, world W`.
+Every rank dispatches chains of the same lengths, tail included: each
+loads len(train) // (the global batch) batches an epoch, as the JAX
+train.py's chains count them (`batches` cuts the split to a multiple of
+the ranks first). AWP, free-AT, fast-AT and --evaluate keep single
+steps and ignore K, as the JAX driver does.
 
 One process a card under torchrun trains on the global batch that one
 process would (parallel/mesh.py):
@@ -79,7 +84,7 @@ from . import schedules
 from .checkpoint import (load_checkpoint, load_noise, load_pretrained,
                          restore_into_state, save_checkpoint, save_noise)
 from .modelops import ModelOps
-from .graphs import check_chained
+from .graphs import describe_form
 from .trainer import (EvalAttackConfig, OptimConfig, build_chained_train_step,
                       build_eval_step, build_train_step, create_train_state,
                       eval_protocol)
@@ -432,8 +437,6 @@ def _run(cfg, device) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     ops, state, run_gen = build(cfg, num_classes, device)
     spd = steps_per_dispatch(cfg)
-    if spd > 1:
-        check_chained(device.type, mesh.world_size())
 
     run_name = (f"{cfg['method_name']}/{cfg['arch']}-bs{cfg['batch_size']}"
                 f"-lr{cfg['lr']}-seed{seed}")
@@ -446,7 +449,9 @@ def _run(cfg, device) -> dict:
         + (f", {mesh.world_size()} processes ({torch.distributed.get_backend()}), "
            f"{local_batch(cfg)} images a process" if mesh.initialized() else "")
         + (f", steps_per_dispatch {spd} ("
-           f"{'CUDA graph' if device.type == 'cuda' else 'loop'})" if spd > 1 else ""))
+           f"{describe_form(device.type, mesh.backend(), mesh.world_size())}), "
+           f"backend {mesh.backend() or 'none'}, world {mesh.world_size()}"
+           if spd > 1 else ""))
     if any(isinstance(ds, StreamingImageFolder) for ds in (train_ds, val_ds)):
         log(f"=> image folder {cfg['data']}: JPEGs decoded by {native.decode_path()}")
     if cfg.get("pretrained"):

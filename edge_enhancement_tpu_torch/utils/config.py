@@ -67,7 +67,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    type=int, default=None,
                    help="device-side multi-step loop: K train steps per "
                         "dispatch (a CUDA graph of the step replayed K times "
-                        "on a card, a loop on the CPU)")
+                        "on a card with one rank or under NCCL, its "
+                        "all-reduces captured with it; a loop on the CPU and "
+                        "on a card under gloo)")
     p.add_argument("--restarts", type=int, default=None,
                    help="PGD restarts for the validation battery")
     p.add_argument("--limit-batches", dest="limit_batches", type=int, default=None,

@@ -15,7 +15,10 @@ float32 and float64; with 2 steps, 7.3% of x_adv pixels apart, and the
 updated parameters 6.3e-4 and the running statistics 2.2e-3 apart on
 the same x_adv), while the two float64 steps agree to rounding. The
 driver: the learning rate set every minibatch at epoch + (i + 1) /
-n_batches and the warmup gate, on a CPU run of the config."""
+n_batches and the warmup gate, on a CPU run of the config. The same step
+on a mesh with a model axis: the port on 4 gloo ranks of data 2 x model 2
+(tests/torch_parallel_worker.py) against JAX's step jitted over
+make_mesh(n_data=2, n_model=2)."""
 
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import copy
@@ -32,6 +35,7 @@ from torch_checkpoints import drop_written_checkpoints  # noqa: F401  (autouse)
 from edge_enhancement_tpu.attacks import pgd as jpgd
 from edge_enhancement_tpu.objectives import awp as jawp
 from edge_enhancement_tpu.objectives.methods import MethodConfig as JMethodConfig
+from edge_enhancement_tpu.parallel import mesh as jmesh
 from edge_enhancement_tpu.train import trainer as jtrainer
 from edge_enhancement_tpu.train.sgd import init_momentum
 from edge_enhancement_tpu_torch.attacks import pgd as tpgd
@@ -58,11 +62,12 @@ GAMMA, PROXY_LR, LR, MOMENTUM, WD = 0.01, 0.01, 0.1, 0.9, 2e-4
 F64_TOL = dict(share=1e-3, params=1e-6, running=1e-6, momentum=1e-6)
 
 
-@pytest.fixture(scope="module")
-def jax_step():
+def _jax_awp_step(mesh=None):
     """JAX's jitted AWP step on the carried weights in float64, its PGD
-    start replayed; step(awp_on) -> (state, metrics, x_adv). One compile
-    for both gates (awp_on is traced)."""
+    start replayed, on one device or jitted over `mesh` (the state
+    replicated, the batch on the `data` axis); yields (step(awp_on) ->
+    (state, metrics, x_adv), x, y, noise). One compile for both gates
+    (awp_on is traced)."""
     ops_j, params, bs, _ = helpers.jax_and_port_models(SHAPE, arch=ARCH, ee_args=ARGS,
                                                         num_classes=N)
     wide = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)
@@ -78,20 +83,29 @@ def jax_step():
         step = jawp.build_awp_train_step(
             ops_j, JMethodConfig("AT_AWP", epsilon=EPS, num_steps=PGD_STEPS,
                                  step_size=STEP_SIZE, num_classes=N),
-            jtrainer.OptimConfig(MOMENTUM, WD), jawp.AWPConfig(gamma=GAMMA, proxy_lr=PROXY_LR))
+            jtrainer.OptimConfig(MOMENTUM, WD), jawp.AWPConfig(gamma=GAMMA, proxy_lr=PROXY_LR),
+            mesh=mesh)
 
         def run(awp_on):
             with jax.enable_x64(True):
                 state = jtrainer.TrainState(params=wide(params), batch_stats=wide(bs),
                                             momentum_buf=init_momentum(wide(params)),
                                             step=jnp.zeros((), jnp.int32))
-                state, m = step(state, jnp.asarray(x, jnp.float64), jnp.asarray(y),
-                                jax.random.PRNGKey(0), jnp.asarray(LR), jnp.asarray(awp_on))
+                xb, yb = jnp.asarray(x, jnp.float64), jnp.asarray(y)
+                if mesh is not None:
+                    xb, yb = jmesh.shard_batch(mesh, (xb, yb))
+                state, m = step(state, xb, yb, jax.random.PRNGKey(0), jnp.asarray(LR),
+                                jnp.asarray(awp_on))
                 jax.block_until_ready(state)
                 jax.effects_barrier()           # the x_adv callback has run
                 assert state.params["Conv_0"]["kernel"].dtype == jnp.float64
                 return state, m, captured["x_adv"].copy()
         yield run, x, y, noise
+
+
+@pytest.fixture(scope="module")
+def jax_step():
+    yield from _jax_awp_step()
 
 
 def _port_step(monkeypatch, model, x, y, noise, x_adv_j, awp_on, dtype):
@@ -130,6 +144,46 @@ def test_awp_step_matches_jax(monkeypatch, jax_step, awp_on):
         b.data = b.data.float()
     helpers.assert_train_steps_agree(port, (m_j, state_j, x_adv_j.astype(np.float32)),
                                      F64_TOL, arch=ARCH, args=ARGS)
+
+
+def test_awp_on_a_model_axis_matches_jax_mesh_step(tmp_path):
+    """The step on 4 gloo ranks of data 2 x model 2 (every convolution and
+    the head cut on their output channels; a cut weight's norms summed
+    over the model group) against JAX's AWP step on make_mesh(n_data=2,
+    n_model=2), both gates from one compile: the PGD start replayed and
+    JAX's x_adv given (each rank its data rows); F64_TOL, as on one
+    process."""
+    from test_torch_tensor_parallel import run_mesh
+    cfg = load_config(os.path.join(CONFIGS, "awp_cifar100", "at_awp.yml"), dict(
+        num_steps_1=PGD_STEPS, epsilon=EPS, step_size_1=STEP_SIZE, device="cpu"))
+    _, _, _, model = helpers.jax_and_port_models(SHAPE, arch=ARCH, ee_args=ARGS,
+                                                 num_classes=N)
+    gen = _jax_awp_step(jmesh.make_mesh(n_data=2, n_model=2))
+    run, x, y, noise = next(gen)
+    gates = (0.0, 1.0)
+    jax_side = [run(awp_on) for awp_on in gates]
+    gen.close()
+    t = torch.from_numpy
+    ranks = run_mesh(tmp_path, "awp", dict(
+        cfg=dict(cfg), num_classes=N, x=t(x), y=t(y).long(),
+        variants=[(awp_on, 0.0) for awp_on in gates], weights=model.state_dict(),
+        noise=t(noise), x_adv=[t(x_adv_j) for _, _, x_adv_j in jax_side], lr=LR,
+        momentum=MOMENTUM, weight_decay=WD, gamma=GAMMA, proxy_lr=PROXY_LR), 4, 2)
+    for i, (state_j, m_j, x_adv_j) in enumerate(jax_side):
+        got = ranks[0]["variants"][i]
+        for r in ranks[1:]:
+            assert r["variants"][i]["metrics"] == got["metrics"]
+        port_model = copy.deepcopy(model)
+        port_model.load_state_dict({k: v.float() for k, v in got["state"].items()})
+        state = create_train_state(port_model)
+        state.step = got["step"]
+        state.momentum_buf = [b.float() for b in got["momentum"]]
+        # each data row's model rank 0 holds the row's x_adv
+        x_adv = torch.cat([r["x_adv"][i] for r in ranks[::2]]).numpy()
+        np.testing.assert_allclose(got["metrics"]["loss"], float(m_j["loss"]), rtol=1e-6)
+        helpers.assert_train_steps_agree(
+            (got["metrics"], state, port_model, x_adv.astype(np.float32)),
+            (m_j, state_j, x_adv_j.astype(np.float32)), F64_TOL, arch=ARCH, args=ARGS)
 
 
 def test_awp_gate_and_diff():

@@ -2,13 +2,23 @@
 on the CPU: the port's chained dispatch against the JAX package's
 build_chained_train_step (a lax.scan over the batch stack) on carried
 weights and replayed draws, and against the port's own K single steps,
-bit for bit; the learning rate as a float and as a 0-dim tensor."""
+bit for bit; the learning rate as a float and as a 0-dim tensor. Under 2
+gloo ranks (tests/torch_parallel_worker.py, as tests/test_torch_parallel.py
+starts them): the chained step against one process on the global batch
+in float64 and against 2 single steps on the same ranks bit for bit, and
+against JAX's chained step on a 2-device mesh."""
 
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 
+import types
+
+import numpy as np
 import torch
 
 import torch_port_helpers as helpers
+from test_torch_parallel import CONFIG, run_ranks
+from edge_enhancement_tpu_torch.train import driver
+from edge_enhancement_tpu_torch.utils.config import load_config
 from edge_enhancement_tpu_torch.models.registry import build_model
 from edge_enhancement_tpu_torch.objectives.methods import MethodConfig
 from edge_enhancement_tpu_torch.train import trainer
@@ -110,3 +120,74 @@ def test_float_and_tensor_lr_give_the_same_bits():
         states.append(_state_tensors(state))
     assert all(torch.equal(a, b) for a, b in zip(*states))
 
+
+
+# ---- under 2 ranks ------------------------------------------------------------
+
+RANK_SHAPE = (8, 32, 32, 3)              # 4 images a rank
+
+
+def test_two_rank_chained_step_equals_one_process_and_single_steps(tmp_path):
+    """The flagship's chained step (K = 2, PGD-1, its draws from the run's
+    generator at the global batch's shape) on 2 gloo ranks, the loop form:
+    on each rank bit for bit the same 2 batches as 2 single steps
+    (parameters, BatchNorm statistics, momentum, step, last metrics), the
+    replicas bitwise equal; against one process's chained step on the
+    global batch, float64: 1e-10."""
+    cfg = load_config(CONFIG, dict(num_steps_1=1, seed=3, device="cpu"))
+    rng = np.random.default_rng(6)
+    xs = torch.from_numpy(rng.random((2,) + RANK_SHAPE).astype(np.float32))
+    ys = torch.from_numpy(rng.integers(0, 200, (2, RANK_SHAPE[0])).astype(np.int64))
+    lr, opt = 0.1, trainer.OptimConfig(0.9, 2e-4)
+    ranks = run_ranks(tmp_path, "chain", dict(
+        cfg=dict(cfg), num_classes=200, xs=xs, ys=ys, dtype=torch.float64, lr=lr,
+        momentum=opt.momentum, weight_decay=opt.weight_decay))
+    for r in ranks:
+        single, chained = r["single"], r["chained"]
+        assert single["step"] == chained["step"] == 2
+        assert single["metrics"] == chained["metrics"]
+        assert all(torch.equal(v, chained["state"][k]) for k, v in single["state"].items())
+        assert all(torch.equal(a, b) for a, b in zip(single["momentum"], chained["momentum"]))
+    for r in ranks[1:]:
+        assert r["chained"]["metrics"] == ranks[0]["chained"]["metrics"]
+        assert all(torch.equal(v, r["chained"]["state"][k])
+                   for k, v in ranks[0]["chained"]["state"].items())
+
+    ops, state, gen = driver.build(cfg, 200, torch.device("cpu"))
+    state.model.double()
+    state.momentum_buf = [b.double() for b in state.momentum_buf]
+    m = trainer.build_chained_train_step(ops, driver.make_method_config(cfg, 200), opt,
+                                         gen)(state, xs.double(), ys, lr)
+    got = ranks[0]["chained"]
+    for k, v in state.model.state_dict().items():
+        torch.testing.assert_close(got["state"][k], v, rtol=1e-10, atol=1e-10, msg=k)
+    for a, b in zip(got["momentum"], state.momentum_buf):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+    # float32 logits (models/resnet.py): the loss is a float32 sum
+    np.testing.assert_allclose(got["metrics"]["loss"], float(m["loss"]), rtol=1e-6)
+    assert got["metrics"]["top1"] == float(m["top1"])
+
+
+def test_two_rank_chained_step_agrees_with_jax_mesh(monkeypatch, tmp_path):
+    """The chained step (K = 2, PGD-1, float64) on 2 gloo ranks against
+    JAX's build_chained_train_step jitted over make_mesh(n_data=2), its
+    stacks sharded by shard_batch_stacked, on the draws replayed from JAX
+    (each rank its rows) and JAX's x_adv for each update: the replicas
+    bitwise equal, then CHAIN_TOL as on one process."""
+    port, jax_side = helpers.chained_step_jax(monkeypatch, k=2, pgd_steps=1, n_data=2)
+    t = torch.from_numpy
+    ranks = run_ranks(tmp_path, "chain_replay", dict(
+        arch="resnet18_EE_square", ee_args=helpers.EE_ARGS, num_classes=200,
+        state=port["model"].state_dict(), draws=[tuple(t(a) for a in d) for d in port["draws"]],
+        noise=[t(n) for n in port["noise"]], x_adv=[t(a.copy()) for a in jax_side[2]],
+        xs=t(port["xs"]), ys=t(port["ys"]).long(), method="EE_BPDA3_AT_square",
+        fields=port["fields"], lr=helpers.LR, momentum=helpers.MOMENTUM,
+        weight_decay=helpers.WD))
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    assert all(torch.equal(v, ranks[1]["state"][k]) for k, v in ranks[0]["state"].items())
+    model = port["model"].double()
+    model.load_state_dict(ranks[0]["state"])
+    state = types.SimpleNamespace(step=ranks[0]["step"], momentum_buf=ranks[0]["momentum"])
+    x_adv = [torch.cat([r["x_adv"][i] for r in ranks]).numpy() for i in range(2)]
+    helpers.assert_chained_steps_agree((ranks[0]["metrics"], state, model, x_adv),
+                                       jax_side, CHAIN_TOL)

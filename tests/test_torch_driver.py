@@ -112,19 +112,27 @@ def test_driver_refuses(override, error):
     assert "steps_per_dispatch" not in str(refused.value)
 
 
-@pytest.mark.parametrize("device_type,world,refused", [
-    ("cuda", 2, True), ("cuda", 8, True), ("cuda", 1, False),
-    ("cpu", 2, False), ("cpu", 1, False)])
-def test_chained_dispatch_refuses_cuda_under_several_ranks(device_type, world, refused):
-    """The chained step runs as a CUDA graph on one rank a card and as a
-    loop on the CPU under any group; on CUDA under more than one rank
-    (gloo's collectives, which a capture cannot hold) it refuses."""
-    from edge_enhancement_tpu_torch.train.graphs import check_chained
-    if refused:
-        with pytest.raises(NotImplementedError, match="ranks"):
-            check_chained(device_type, world)
+@pytest.mark.parametrize("device_type,backend,world,form", [
+    ("cuda", "nccl", 2, "graph"), ("cuda", "gloo", 2, "loop"),
+    ("cuda", "nccl", 8, "graph"), ("cuda", "gloo", 8, "loop"),
+    ("cuda", None, 1, "graph"), ("cuda", "gloo", 1, "graph"), ("cuda", "nccl", 1, "graph"),
+    ("cpu", "gloo", 2, "loop"), ("cpu", "gloo", 1, "loop"), ("cpu", None, 1, "loop")])
+def test_chained_dispatch_refuses_cuda_under_several_ranks(device_type, backend, world,
+                                                           form):
+    """The chained step's form for each (device type, backend, world): on
+    CUDA the graph with one rank (no collective to capture) or under NCCL
+    (its all-reduces captured with the step); a loop on the CPU under any
+    group, and on CUDA under gloo, whose collectives a capture cannot hold
+    (no longer a refusal: the driver's log line names the loop and why)."""
+    from edge_enhancement_tpu_torch.train.graphs import chained_form, describe_form
+    assert chained_form(device_type, backend, world) == form
+    words = describe_form(device_type, backend, world)
+    if form == "graph":
+        assert words == "CUDA graph"
+    elif device_type == "cuda":
+        assert words == "loop: gloo's collectives cannot be captured in a CUDA graph"
     else:
-        check_chained(device_type, world)
+        assert words == "loop"
 
 
 def _run_cpu(tmp_path, config, tag, **over):
@@ -162,7 +170,7 @@ def test_driver_chains_steps_on_cpu(tmp_path):
     _same_training(single, chained)
     assert chained[0]["train_steps"] == [3] and len(chained[0]["step_seconds"]) == 3
     assert chained[0]["capture_seconds"] is None
-    assert "steps_per_dispatch 2 (loop)" in chained[3][0]
+    assert "steps_per_dispatch 2 (loop), backend none, world 1" in chained[3][0]
     assert "steps_per_dispatch" not in single[3][0]
     # a dispatch's log line at its last batch, where a batch falls on print_freq
     assert [ln.split("\t")[0] for ln in chained[3] if ln.startswith("Epoch:")] == [

@@ -11,7 +11,8 @@ that kills the group.
     over a 2-device mesh, on the same replayed global draws;
 (d) the loaders' process sharding against the JAX package's;
 (e) free-AT's replay noise, one file a rank;
-(f) torchrun driving the port's trainer;
+(f) torchrun driving the port's trainer; with --steps-per-dispatch, the
+    chains (the loop form under gloo) against single steps;
 (g) --profile and --platform."""
 
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
@@ -374,6 +375,53 @@ def test_torchrun_trains_like_one_process(tmp_path):
     for i, s in want["optimizer"]["state"].items():
         _assert_close_to_scale(got["optimizer"]["state"][i]["momentum_buffer"],
                                s["momentum_buffer"], 2e-3, f"momentum {i}")
+
+
+def _torchrun(tmp_path, tag, args):
+    """torchrun with WORLD processes of the driver into tmp_path/tag,
+    started (the caller waits): (process, log path)."""
+    log = str(tmp_path / f"{tag}.txt")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(WORLD), "-m", "edge_enhancement_tpu_torch.train", *args,
+         "--output", str(tmp_path / tag)],
+        cwd=REPO, env=_env(), stdout=open(log, "w"), stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def test_torchrun_chained_dispatch_equals_single_steps(tmp_path):
+    """torchrun with 2 processes, --steps-per-dispatch 3 and
+    --limit-batches 5: chains of 3 and 2 on every rank (each loads 5
+    batches), the loop form named on the first log line with the backend
+    and the world; the checkpoint bit for bit that of the same run with
+    single steps."""
+    config = _tiny_config(tmp_path)
+    args = ["--config", config, "--data", "synthetic", "--synthetic-size", "40",
+            "--epochs", "1", "--limit-batches", "5", "--device", "cpu"]
+    runs = {tag: _torchrun(tmp_path, tag, args + extra) for tag, extra in
+            (("single", []), ("chained", ["--steps-per-dispatch", "3"]))}
+    _wait([p for p, _ in runs.values()], [lg for _, lg in runs.values()], 300)
+    ckpts, logs = {}, {}
+    for tag in runs:
+        (run_dir,) = [d for d in (tmp_path / tag).rglob("ckpt")]
+        ckpts[tag] = torch.load(run_dir / "checkpoint.pth.tar")
+        logs[tag] = (run_dir.parent / "log" / "log.txt").read_text().splitlines()
+    assert ("2 processes (gloo), 4 images a process, steps_per_dispatch 3 (loop), "
+            "backend gloo, world 2") in logs["chained"][0]
+    assert "steps_per_dispatch" not in logs["single"][0]
+    # print_freq 1: a line a dispatch, at its last batch (chains 0-2, 3-4)
+    assert [ln.split("\t")[0] for ln in logs["chained"] if ln.startswith("Epoch:")] == [
+        "Epoch: [0][2/5]", "Epoch: [0][4/5]"]
+    for lines in logs.values():
+        assert sum(ln.startswith("=> epoch 0: 5 train steps") for ln in lines) == 1
+    got, want = ckpts["chained"], ckpts["single"]
+    assert got["epoch"] == want["epoch"] == 1
+    assert sorted(got["state_dict"]) == sorted(want["state_dict"])
+    for k, v in want["state_dict"].items():
+        assert torch.equal(got["state_dict"][k], v), k
+    for i, st in want["optimizer"]["state"].items():
+        assert torch.equal(got["optimizer"]["state"][i]["momentum_buffer"],
+                           st["momentum_buffer"]), i
 
 
 # ---- (g) ---------------------------------------------------------------------

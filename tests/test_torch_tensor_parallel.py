@@ -18,7 +18,11 @@ OpenMP thread, as tests/test_torch_parallel.py runs the `data` axis
 (f) the step's reduction on data 2 x model 2: a cut parameter's gradient
     summed over the data group, a replicated one's also averaged over the
     model group, which keeps the model ranks' replicas equal where they
-    computed it apart and leaves it bit for bit where they did not."""
+    computed it apart and leaves it bit for bit where they did not;
+(g) AWP (objectives/awp.py) on data 1 x model 2 and data 2 x model 2
+    against one process, float64, the gate off and on, with and without
+    the L1 term (tests/test_torch_awp.py holds the same step against JAX's
+    on a data 2 x model 2 mesh)."""
 
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import os
@@ -361,3 +365,61 @@ def test_replicated_gradients_are_averaged_over_the_model_group(tmp_path):
             cut = sharding.param_spec(name, g) is not None
             assert torch.all(g == (2 * m + 4 if cut else 5)), name
             assert torch.equal(alike, data_sum), name
+
+
+# ---- (g) ---------------------------------------------------------------------
+
+AWP_CONFIG = os.path.join(REPO, "edge_enhancement_tpu", "configs", "awp_cifar100",
+                          "at_awp.yml")
+AWP_SHAPE = (4, 16, 16, 3)
+# (awp_on, l1): the gate off and on; the L1 term, whose cut weights' parts
+# are summed over the model group
+AWP_VARIANTS = ((0.0, 0.0), (1.0, 0.0), (1.0, 1e-3))
+AWP_PARAMS = dict(gamma=0.01, proxy_lr=0.01)
+
+
+def _awp_one_process(cfg, x, y, awp_on, l1):
+    """One AWP step of the config's model in one process, float64."""
+    from edge_enhancement_tpu_torch.objectives import awp as tawp
+    ops, state, gen = driver.build(cfg, 100, torch.device("cpu"))
+    state.model.double()
+    state.momentum_buf = [b.double() for b in state.momentum_buf]
+    step = tawp.build_awp_train_step(ops, driver.make_method_config(cfg, 100),
+                                     OptimConfig(MOMENTUM, WD),
+                                     tawp.AWPConfig(l1=l1, **AWP_PARAMS), gen)
+    m = step(state, x.double(), y, LR, awp_on)
+    return state, m
+
+
+@pytest.mark.parametrize("world,n_model", [(2, 2), (4, 2)])
+def test_awp_on_a_model_axis_equals_one_process_in_float64(tmp_path, world, n_model):
+    """AWP steps of PreActResNet18 (awp_cifar100/at_awp.yml, PGD-1, 4
+    images of 16 px, its PGD start from the run's generator) on data
+    world / n_model x model n_model, each (awp_on, l1) of AWP_VARIANTS from
+    the same weights: every rank's gathered state bitwise alike, and
+    against one process on the global batch, float64: parameters,
+    BatchNorm statistics and momentum 1e-10, the loss 1e-6 (float32
+    logits). A cut weight's norms taken on its rows alone would move the
+    perturbation and miss."""
+    cfg = load_config(AWP_CONFIG, dict(num_steps_1=1, seed=3, device="cpu"))
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.random(AWP_SHAPE).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 100, AWP_SHAPE[0]).astype(np.int64))
+    ranks = run_mesh(tmp_path, "awp", dict(
+        cfg=dict(cfg), num_classes=100, x=x, y=y, variants=AWP_VARIANTS, lr=LR,
+        momentum=MOMENTUM, weight_decay=WD, **AWP_PARAMS), world, n_model)
+    for i, (awp_on, l1) in enumerate(AWP_VARIANTS):
+        got = ranks[0]["variants"][i]
+        for r in ranks[1:]:
+            other = r["variants"][i]
+            assert other["metrics"] == got["metrics"]
+            assert all(torch.equal(v, other["state"][k]) for k, v in got["state"].items())
+            assert all(torch.equal(a, b) for a, b in zip(got["momentum"], other["momentum"]))
+        state, m = _awp_one_process(cfg, x, y, awp_on, l1)
+        assert got["step"] == state.step == 1
+        for k, v in state.model.state_dict().items():
+            torch.testing.assert_close(got["state"][k], v, **F64_TOL, msg=k)
+        for a, b in zip(got["momentum"], state.momentum_buf):
+            torch.testing.assert_close(a, b, **F64_TOL)
+        np.testing.assert_allclose(got["metrics"]["loss"], float(m["loss"]), rtol=1e-6)
+        assert got["metrics"]["top1"] == pytest.approx(float(m["top1"]), abs=1e-4)

@@ -29,6 +29,18 @@ saved in <dir>/inputs.pt and saves this rank's results in
 * tp_sum: mesh.sum_step on a cut Net2's parameters, once with gradients
   that differ on every rank and once with gradients alike on the model
   ranks of a data row, beside the data group's own sum of the latter.
+* chain: the flagship's chained step (build_chained_train_step, the
+  loop form under gloo) from the driver's own `build`, and the same K
+  batches as K single steps from a fresh build, optionally in float64.
+* chain_replay: the chained step on replayed global draws (this rank's
+  rows of each step's square stripes and PGD start), each step's own
+  x_adv kept and the given one (JAX's) used for its update.
+* awp: AWP steps (objectives/awp.py) of the driver's build of an AWP
+  config in float64, with the model cut over the `model` axis, each
+  variant (awp_on, l1) from a fresh build; the state gathered into the
+  one-process layout. With `noise` and `x_adv` (one a variant) given: the
+  PGD start and the update's x_adv replayed (this rank's data rows), each
+  step's own x_adv kept.
 
 Imports no JAX."""
 
@@ -221,8 +233,105 @@ def tp_sum(inp):
             "loss": metrics["loss"].item()}
 
 
+def _stack_rows(ts):
+    return torch.stack([_rows(t) for t in ts])
+
+
+def chain(inp):
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.train.trainer import (OptimConfig,
+                                                          build_chained_train_step,
+                                                          build_train_step)
+    cfg, n, dtype = inp["cfg"], inp["num_classes"], inp["dtype"]
+    xs, ys = _stack_rows(inp["xs"]).to(dtype), _stack_rows(inp["ys"])
+    out = {}
+    for form in ("single", "chained"):
+        ops, state, gen = driver.build(cfg, n, torch.device("cpu"))
+        state.model.to(dtype)
+        state.momentum_buf = [b.to(dtype) for b in state.momentum_buf]
+        mesh.replicate(state.model)
+        parts = (ops, driver.make_method_config(cfg, n),
+                 OptimConfig(inp["momentum"], inp["weight_decay"]), gen)
+        if form == "single":
+            step = build_train_step(*parts)
+            for x, y in zip(xs, ys):
+                m = step(state, x, y, inp["lr"])
+        else:
+            step = build_chained_train_step(*parts)
+            m = step(state, xs, ys, inp["lr"])
+            assert step.capture_seconds is None           # the loop form
+        out[form] = _step_result(state, m)
+    return out
+
+
+def chain_replay(inp):
+    from edge_enhancement_tpu_torch.attacks import pgd as tpgd
+    from edge_enhancement_tpu_torch.models.registry import build_model
+    from edge_enhancement_tpu_torch.objectives import methods as tmethods
+    from edge_enhancement_tpu_torch.train import trainer
+    from edge_enhancement_tpu_torch.train.modelops import ModelOps
+    model = build_model(inp["arch"], inp["ee_args"], inp["num_classes"])
+    model.load_state_dict(inp["state"])
+    model.double()
+    model.square_source = source = _RowReplay(inp["draws"])
+    noise, given, kept = iter(inp["noise"]), iter(inp["x_adv"]), []
+    tpgd.uniform_init_noise = lambda x, eps, gen: _rows(next(noise)).to(x.dtype)
+    real = tpgd.pgd_linf
+
+    def spy(*args, **kwargs):
+        kept.append(real(*args, **kwargs))
+        return _rows(next(given)).to(args[1].dtype)
+    tmethods.pgd_linf = spy
+    state = trainer.create_train_state(model)
+    step = trainer.build_chained_train_step(
+        ModelOps(model), tmethods.MethodConfig(inp["method"], **inp["fields"]),
+        trainer.OptimConfig(inp["momentum"], inp["weight_decay"]))
+    m = step(state, _stack_rows(inp["xs"]).double(), _stack_rows(inp["ys"]), inp["lr"])
+    assert source.calls == len(inp["draws"]) and len(kept) == len(inp["xs"])
+    return {**_step_result(state, m), "x_adv": kept}
+
+
+def awp(inp):
+    from edge_enhancement_tpu_torch.attacks import pgd as tpgd
+    from edge_enhancement_tpu_torch.objectives import awp as tawp
+    from edge_enhancement_tpu_torch.parallel import sharding
+    from edge_enhancement_tpu_torch.train import driver
+    from edge_enhancement_tpu_torch.train.trainer import OptimConfig
+    cfg, n, given = inp["cfg"], inp["num_classes"], inp.get("x_adv")
+    kept, current = [], {}
+    if given is not None:
+        tpgd.uniform_init_noise = lambda x, eps, gen: _rows(inp["noise"]).to(x.dtype)
+        real = tawp.pgd_linf
+
+        def spy(*args, **kwargs):
+            kept.append(real(*args, **kwargs))
+            return _rows(current["x_adv"]).to(args[1].dtype)
+        tawp.pgd_linf = spy
+    out = []
+    for i, (awp_on, l1) in enumerate(inp["variants"]):
+        if given is not None:
+            current["x_adv"] = given[i]
+        ops, state, gen = driver.build(cfg, n, torch.device("cpu"))
+        if inp.get("weights") is not None:
+            state.model.load_state_dict(inp["weights"])
+        state.model.double()
+        state.momentum_buf = [b.double() for b in state.momentum_buf]
+        mesh.replicate(state.model)
+        sharding.shard_state(state)
+        step = tawp.build_awp_train_step(
+            ops, driver.make_method_config(cfg, n),
+            OptimConfig(inp["momentum"], inp["weight_decay"]),
+            tawp.AWPConfig(gamma=inp["gamma"], proxy_lr=inp["proxy_lr"], l1=l1), gen)
+        m = step(state, _rows(inp["x"]).double(), _rows(inp["y"]), inp["lr"], awp_on)
+        sd, mom = sharding.gather_state(state)
+        out.append({"state": sd, "momentum": mom, "step": state.step,
+                    "metrics": {k: v.item() for k, v in m.items()}})
+    return {"variants": out, "x_adv": kept}
+
+
 TASKS = {"syncbn": syncbn, "step": step, "replay": replay, "noise": noise,
-         "tp_step": tp_step, "tp_replay": tp_replay, "tp_sum": tp_sum}
+         "tp_step": tp_step, "tp_replay": tp_replay, "tp_sum": tp_sum, "chain": chain,
+         "chain_replay": chain_replay, "awp": awp}
 
 
 def main():

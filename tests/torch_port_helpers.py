@@ -470,40 +470,50 @@ def native_decode_spy(monkeypatch, *modules) -> list:
 
 class _JaxStream:
     """Hands the next of `items` (tuples of float32 numpy arrays) to a
-    traced JAX program at each call, in program order (an ordered
-    io_callback): so a fake that a lax.scan body traces once gives each
-    step its own draws. (The callback runs on the runtime's thread, which
-    jax.enable_x64 does not reach: a float64 item would come back as
-    float32, so the fakes widen what they get.)"""
+    traced JAX program at each call, in program order: so a fake that a
+    lax.scan body traces once gives each step its own draws. On one device
+    an ordered io_callback keeps the order. A program on several devices
+    refuses ordered effects, so there the callback is unordered and takes
+    the array that the draw is for as an operand: each draw's input
+    depends on the previous draw's use (the attack's next iterate, the next
+    step of the scan), which orders the calls; the callback runs once, on
+    the whole array (checked against `operand_shape`). (The callback runs
+    on the runtime's thread, which jax.enable_x64 does not reach: a float64
+    item would come back as float32, so the fakes widen what they get.)"""
 
-    def __init__(self, items):
+    def __init__(self, items, operand_shape=None):
         self.items, self.calls = list(items), 0
+        self.operand_shape = operand_shape
 
-    def _next(self):
+    def _next(self, *operands):
+        for a in operands:
+            assert a.shape == self.operand_shape, (a.shape, self.operand_shape)
         item = self.items[self.calls]
         self.calls += 1
         return item
 
-    def __call__(self):
+    def __call__(self, operand=None):
         from jax.experimental import io_callback
         shapes = tuple(jax.ShapeDtypeStruct(a.shape, a.dtype) for a in self.items[0])
-        return io_callback(self._next, shapes, ordered=True)
+        if self.operand_shape is None:
+            return io_callback(self._next, shapes, ordered=True)
+        return io_callback(self._next, shapes, jax.lax.stop_gradient(operand),
+                           ordered=False)
 
 
-def chained_step_pair(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1):
-    """K flagship train steps (EE_BPDA3_AT_square) as one chained dispatch
-    in the JAX package (build_chained_train_step: a lax.scan over the
-    batch stack, its keys split as the JAX driver splits a chain's) and in
-    the port (build_chained_train_step: the CPU loop), on carried weights,
-    with each step's square draws and PGD start noise made with numpy and
-    replayed on both sides in step order. The port's attack runs, but the
-    port takes JAX's x_adv of each step for its update. Both sides run in
-    float64 (JAX under jax.enable_x64): in float32 the second step's
-    gradient at this size moves by ~40% of its largest value for a 4e-5
-    move of conv1's weights (the first step's float32 difference between
-    the two libraries), so only float64 can hold K steps. Returns the
-    port's (metrics, state, model, [x_adv a step]) and JAX's (metrics,
-    state, [x_adv a step])."""
+def chained_step_jax(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1, n_data=None):
+    """JAX's half of `chained_step_pair`: K flagship steps
+    (EE_BPDA3_AT_square) as one chained dispatch of the JAX package
+    (build_chained_train_step: a lax.scan over the batch stack, its keys
+    split as the JAX driver splits a chain's) on float64 carried weights,
+    each step's square draws and PGD start made with numpy and replayed.
+    With `n_data` the step is jitted over meshlib.make_mesh(n_data=n_data),
+    the stacks sharded P(None, 'data') by shard_batch_stacked, as the JAX
+    driver's chains under several devices. Returns (the port's inputs: its
+    model on the same weights, xs, ys, the draws in the port's order, the
+    PGD starts, the fields of the method), and JAX's (metrics, state,
+    [x_adv a step])."""
+    from edge_enhancement_tpu.parallel import mesh as meshlib
     ops_j, params, bs, model = jax_and_port_models(shape)
     wide = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)
     rng = np.random.default_rng(0)
@@ -515,18 +525,19 @@ def chained_step_pair(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1):
     draws = square_draws(k * n_fwd, shape)
 
     # ---- JAX: each fake traced once in the scan body, its draws streamed --
-    squares = _JaxStream([draws[s * n_fwd + i] for s in range(k) for i in order])
-    starts = _JaxStream([(n,) for n in noise])
+    along = shape if n_data else None
+    squares = _JaxStream([draws[s * n_fwd + i] for s in range(k) for i in order], along)
+    starts = _JaxStream([(n,) for n in noise], along)
 
     def add_square(x, key, *, epsilon, n_queries=1, **_):
-        stripes, mask, sign = (a.astype(x.dtype) for a in squares())
+        stripes, mask, sign = (a.astype(x.dtype) for a in squares(x))
         x_best = jnp.clip(x + epsilon * stripes, 0.0, 1.0)
         x_best = x_best + 2.0 * epsilon * sign * mask[None, :, :, None]
         x_best = jnp.minimum(jnp.maximum(x_best, x - epsilon), x + epsilon)
         return jnp.clip(x_best, 0.0, 1.0)
 
     def init(cfg, key, xx):
-        (n,) = starts()
+        (n,) = starts(xx)
         return jnp.clip(xx + n.astype(xx.dtype), 0.0, 1.0)
 
     x_adv_j = []
@@ -534,36 +545,61 @@ def chained_step_pair(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1):
 
     def spy(*args, **kwargs):
         # x_adv's float64 bits as uint32 pairs: a float64 array would come
-        # back rounded to float32 (_JaxStream says why)
+        # back rounded to float32 (_JaxStream says why); unordered on a
+        # mesh, where the scan's steps still run one after the other
         out = real_pgd(*args, **kwargs)
         jax.debug.callback(lambda a: x_adv_j.append(np.asarray(a).view(np.float64)[..., 0]),
-                           jax.lax.bitcast_convert_type(out[0], jnp.uint32), ordered=True)
+                           jax.lax.bitcast_convert_type(out[0], jnp.uint32),
+                           ordered=not n_data)
         return out
     monkeypatch.setattr(jee, "add_square", add_square)
     monkeypatch.setattr(jpgd, "_init_perturbation", init)
     monkeypatch.setattr(jmethods, "pgd_linf", spy)
     common = dict(epsilon=EPS, num_steps=pgd_steps, step_size=STEP_SIZE, num_classes=200)
+    mesh = meshlib.make_mesh(n_data=n_data) if n_data else None
     step_j = jtrainer.build_chained_train_step(
         ops_j, jmethods.MethodConfig("EE_BPDA3_AT_square", **common),
-        jtrainer.OptimConfig(MOMENTUM, WD))
+        jtrainer.OptimConfig(MOMENTUM, WD), mesh=mesh)
     with jax.enable_x64(True):
         state_j = jtrainer.TrainState(params=wide(params), batch_stats=wide(bs),
                                       momentum_buf=init_momentum(wide(params)),
                                       step=jnp.zeros((), jnp.int32))
         keys = jax.random.split(jax.random.split(jax.random.PRNGKey(0))[1], k)
-        state_j, m_j = step_j(state_j, jnp.asarray(xs), jnp.asarray(ys), keys,
-                              jnp.asarray(LR))
+        xb, yb, lr = jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(LR)
+        if mesh is not None:
+            state_j, keys, lr = meshlib.replicate(mesh, (state_j, keys, lr))
+            xb, yb = meshlib.shard_batch_stacked(mesh, (xb, yb))
+        state_j, m_j = step_j(state_j, xb, yb, keys, lr)
         jax.block_until_ready(state_j)
         jax.effects_barrier()                   # the x_adv callbacks have run
         assert state_j.params["Conv_0"]["kernel"].dtype == jnp.float64
     assert squares.calls == len(squares.items) and starts.calls == k
     assert int(state_j.step) == k and len(x_adv_j) == k
+    port = dict(model=model, xs=xs, ys=ys, draws=draws, noise=noise, fields=common)
+    return port, (m_j, state_j, x_adv_j)
+
+
+def chained_step_pair(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1):
+    """K flagship train steps (EE_BPDA3_AT_square) as one chained dispatch
+    in the JAX package (`chained_step_jax`) and in the port
+    (build_chained_train_step: the CPU loop), on carried weights, with
+    each step's square draws and PGD start noise made with numpy and
+    replayed on both sides in step order. The port's attack runs, but the
+    port takes JAX's x_adv of each step for its update. Both sides run in
+    float64 (JAX under jax.enable_x64): in float32 the second step's
+    gradient at this size moves by ~40% of its largest value for a 4e-5
+    move of conv1's weights (the first step's float32 difference between
+    the two libraries), so only float64 can hold K steps. Returns the
+    port's (metrics, state, model, [x_adv a step]) and JAX's (metrics,
+    state, [x_adv a step])."""
+    port, (m_j, state_j, x_adv_j) = chained_step_jax(monkeypatch, k, shape, pgd_steps)
+    model, draws, common = port["model"], port["draws"], port["fields"]
 
     # ---- the port --------------------------------------------------------
     t = torch.from_numpy
     model.double()
     sq_t = model.square_source = TorchSquareReplay(draws)
-    noise_t = iter(noise)
+    noise_t = iter(port["noise"])
     monkeypatch.setattr(tpgd, "uniform_init_noise",
                         lambda xx, eps, gen: t(next(noise_t)).to(xx.dtype))
     x_adv_t, real_port = [], tpgd.pgd_linf
@@ -576,7 +612,7 @@ def chained_step_pair(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1):
     step = ttrainer.build_chained_train_step(
         ModelOps(model), tmethods.MethodConfig("EE_BPDA3_AT_square", **common),
         ttrainer.OptimConfig(MOMENTUM, WD))
-    m = step(state, t(xs), t(ys).long(), LR)
+    m = step(state, t(port["xs"]), t(port["ys"]).long(), LR)
     assert sq_t.calls == len(draws) and len(x_adv_t) == k
     return (m, state, model, x_adv_t), (m_j, state_j, x_adv_j)
 
