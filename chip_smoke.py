@@ -213,6 +213,13 @@
       R3_DIFF_TOL, then on the ranks' perturbation within P1_*; K1/K2
       36/30 a rank (path awp_model_axis). `python3 chip_smoke.py --phase
       r` runs the device, the build and phase r alone.
+   s. the port's whole-training twin (edge_enhancement_tpu_torch/tools/
+      twin.py) on the flagship recipe: 1 seed, 1 epoch, 100 train and 50
+      validation images of synthetic-hard at batch 25 (4 train steps of
+      PGD-10, 2 validation batches of PGD-10); K1/K2 exactly 11/10 a step
+      and 12/10 a validation batch, no other kernel (path twin); finite
+      accuracies. `python3 chip_smoke.py --phase s` runs the device, the
+      build and phase s alone.
 5. The reference, for slices a to d, k, l, m2 and p2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -521,6 +528,10 @@ R_STEPS, R_TIMED, R2_TIMEOUT = 3, 1, 300
 # alone would move it by tens of percent
 R3_DIFF_TOL = 1e-4
 R3_CONFIG = os.path.join(CONFIGS, "awp_tiny_imagenet", "ee_bpda_3_at_awp.yml")
+# s: the twin's flagship family at 1 seed and 1 epoch: 4 train steps and 2
+# validation batches of 25
+TWIN_ARGS = dict(seeds=[1], epochs=1, n_train=100, n_val=50)
+TWIN_STEPS, TWIN_EVALS = 4, 2
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -3012,6 +3023,35 @@ def ranks_phase(torch, kernels, device_line) -> None:
     awp_model_axis_phase(torch, kernels, device_line)
 
 
+def twin_phase(torch, kernels, device_line) -> None:
+    """s. The flagship family of the port's twin (tools/twin.py) through
+    its entry point, TWIN_ARGS: exact K1/K2 counts, finite accuracies."""
+    from edge_enhancement_tpu_torch.tools import twin
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    record = twin.run("flagship", device="cuda", **TWIN_ARGS)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    run = record["port"]["1"]
+    steps, evals = run["train_steps"], run["eval_batches"]
+    k = int(record["recipe"]["num_steps_1"])
+    f_step, b_step = step_launches("at", k)
+    print(f"[twin s] flagship recipe, seed 1, 1 epoch: {steps} train steps, {evals} "
+          f"validation batches; clean {run['clean']} adv {run['adv']}; "
+          f"{time.perf_counter() - t0:.1f} s wall on {device_line}", flush=True)
+    if (steps, evals) != (TWIN_STEPS, TWIN_EVALS):
+        fail(f"s: expected {TWIN_STEPS} train steps and {TWIN_EVALS} validation batches, "
+             f"got {steps}, {evals}")
+    _check_launches("twin", launches, {"ee_fused_fwd": steps * f_step + evals * (k + 2),
+                                       "ee_fused_bwd": steps * b_step + evals * k})
+    if run["launches"] != {name: n for name, n in launches.items() if n}:
+        fail(f"s: the twin's own counts {run['launches']} differ from {launches}")
+    if not all(math.isfinite(v) for v in run["clean"] + run["adv"]):
+        fail(f"s: accuracies not finite: {run['clean']}, {run['adv']}")
+    _record_launches(kernels, "twin", launches)
+
+
 def main():
     import torch
 
@@ -3052,6 +3092,7 @@ def main():
     bf16_variants_phase(torch, kernels, smi)
     chained_phase(torch, kernels, smi, eager_ms[False])
     ranks_phase(torch, kernels, smi)
+    twin_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):
@@ -3062,24 +3103,28 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
-def ranks_main() -> None:
-    """`--phase r`: the device, the build and phase r alone (on a machine
-    with one card, or with a card a rank for r2); no kernels line and no
-    final line."""
+PHASES = {"r": ranks_phase, "s": twin_phase}
+
+
+def phase_main(letter: str) -> None:
+    """`--phase r` or `--phase s`: the device, the build and that phase
+    alone (r on a machine with one card, or with a card a rank for r2); no
+    kernels line and no final line."""
     import torch
 
     name, smi = device_phase(torch)
     sys.path.insert(0, ROOT)
     build_phase()
-    ranks_phase(torch, [], smi)
-    print(f"chip_smoke: phase r passed on {torch.cuda.device_count()} x {name}", flush=True)
+    PHASES[letter](torch, [], smi)
+    print(f"chip_smoke: phase {letter} passed on {torch.cuda.device_count()} x {name}",
+          flush=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.path.insert(0, ROOT)
         rank_main(sys.argv[2:])
-    elif sys.argv[1:] == ["--phase", "r"]:
-        ranks_main()
+    elif sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 and sys.argv[2] in PHASES:
+        phase_main(sys.argv[2])
     else:
         main()

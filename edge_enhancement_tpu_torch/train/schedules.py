@@ -19,7 +19,7 @@ def step30_free(init_lr: float, epoch: int, n_repeats: int) -> float:
     return init_lr * (0.1 ** (epoch // int(math.ceil(30.0 / n_repeats))))
 
 
-def piecewise_50_75(init_lr: float, epoch: int, total_epochs: int) -> float:
+def piecewise_50_75(init_lr: float, epoch: float, total_epochs: int) -> float:
     """0.1x after 50% and after 75% of training (strict >, as the
     reference)."""
     if epoch > total_epochs * 0.75:

@@ -659,3 +659,27 @@ def test_chained_graph_replays_the_eager_steps_bit_for_bit(cuda):
     assert all(torch.equal(a, b) for a, b in zip(eager, graphed)) and torch.equal(loss, loss3)
     # 3 steps of PGD-2: K1 3 a step, K2 2 a step, the capture's not counted
     assert launches["ee_fused_fwd"] == 9 and launches["ee_fused_bwd"] == 6
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16), (2, 3, 15, 15), (8, 64, 112, 112)])
+def test_max_pool_tie_routing_matches_the_cpu(cuda, shape):
+    """The card's max pool (ops/pooling.py: F.max_pool2d) on plateaus
+    against the CPU's, which tests/test_torch_ops.py pins to the JAX
+    package's first-max routing: the same outputs, and with integer
+    cotangents (overlapping windows sum exactly in any order) the same
+    input gradient, exactly. The last shape is ImageNet's stem output."""
+    from edge_enhancement_tpu_torch.ops import pooling
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.integers(0, 4, size=shape) / 3.0).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).detach().requires_grad_()
+        y = pooling.max_pool_3x3_s2(xd)
+        if not grads:
+            g = torch.from_numpy(rng.integers(-4, 5, size=tuple(y.shape)).astype(np.float32))
+        y.backward(g.to(dev))
+        grads.append((y.detach().cpu(), xd.grad.cpu()))
+    (y_cpu, dx_cpu), (y_card, dx_card) = grads
+    assert torch.equal(y_card, y_cpu)
+    assert torch.equal(dx_card, dx_cpu), (dx_card != dx_cpu).sum().item()
