@@ -218,8 +218,14 @@
       validation images of synthetic-hard at batch 25 (4 train steps of
       PGD-10, 2 validation batches of PGD-10); K1/K2 exactly 11/10 a step
       and 12/10 a validation batch, no other kernel (path twin); finite
-      accuracies. `python3 chip_smoke.py --phase s` runs the device, the
-      build and phase s alone.
+      accuracies. Then the twin's two other loop shapes, free-AT's replay
+      loop (free family: resnet18_EE with the full CannyFilter, 4 replays
+      a batch, one noise buffer) and fast-AT's (fast family: resnet50_EE,
+      FGSM from a uniform start, the knots' lr), 1 seed, 1 epoch, 50 train
+      and 25 validation images: 2 train steps (8 and 2 SGD updates), 1
+      validation batch of PGD-10, no kernel launched (paths twin_free,
+      twin_fast); finite accuracies. `python3 chip_smoke.py --phase s`
+      runs the device, the build and phase s alone.
 5. The reference, for slices a to d, k, l, m2 and p2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -532,6 +538,11 @@ R3_CONFIG = os.path.join(CONFIGS, "awp_tiny_imagenet", "ee_bpda_3_at_awp.yml")
 # validation batches of 25
 TWIN_ARGS = dict(seeds=[1], epochs=1, n_train=100, n_val=50)
 TWIN_STEPS, TWIN_EVALS = 4, 2
+# s: the free and fast families at 1 seed and 1 epoch: 2 train steps (the
+# free family's 4 replays each) and 1 validation batch of 25
+TWIN_LOOPS = ("free", "fast")
+TWIN_LOOP_ARGS = dict(seeds=[1], epochs=1, n_train=50, n_val=25)
+TWIN_LOOP_STEPS, TWIN_LOOP_EVALS = 2, 1
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -3050,6 +3061,38 @@ def twin_phase(torch, kernels, device_line) -> None:
     if not all(math.isfinite(v) for v in run["clean"] + run["adv"]):
         fail(f"s: accuracies not finite: {run['clean']}, {run['adv']}")
     _record_launches(kernels, "twin", launches)
+    for family in TWIN_LOOPS:
+        twin_loop_phase(torch, family, device_line)
+
+
+def twin_loop_phase(torch, family: str, device_line) -> None:
+    """s. The free or fast family of the twin (free-AT's replay loop,
+    fast-AT's FGSM loop) through its entry point, TWIN_LOOP_ARGS: the train
+    steps, the SGD updates (replays), no kernel launched, finite
+    accuracies."""
+    from edge_enhancement_tpu_torch.tools import twin
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    record = twin.run(family, device="cuda", **TWIN_LOOP_ARGS)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    run = record["port"]["1"]
+    want = (TWIN_LOOP_STEPS, TWIN_LOOP_STEPS * int(record["recipe"]["n_repeats"]),
+            TWIN_LOOP_EVALS)
+    got = (run["train_steps"], run["updates"], run["eval_batches"])
+    print(f"[twin s] {family} recipe ({record['recipe']['arch']}), seed 1, 1 epoch: "
+          f"{got[0]} train steps, {got[1]} SGD updates, {got[2]} validation batches; "
+          f"lr {run['lr']}; clean {run['clean']} adv {run['adv']}; "
+          f"{time.perf_counter() - t0:.1f} s wall on {device_line}", flush=True)
+    if got != want:
+        fail(f"s: {family}: expected train steps, updates and validation batches "
+             f"{want}, got {got}")
+    _check_launches(f"twin_{family}", launches, {})
+    if run["launches"]:
+        fail(f"s: {family}: the twin's own counts {run['launches']} are not empty")
+    if not all(math.isfinite(v) for v in run["clean"] + run["adv"]):
+        fail(f"s: {family}: accuracies not finite: {run['clean']}, {run['adv']}")
 
 
 def main():

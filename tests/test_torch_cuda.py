@@ -683,3 +683,59 @@ def test_max_pool_tie_routing_matches_the_cpu(cuda, shape):
     (y_cpu, dx_cpu), (y_card, dx_card) = grads
     assert torch.equal(y_card, y_cpu)
     assert torch.equal(dx_card, dx_cpu), (dx_card != dx_cpu).sum().item()
+
+
+# the flagship's layers (ResNet-18 at 64 px, batch 100): the stem's 7x7 /2
+# convolution, a layer1 3x3 convolution, the stem's BatchNorm in train mode
+GRAD_LAYERS = {"stem_conv": (100, 3, 64, 64), "layer1_conv": (100, 64, 16, 16),
+               "stem_batchnorm": (100, 64, 32, 32)}
+# ||dx(card) - dx(CPU)|| / ||dx(CPU)||: float32 sums of <= 3,136 terms in
+# another order (~1e-7 each), float64 the same at 2^-53
+GRAD_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layer", list(GRAD_LAYERS))
+def test_layer_input_gradient_on_the_card_matches_the_cpu(cuda, layer, dtype):
+    """The card's input gradient of one cuDNN convolution (dgrad) and of one
+    train-mode BatchNorm (models/batchnorm.py) against the CPU's on the
+    same weights, input and cotangent, TF32 off: whether either layer alone
+    is where the whole model's card-vs-CPU input gradient parts (~1e-2 of
+    its norm in chip_smoke.py's j2). Prints the relative gap."""
+    from edge_enhancement_tpu_torch.models import resnet
+    from edge_enhancement_tpu_torch.models.batchnorm import BatchNorm2d
+
+    shape = GRAD_LAYERS[layer]
+    gen = torch.Generator().manual_seed(0)
+    if layer == "stem_conv":
+        module = resnet.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+    elif layer == "layer1_conv":
+        module = resnet._conv(64, 64, 3)
+    else:
+        module = BatchNorm2d(64)
+        with torch.no_grad():
+            module.weight.copy_(torch.rand(64, generator=gen) + 0.5)
+            module.bias.copy_(torch.randn(64, generator=gen))
+    module = module.to(dtype)
+    x = torch.randn(shape, generator=gen, dtype=dtype)
+    with torch.no_grad():
+        u = torch.randn_like(module(x))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = {}
+        for dev in ("cpu", cuda):
+            m = module.to(dev)
+            xd = x.to(dev).requires_grad_()
+            out = m(xd)
+            (dx,) = torch.autograd.grad(out, xd, u.to(dev))
+            got[str(dev)] = (out.detach().cpu(), dx.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (out_cpu, dx_cpu), (out_card, dx_card) = got["cpu"], got[str(cuda)]
+    rel = ((dx_card - dx_cpu).norm() / dx_cpu.norm()).item()
+    rel_out = ((out_card - out_cpu).norm() / out_cpu.norm()).item()
+    print(f"[grad card vs cpu] {layer} {dtype}: dx {rel:.3e} of its norm, "
+          f"max {(dx_card - dx_cpu).abs().max().item():.3e}; forward {rel_out:.3e}")
+    assert rel_out <= GRAD_TOL[dtype], rel_out
+    assert rel <= GRAD_TOL[dtype], rel

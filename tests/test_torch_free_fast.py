@@ -1,13 +1,19 @@
 """Free-AT and fast-AT (objectives/free_fast.py) against the JAX steps: one
 free-AT step with 2 replays and one fast-AT step with JAX's uniform draws,
 on resnet18_EE with weights carried across: parameters, momentum, BatchNorm
-statistics, the noise and the loss. Then the BatchNorm no-decay mask and
-the two schedules against the JAX functions.
+statistics, the noise and the loss. Each on two front-ends: the BPDA-3
+step125 Canny (K1/K2's plain versions here) and the full CannyFilter (NMS
+and the double threshold, ops/canny.py) of the whole-training twins, r 16
+for free-AT and r 12 for fast-AT (tools/digital_twin_{free,fast}.py). Then
+the BatchNorm no-decay mask and the two schedules against the JAX
+functions.
 
 Batch 8 at 32 px, as tests/test_torch_train_step.py: with batch 2,
 layer4's train-mode BatchNorm (1 x 1) would normalise 2 values a channel."""
 
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -31,15 +37,19 @@ from edge_enhancement_tpu_torch.train.trainer import OptimConfig, create_train_s
 
 ARGS = dict(r=8, w=1.0, low=38.0, high=76.0, alpha=0.0, sigma=1.0, gf=False,
             type_canny="CannyFilter_step125_1", fused_canny=True)
+# the twins' full Canny front-end (CannyFilter: NMS, the double threshold)
+FRONT_ENDS = {"step125": ARGS,
+              "canny_r16": dict(ARGS, r=16, type_canny="CannyFilter"),
+              "canny_r12": dict(ARGS, r=12, type_canny="CannyFilter")}
 SHAPE, CLASSES = (8, 32, 32, 3), 10
 LR, MOMENTUM, WD = 0.1, 0.9, 1e-4
 STEP_NOISE = tff._step_noise
 
 
-@pytest.fixture(scope="module")
-def setup():
+@functools.lru_cache(maxsize=None)
+def _setup(front: str):
     """(JAX ModelOps, params, batch_stats, x, y): params from JAX's init."""
-    ops = JaxModelOps(jax_build_model("resnet18_EE", ARGS, CLASSES))
+    ops = JaxModelOps(jax_build_model("resnet18_EE", FRONT_ENDS[front], CLASSES))
     params, stats = jax.jit(ops.init)(jax.random.PRNGKey(0),
                                       jnp.zeros((1,) + SHAPE[1:], jnp.float32))
     rng = np.random.default_rng(0)
@@ -48,9 +58,9 @@ def setup():
     return ops, params, stats, x, y
 
 
-def _port(params, stats):
+def _port(params, stats, front: str = "step125"):
     tree = lambda t: jax.tree.map(np.asarray, t)
-    model = build_model("resnet18_EE", ARGS, CLASSES)
+    model = build_model("resnet18_EE", FRONT_ENDS[front], CLASSES)
     model.load_state_dict(state_dict_from_jax(tree(params), tree(stats)))
     return model
 
@@ -112,7 +122,8 @@ def _jax_state(params, stats):
                                step=jnp.zeros((), jnp.int32))
 
 
-def test_free_at_step_matches_jax(setup, monkeypatch):
+@pytest.mark.parametrize("front", ["step125", "canny_r16"])
+def test_free_at_step_matches_jax(front, monkeypatch):
     """Two replays on a zero noise, each a forward, one backward for the
     parameters and the noise, the noise update and SGD. JAX's side is its
     one-replay step run twice (its scan over replays carries exactly that
@@ -122,7 +133,7 @@ def test_free_at_step_matches_jax(setup, monkeypatch):
     by which the two states differ, and moves a BatchNorm gradient by a
     share of one of its 8 to 32 terms (1e-2 on the parameters after two
     replays when left to run on)."""
-    ops, params, stats, x, y = setup
+    ops, params, stats, x, y = _setup(front)
     cfg = jff.FreeFastConfig(n_repeats=1, fgsm_step=4 / 255, clip_eps=4 / 255)
     step_j = jff.build_free_train_step(ops, cfg, jtrainer.OptimConfig(MOMENTUM, WD))
     states, noises = [_jax_state(params, stats)], [jnp.zeros(SHAPE)]
@@ -131,7 +142,7 @@ def test_free_at_step_matches_jax(setup, monkeypatch):
                                   jax.random.PRNGKey(i), jnp.float32(LR))
         states.append(state_j)
         noises.append(nz)
-    model = _port(params, stats)
+    model = _port(params, stats, front)
     state = create_train_state(model)
     step = tff.build_free_train_step(
         ModelOps(model), tff.FreeFastConfig(2, 4 / 255, 4 / 255),
@@ -164,10 +175,11 @@ def _load(model, state, state_j):
             b.copy_(mom[k])
 
 
-def test_fast_at_step_matches_jax(setup, monkeypatch):
+@pytest.mark.parametrize("front", ["step125", "canny_r12"])
+def test_fast_at_step_matches_jax(front, monkeypatch):
     """One repeat with JAX's uniform draw: ascent on the noise, descent on
     the model with the noise fixed, SGD with no decay on BatchNorm."""
-    ops, params, stats, x, y = setup
+    ops, params, stats, x, y = _setup(front)
     cfg = jff.FreeFastConfig(n_repeats=1, fgsm_step=2.5 / 255, clip_eps=2 / 255)
     key = jax.random.PRNGKey(2)
     # the draw the JAX step makes: split(key, n_repeats), then split(k, 3)[0]
@@ -177,7 +189,7 @@ def test_fast_at_step_matches_jax(setup, monkeypatch):
         ops, cfg, jtrainer.OptimConfig(MOMENTUM, WD, bn_no_decay=True))
     state_j, noise_j, m_j = step_j(_jax_state(params, stats), jnp.zeros(SHAPE),
                                    jnp.asarray(x), jnp.asarray(y), key, jnp.float32(LR))
-    model = _port(params, stats)
+    model = _port(params, stats, front)
     state = create_train_state(model)
     step = tff.build_fast_train_step(
         ModelOps(model), tff.FreeFastConfig(1, 2.5 / 255, 2 / 255),
