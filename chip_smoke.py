@@ -199,19 +199,17 @@
       through gloo, the chained step in its loop form: 3 eager steps and
       one chained dispatch of 3 from one seed, cuDNN deterministic, equal
       bit for bit on each rank, the replicas alike, K1/K2 33/30 a rank
-      (path chained_ranks_gloo); one more dispatch timed. r2. the same
+      (path chained_ranks_gloo); the dispatch timed. r2. the same
       through NCCL in the graph form, the step's all-reduces captured with
       it (path chained_ranks_nccl): one rank a card where the machine has
       2, else both on cuda:0 with NCCL_HOSTID set apart for each rank
       (NCCL takes them as two hosts, over its socket transport on the
-      loopback); the capture's seconds, ms/step a rank. Where NCCL
-      refuses, the refusal prints and r2' runs instead: a world-1 NCCL
-      group's all-reduce captured beside K1 and replayed, equal to eager.
-      r3. AWP (awp_tiny_imagenet/ee_bpda_3_at_awp.yml, the gate on) on 2
-      ranks of data 1 x model 2 through gloo, as p1: each step against one
-      process from the ranks' gathered state, its perturbation within
-      R3_DIFF_TOL, then on the ranks' perturbation within P1_*; K1/K2
-      36/30 a rank (path awp_model_axis). `python3 chip_smoke.py --phase
+      loopback); the capture's seconds, ms/step a rank. An NCCL refusal
+      fails the run. r3. AWP (awp_tiny_imagenet/ee_bpda_3_at_awp.yml,
+      the gate on) on 2 ranks of data 1 x model 2 through gloo, as p1:
+      each step against one process from the ranks' gathered state, its
+      perturbation within R3_DIFF_TOL, then on the ranks' perturbation
+      within P1_*; K1/K2 36/30 a rank (path awp_model_axis). `python3 chip_smoke.py --phase
       r` runs the device, the build and phase r alone.
    s. the port's whole-training twin (edge_enhancement_tpu_torch/tools/
       twin.py) on the flagship recipe: 1 seed, 1 epoch, 100 train and 50
@@ -226,6 +224,29 @@
       validation batch of PGD-10, no kernel launched (paths twin_free,
       twin_fast); finite accuracies. `python3 chip_smoke.py --phase s`
       runs the device, the build and phase s alone.
+   t. the mesh at T_WORLD (4) ranks over NCCL, after s: one rank a card
+      where the machine has 4, else all on cuda:0 with r2's environment
+      for each rank; an NCCL refusal fails the run. t1. m1's flagship
+      (bs100, 25 a rank) at data 4 as r2 runs it: R_STEPS eager steps and
+      one chained dispatch (the graph form) from one seed, cuDNN
+      deterministic, equal bit for bit on each rank, the four replicas
+      alike, K1/K2 33/30 a rank (path mesh4_flagship_nccl); the first
+      step against one process as m1's (M1_*), beside the one process's
+      own run-to-run spread; the capture's seconds, ms/step and peak
+      memory a rank. t2. the same on data 2 x model 2 (p1's cut of the
+      model; 50 a data rank), the model axis's gathers and sums and the
+      data group's sums captured; the model ranks of a data row alike;
+      each eager step against one process from the ranks' gathered state
+      (M1_*, the data axis's two-way BatchNorm split; P1_* printed
+      beside); rank 0's checkpoint of the chained run the ranks' gathered
+      state bit for bit; K1/K2 33/30 a rank (path mesh22_flagship_nccl).
+      The chained dispatches are timed on the host clock (the eager
+      first step, the capture, the replays). t3. m3's free-AT at data 4 (64
+      a rank): noise_p{rank}.pt restored bit for bit, the ranks' rows
+      different, the weights and momentum the file's, K1/K2 16 and 14 a
+      run (path mesh4_free_at_nccl); ms/step and peak memory a rank beside
+      phase c's. `python3 chip_smoke.py --phase t` runs the device, the
+      build and phase t alone.
 5. The reference, for slices a to d, k, l, m2 and p2: the trained weights on a small
    batch, the card's path (kernels, cuDNN) against the same weights and
    draws on the CPU (the plain versions, which the CPU tests hold against
@@ -239,6 +260,7 @@ CUDA is absent.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -515,18 +537,17 @@ Q3_ARGS = dict(OBJECTIVE_ARGS, steps_per_dispatch=2)
 # r: the chained step under M_WORLD ranks and AWP on the model axis. r1 and
 # r2: m1's flagship (bs100, 50 a rank) from one seed, R_STEPS eager steps
 # and one chained dispatch of R_STEPS, cuDNN deterministic, equal bit for
-# bit; then R_TIMED more dispatches timed. r1 through gloo (the loop form),
+# bit, the dispatch timed. r1 through gloo (the loop form),
 # r2 through NCCL (the graph form, its all-reduces captured), one rank a
 # card where the machine has M_WORLD cards, else both on the one card with
 # NCCL_HOSTID set apart for each rank (NCCL refuses two ranks of one host
 # on one card, and takes them as two hosts over its socket transport on
-# the loopback). Where NCCL refuses all the same, r2' instead captures a
-# world-1 NCCL group's all-reduce beside K1 and replays it. r3: AWP
+# the loopback); an NCCL refusal fails the run. r3: AWP
 # (awp_tiny_imagenet/ee_bpda_3_at_awp.yml, PreActResNet18_EE_BPDA_3, the
 # gate on) on data 1 x model P1_MODEL through gloo, as p1 runs the
 # flagship, held to one process within P1_*. A rank process of r2 runs
 # under R2_TIMEOUT seconds.
-R_STEPS, R_TIMED, R2_TIMEOUT = 3, 1, 300
+R_STEPS, R2_TIMEOUT = 3, 300
 # r3's perturbation against the one process's: d = (w + proxy_lr g) - w
 # rounds in float32 (the proxy's step is small beside w), so two runs whose
 # proxy gradients part by 1.4e-6 part there by 1.32e-5 to 1.38e-5 (H100,
@@ -534,6 +555,11 @@ R_STEPS, R_TIMED, R2_TIMEOUT = 3, 1, 300
 # alone would move it by tens of percent
 R3_DIFF_TOL = 1e-4
 R3_CONFIG = os.path.join(CONFIGS, "awp_tiny_imagenet", "ee_bpda_3_at_awp.yml")
+# t: the mesh at T_WORLD ranks over NCCL, as r2 lays them out (a card a
+# rank, else the one card with NCCL_HOSTID set apart). t1: data T_WORLD; t2:
+# data T_WORLD // P1_MODEL x model P1_MODEL; t3: m3's free-AT at data
+# T_WORLD. A rank process of t runs under T_TIMEOUT seconds.
+T_WORLD, T_TIMEOUT = 4, 900
 # s: the twin's flagship family at 1 seed and 1 epoch: 4 train steps and 2
 # validation batches of 25
 TWIN_ARGS = dict(seeds=[1], epochs=1, n_train=100, n_val=50)
@@ -1798,20 +1824,20 @@ def zoo_phase(torch, kernels, device_line) -> None:
 
 
 def _spawn_ranks(task: str, out: str, timeout: float = M_TIMEOUT,
-                 rank_env=None) -> list:
-    """M_WORLD rank processes of this script (`--rank <task>`) joined by a
+                 rank_env=None, world: int = M_WORLD) -> list:
+    """`world` rank processes of this script (`--rank <task>`) joined by a
     file store in `out`, each under `timeout` seconds, with `rank_env(r)`'s
     variables added to rank r's environment; one that fails (or the clock)
     kills them all. Returns each rank's saved result."""
     import torch
     store = os.path.join(out, "store")
-    logs = [os.path.join(out, f"rank{r}.log") for r in range(M_WORLD)]
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(world)]
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", task,
-                               str(r), f"file://{store}", out],
+                               str(r), str(world), f"file://{store}", out],
                               cwd=ROOT, env=dict(env, **(rank_env(r) if rank_env else {})),
                               stdout=open(logs[r], "w"),
-                              stderr=subprocess.STDOUT) for r in range(M_WORLD)]
+                              stderr=subprocess.STDOUT) for r in range(world)]
     deadline = time.time() + timeout
     try:
         while any(p.poll() is None for p in procs):
@@ -1828,10 +1854,18 @@ def _spawn_ranks(task: str, out: str, timeout: float = M_TIMEOUT,
         with open(lg) as f:
             tail = f.read()[-4000:]
         print(f"[mesh {task}] {os.path.relpath(lg, ROOT)}:\n{tail}", flush=True)
-    if codes != [0] * M_WORLD:
+    if codes != [0] * world:
         fail(f"the {task} ranks exited {codes} (timeout {timeout} s)")
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(M_WORLD)]
+            for r in range(world)]
+
+
+def _nccl_hosts_env(r: int) -> dict:
+    """Rank r's environment where several NCCL ranks share one card: a host
+    of its own to NCCL (its "Duplicate GPU" check compares the ranks of
+    one host), joined over its socket transport on the loopback."""
+    return {"NCCL_HOSTID": f"chip-smoke-rank{r}", "NCCL_SOCKET_IFNAME": "lo",
+            "NCCL_DEBUG": "WARN"}
 
 
 def _m1_batches(rank: int, world: int, path: str = CONFIG, n: int = 2):
@@ -1954,16 +1988,18 @@ def _m1_run(torch, cfg, train, val, given=None, ckpt_dir=None) -> dict:
             "peak_gb": peak_gb, "launches": launches}
 
 
-def _m3_run(torch, out: str) -> dict:
-    """m3 on one rank: free-AT through the driver's run() for 1 step and
-    the checkpoint, then --resume for 1 step; the restored noise, weights
-    and momentum against the files, launches and peak memory of each."""
+def _m3_run(torch, out: str, device: str) -> dict:
+    """m3 (or t3) on one rank: free-AT on `device` through the driver's
+    run() for 1 step and the checkpoint, then --resume for 1 step; the
+    restored noise, weights and momentum against the files, launches and
+    peak memory of each."""
     from edge_enhancement_tpu_torch.train import driver
     from edge_enhancement_tpu_torch.utils.config import load_config
     path = os.path.join(CONFIGS, "free_imagenet", "free_at_ee.yml")
     runs = {}
     for tag, over in (("fresh", {}), ("resumed", {"epochs": 5})):
-        cfg = load_config(path, dict(M3_ARGS, **over, output=os.path.join(out, tag)))
+        cfg = load_config(path, dict(M3_ARGS, **over, device=device,
+                                     output=os.path.join(out, tag)))
         if tag == "resumed":
             cfg["resume"] = os.path.dirname(runs["fresh"]["checkpoint"])
         seen, real_noise, real_restore = {}, driver._load_noise, driver.restore_into_state
@@ -1997,17 +2033,47 @@ def _m3_run(torch, out: str) -> dict:
     return runs
 
 
-def _r_chain_run(torch, cfg, train) -> dict:
-    """r1 or r2 on one rank of the group: R_STEPS eager flagship steps on
-    this rank's rows from the config's seed, then one chained dispatch of
-    them from a fresh build, cuDNN deterministic, the launch counters set
-    to 0 before each and read after; then R_TIMED more dispatches of the
-    chained step, each's host seconds (to the device sync) and device
-    seconds (CUDA events). The state's tensors (on the CPU) and the last
-    loss of both runs, the form the chained step took and its capture
-    seconds, each eager step's ms."""
-    from edge_enhancement_tpu_torch.parallel import mesh
-    from edge_enhancement_tpu_torch.train import driver
+@contextlib.contextmanager
+def _attacks_kept(kept: dict):
+    """Within the block each train step's attack keeps its x_adv and its
+    first input gradient in kept["x_adv"] and kept["grads"] (on the CPU),
+    as _m1_run keeps them; both go on as they were."""
+    from edge_enhancement_tpu_torch.attacks import pgd
+    from edge_enhancement_tpu_torch.objectives import methods
+    real, real_grad = methods.pgd_linf, pgd._input_grad
+
+    def adv(*args, **kwargs):
+        out = real(*args, **kwargs)
+        kept["x_adv"].append(out.detach().cpu().clone())
+        return out
+
+    def grad(loss_fn, x):
+        g = real_grad(loss_fn, x)
+        if len(kept["grads"]) == len(kept["x_adv"]):     # this attack's first
+            kept["grads"].append(g.detach().cpu().clone())
+        return g
+    methods.pgd_linf, pgd._input_grad = adv, grad
+    try:
+        yield kept
+    finally:
+        methods.pgd_linf, pgd._input_grad = real, real_grad
+
+
+def _r_chain_run(torch, cfg, train, keep: bool = False, ckpt_dir=None) -> dict:
+    """r1, r2, t1 or t2 on one rank of the group: R_STEPS eager flagship
+    steps on this rank's rows from the config's seed, then one chained
+    dispatch of them from a fresh build (its model cut over the mesh's
+    `model` axis, when it has one), cuDNN deterministic, the launch
+    counters set to 0 before each and read after. The state's tensors
+    (gathered, on the CPU) and the last loss of both runs, the form the
+    chained step took, each eager step's ms, the dispatch's host seconds
+    (to the device sync) with its eager first step's and its capture's
+    (the graph form), the peak memory. With `keep`, the eager steps' x_adv
+    and first attack gradients (this rank's rows), losses and the
+    (gathered) state before and after each, as _m1_run returns them; with
+    `ckpt_dir`, the driver's checkpoint of the chained run's state there."""
+    from edge_enhancement_tpu_torch.parallel import mesh, sharding
+    from edge_enhancement_tpu_torch.train import checkpoint, driver
     from edge_enhancement_tpu_torch.train.graphs import chained_form
     from edge_enhancement_tpu_torch.train.trainer import (OptimConfig,
                                                           build_chained_train_step,
@@ -2020,98 +2086,90 @@ def _r_chain_run(torch, cfg, train) -> dict:
     xs = torch.stack([x for x, _ in train]).to(device)
     ys = torch.stack([y for _, y in train]).to(device)
     result = {"form": chained_form(device.type, mesh.backend(), mesh.world_size()),
-              "backend": mesh.backend(), "device": str(device), "eager_ms": []}
+              "backend": mesh.backend(), "device": str(device), "eager_ms": [],
+              "n_model": mesh.model_size()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     for run in ("eager", "chained"):
         ops, state, gen = driver.build(cfg, 200, device)
         mesh.replicate(state.model)
+        sharding.shard_state(state)
         torch.cuda.synchronize()
         _reset_counts()
         if run == "eager":
             step = build_train_step(ops, method, opt, gen)
-            for x, y in zip(xs, ys):
-                t0 = time.perf_counter()
-                m = step(state, x, y, lr)
-                torch.cuda.synchronize()
-                result["eager_ms"].append(1e3 * (time.perf_counter() - t0))
+            kept = {"x_adv": [], "grads": [], "losses": [], "after": []}
+            start = _snapshot(state) if keep else None
+            with _attacks_kept(kept) if keep else contextlib.nullcontext():
+                for x, y in zip(xs, ys):
+                    t0 = time.perf_counter()
+                    m = step(state, x, y, lr)
+                    torch.cuda.synchronize()
+                    result["eager_ms"].append(1e3 * (time.perf_counter() - t0))
+                    if keep:
+                        kept["losses"].append(float(m["loss"]))
+                        kept["after"].append(_snapshot(state))
+            if keep:
+                result["kept"] = dict(kept, starts=[start] + kept["after"][:-1])
         else:
             step = build_chained_train_step(ops, method, opt, gen)
+            t0 = time.perf_counter()
             m = step(state, xs, ys, lr)
             torch.cuda.synchronize()
+            result["dispatch"] = (time.perf_counter() - t0, step.first_seconds,
+                                  step.capture_seconds)
+            if ckpt_dir is not None:
+                checkpoint.save_checkpoint(ckpt_dir, state, 1, cfg["arch"], 0.0, False, opt, lr)
+        sd, mom = _snapshot(state)
         names = [n for n, _ in state.model.named_parameters()]
-        tensors = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
-        tensors.update({f"momentum {n}": b.cpu().clone()
-                        for n, b in zip(names, state.momentum_buf)})
+        tensors = dict(sd)
+        tensors.update({f"momentum {n}": b for n, b in zip(names, mom)})
         tensors["loss"] = m["loss"].detach().cpu().clone()
         result[run] = {"tensors": tensors, "launches": _read_counts(), "step": state.step}
-    result["capture_seconds"] = step.capture_seconds
-    result["timed"] = []
-    for _ in range(R_TIMED):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        step(state, xs, ys, lr)
-        end.record()
-        torch.cuda.synchronize()
-        result["timed"].append((time.perf_counter() - t0, start.elapsed_time(end) / 1e3))
+    result["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     return result
 
 
-def _nccl_refusal(torch, device) -> str:
-    """'' where this rank's NCCL group all-reduces a probe (which creates
-    its communicator), else NCCL's error."""
-    try:
-        probe = torch.ones(1, device=device)
-        torch.distributed.all_reduce(probe)
-        torch.cuda.synchronize()
-    except RuntimeError as e:             # DistBackendError is one
-        return f"{type(e).__name__}: {e}"
-    if probe.item() != M_WORLD:
-        fail(f"r2: the NCCL probe summed to {probe.item()}, not {M_WORLD}")
-    return ""
-
-
 def rank_main(argv) -> None:
-    """One rank of phases m, p and r: `--rank <m1|m3|p1|r1|r2|r3> <rank>
-    <store url> <out dir>`, on cuda:0 through gloo (p1 and r3: a model axis
-    of P1_MODEL); r2 through NCCL, on cuda:<rank> where the machine has a
-    card a rank, else on cuda:0; saves its result to <out>/rank<r>.pt."""
+    """One rank of phases m, p, r and t: `--rank <m1|m3|p1|r1|r2|r3|t1|t2|t3>
+    <rank> <world> <store url> <out dir>`, on cuda:0 through gloo (p1 and
+    r3: a model axis of P1_MODEL); r2 and t through NCCL, on cuda:<rank>
+    where the machine has a card a rank, else on cuda:0 (t2: a model axis
+    of P1_MODEL); saves its result to <out>/rank<r>.pt."""
     import torch
     from edge_enhancement_tpu_torch.parallel import mesh
-    task, rank, store, out = argv[0], int(argv[1]), argv[2], argv[3]
+    task, rank, world, store, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
     device, backend = "cuda:0", "gloo"
-    if task == "r2":
+    if task in ("r2", "t1", "t2", "t3"):
         backend = "nccl"
-        if torch.cuda.device_count() >= M_WORLD:
+        if torch.cuda.device_count() >= world:
             device = f"cuda:{rank}"
-    mesh.init(device, backend=backend, init_method=store, rank=rank, world_size=M_WORLD,
-              n_model=P1_MODEL if task in ("p1", "r3") else 1)
+    mesh.init(device, backend=backend, init_method=store, rank=rank, world_size=world,
+              n_model=P1_MODEL if task in ("p1", "r3", "t2") else 1)
     try:
-        if task in ("r1", "r2"):
-            refused = _nccl_refusal(torch, device) if task == "r2" else ""
-            if refused:
-                result = {"refused": refused}
-            else:
-                cfg, train, _ = _m1_batches(rank, M_WORLD, n=R_STEPS)
-                result = _r_chain_run(torch, cfg, train)
+        if task in ("r1", "r2", "t1", "t2"):
+            cfg, train, _ = _m1_batches(mesh.data_rank(), mesh.data_size(), n=R_STEPS)
+            result = _r_chain_run(torch, cfg, train, keep=task in ("t1", "t2"),
+                                  ckpt_dir=os.path.join(out, "ckpt") if task == "t2" else None)
+            if rank and "kept" in result:     # the gathered states are rank 0's
+                result["kept"]["starts"], result["kept"]["after"] = [], []
         elif task == "r3":
             cfg, train, val = _m1_batches(mesh.data_rank(), mesh.data_size(), R3_CONFIG)
             result = _m1_run(torch, cfg, train, val)
-            result["model_rank"], result["n_model"] = mesh.model_rank(), mesh.model_size()
             if rank:                  # the perturbations are compared on rank 0's
                 result["diffs"] = []
         elif task == "p1":
             cfg, train, val = _m1_batches(mesh.data_rank(), mesh.data_size())
             result = _m1_run(torch, cfg, train, val, ckpt_dir=os.path.join(out, "ckpt"))
-            result["model_rank"], result["n_model"] = mesh.model_rank(), mesh.model_size()
         elif task == "m1":
-            cfg, train, val = _m1_batches(rank, M_WORLD)
+            cfg, train, val = _m1_batches(rank, world)
             result = _m1_run(torch, cfg, train, val)
             if rank:                  # the others' last state, for the replica check
                 result["starts"], result["after"] = [], result["after"][-1:]
         else:
-            result = _m3_run(torch, out)
-        result["backend"] = torch.distributed.get_backend()
+            result = _m3_run(torch, out, device)
+        result.update(backend=torch.distributed.get_backend(), n_model=mesh.model_size(),
+                      model_rank=mesh.model_rank())
         torch.save(result, os.path.join(out, f"rank{rank}.pt"))
     finally:
         mesh.shutdown()
@@ -2365,14 +2423,18 @@ def torchrun_phase(torch, kernels, device_line) -> None:
     shutil.rmtree(out)
 
 
-def free_at_mesh_phase(torch, kernels, device_line) -> None:
+def free_at_mesh_phase(torch, kernels, device_line, tag: str = "m3", world: int = M_WORLD,
+                       rank_env=None, timeout: float = M_TIMEOUT,
+                       path: str = "mesh_m3") -> None:
     """m3. Free-AT on M_WORLD ranks on the one card (gloo) through the
     driver's run(): 1 step and the checkpoint, then --resume for 1 step.
     Each rank's noise_p{rank}.pt restored bit for bit, the ranks' noise of
-    different rows, the restored weights and momentum the file's."""
-    out = _out_dir("mesh/m3")
+    different rows, the restored weights and momentum the file's. t3 (`tag`
+    t3) the same at data `world` over NCCL. Launches are recorded as
+    `path`_rank<r>_<fresh|resumed>."""
+    out = _out_dir(f"mesh/{tag}")
     os.makedirs(out)
-    ranks = _spawn_ranks("m3", out)
+    ranks = _spawn_ranks(tag, out, timeout, rank_env, world)
     saved = torch.load(ranks[0]["fresh"]["checkpoint"], map_location="cpu", weights_only=True)
     bufs = saved["optimizer"]["state"]
     want = {"ee_fused_fwd": 4 + 12, "ee_fused_bwd": 4 + 10}    # a step + a validation batch
@@ -2388,19 +2450,21 @@ def free_at_mesh_phase(torch, kernels, device_line) -> None:
                 for i, b in enumerate(s["restored_momentum"])),
             "steps": f["steps"] == s["steps"] == [1] and s["start_epoch"] == 1,
             "finite": math.isfinite(f["loss"]) and math.isfinite(s["loss"])}
-        print(f"[mesh m3] rank {r} ({res['backend']}): {os.path.basename(f['noise_file'])} "
+        print(f"[mesh {tag}] rank {r} of {world} ({res['backend']}): "
+              f"{os.path.basename(f['noise_file'])} "
               f"{tuple(f['noise_saved'].shape)} max |n| {f['noise_saved'].abs().max().item():.4f}; "
               f"losses {f['loss']:.4f} then {s['loss']:.4f} (resumed at epoch "
               f"{s['start_epoch']}); train step ms {[round(t, 1) for t in f['ms'] + s['ms']]}; "
               f"peak device memory {f['peak_gb']:.2f} / {s['peak_gb']:.2f} GB; {checks}; "
               f"on {device_line}", flush=True)
         if not all(checks.values()):
-            fail(f"m3 rank {r}: {checks}")
-        for tag, run in (("fresh", f), ("resumed", s)):
-            _check_launches(f"mesh m3 rank {r} {tag}", run["launches"], want)
-            _record_launches(kernels, f"mesh_m3_rank{r}_{tag}", run["launches"])
-    if torch.equal(ranks[0]["fresh"]["noise_saved"], ranks[1]["fresh"]["noise_saved"]):
-        fail("m3: the ranks' replay noise holds the same rows")
+            fail(f"{tag} rank {r}: {checks}")
+        for run_tag, run in (("fresh", f), ("resumed", s)):
+            _check_launches(f"mesh {tag} rank {r} {run_tag}", run["launches"], want)
+            _record_launches(kernels, f"{path}_rank{r}_{run_tag}", run["launches"])
+    for res in ranks[1:]:
+        if torch.equal(ranks[0]["fresh"]["noise_saved"], res["fresh"]["noise_saved"]):
+            fail(f"{tag}: two ranks' replay noise holds the same rows")
     shutil.rmtree(out)
 
 
@@ -2837,36 +2901,46 @@ def chained_phase(torch, kernels, device_line, eager_ms: float) -> None:
     chained_objectives_phase(torch, kernels, device_line)
 
 
-def _r_check(torch, tag: str, ranks: list, form: str, kernels, device_line) -> None:
-    """r1's and r2's checks of each rank: the form, the chained dispatch
-    equal to the eager steps bit for bit, the replicas alike, both runs'
-    K1/K2 counts a rank by phase a's formula; the times printed."""
+def _r_check(torch, tag: str, ranks: list, form: str, kernels, device_line,
+             path: str) -> None:
+    """r1's, r2's, t1's and t2's checks of each rank's chained run: the
+    form, the chained dispatch equal to the eager steps bit for bit, the
+    replicas alike (gathered over the model axis), both runs' K1/K2 counts
+    a rank by phase a's formula, recorded as `path`_rank<r>; the times and
+    the peak memory printed."""
     from edge_enhancement_tpu_torch.utils.config import load_config
     cfg = load_config(CONFIG, M1_ARGS)
     k = int(cfg["num_steps_1"])
     want = {"ee_fused_fwd": R_STEPS * (k + 1), "ee_fused_bwd": R_STEPS * k}
+    n_model = ranks[0]["n_model"]
+    rows = int(cfg["batch_size"]) // (len(ranks) // n_model)
     for r, res in enumerate(ranks):
         eager, chained = res["eager"]["tensors"], res["chained"]["tensors"]
         apart = _differ(torch, eager, chained)
-        host, dev = (1e3 * sum(t[j] for t in res["timed"]) / (len(res["timed"]) * R_STEPS)
-                     for j in (0, 1))
-        print(f"[ranks {tag}] rank {r} of {M_WORLD} ({res['backend']}, {res['device']}): the "
-              f"chained step's form {res['form']}; {R_STEPS} flagship steps (bs"
-              f"{cfg['batch_size']}, {int(cfg['batch_size']) // M_WORLD} a rank, PGD-{k}, cuDNN "
-              f"deterministic) eager against one chained dispatch: {len(apart)} of "
-              f"{len(eager)} tensors differ {apart[:8]}; last loss "
+        total, first, capture = res["dispatch"]
+        if capture is None:                   # the loop: R_STEPS steps
+            dispatch = f"{1e3 * total / R_STEPS:.2f} ms/step"
+        else:                                 # the eager first step, the capture, the replays
+            replays = 1e3 * (total - first - capture) / (R_STEPS - 1)
+            dispatch = (f"first step {1e3 * first:.1f} ms, capture {capture:.3f} s, "
+                        f"{R_STEPS - 1} replays {replays:.2f} ms/step")
+        print(f"[ranks {tag}] rank {r} of {len(ranks)} (data {len(ranks) // n_model} x model "
+              f"{n_model}, {res['backend']}, {res['device']}): the chained step's form "
+              f"{res['form']}; {R_STEPS} flagship steps (bs{cfg['batch_size']}, {rows} a "
+              f"data rank, PGD-{k}, cuDNN deterministic) eager against one chained "
+              f"dispatch: {len(apart)} of {len(eager)} tensors differ {apart[:8]}; last loss "
               f"{float(eager['loss']):.6f} / {float(chained['loss']):.6f}; K1/K2 eager "
               f"{res['eager']['launches'].get('ee_fused_fwd')}/"
               f"{res['eager']['launches'].get('ee_fused_bwd')}, chained "
               f"{res['chained']['launches'].get('ee_fused_fwd')}/"
               f"{res['chained']['launches'].get('ee_fused_bwd')}; eager step ms "
-              f"{[round(t, 1) for t in res['eager_ms']]}; {len(res['timed'])} more dispatches "
-              f"of {R_STEPS}: {host:.2f} ms/step on the host clock, {dev:.2f} on the "
-              f"device's; capture {res['capture_seconds']} s; on {device_line}", flush=True)
+              f"{[round(t, 1) for t in res['eager_ms']]}; the chained dispatch on the host "
+              f"clock: {dispatch}; peak device memory {res['peak_gb']:.2f} GB; on "
+              f"{device_line}", flush=True)
         if res["form"] != form:
             fail(f"{tag} rank {r}: the chained step took the {res['form']} form, not {form}")
-        if (res["capture_seconds"] is None) != (form == "loop"):
-            fail(f"{tag} rank {r}: form {form} but capture {res['capture_seconds']}")
+        if (capture is None) != (form == "loop"):
+            fail(f"{tag} rank {r}: form {form} but capture {capture}")
         if res["eager"]["step"] != R_STEPS or res["chained"]["step"] != R_STEPS:
             fail(f"{tag} rank {r}: state.step {res['eager']['step']} / "
                  f"{res['chained']['step']}, expected {R_STEPS}")
@@ -2876,87 +2950,28 @@ def _r_check(torch, tag: str, ranks: list, form: str, kernels, device_line) -> N
             fail(f"{tag} rank {r}: the chained dispatch differs from the eager steps")
         _check_launches(f"{tag} rank {r} eager", res["eager"]["launches"], want)
         _check_launches(f"{tag} rank {r} chained", res["chained"]["launches"], want)
-        _record_launches(kernels, f"chained_ranks_{res['backend']}_rank{r}",
-                         res["chained"]["launches"])
-    if _differ(torch, ranks[0]["chained"]["tensors"], ranks[1]["chained"]["tensors"]):
+        _record_launches(kernels, f"{path}_rank{r}", res["chained"]["launches"])
+    if any(_differ(torch, ranks[0]["chained"]["tensors"], res["chained"]["tensors"])
+           for res in ranks[1:]):
         fail(f"{tag}: the ranks' replicas differ")
-
-
-def _nccl_one_rank_capture(torch, device_line) -> None:
-    """r2'. A world-1 NCCL group: K1 on the slice's batch and the
-    all-reduce of `mesh._sum_over` on its outputs (one flat buffer, as
-    sum_step's), eager and then captured in a CUDA graph and replayed on
-    two inputs: the replays equal the eager calls bit for bit."""
-    from edge_enhancement_tpu_torch.ops.cuda import ee_fused as F
-    from edge_enhancement_tpu_torch.ops.square import add_square_draws, kernel_layout
-    from edge_enhancement_tpu_torch.parallel import mesh
-    out = _out_dir("mesh/r2_one")
-    os.makedirs(out)
-    mesh.init("cuda:0", backend="nccl", init_method=f"file://{os.path.join(out, 'store')}",
-              rank=0, world_size=1)
-    try:
-        dev = torch.device("cuda:0")
-        b, c, h, w = shape = (100, 3, 64, 64)
-        k = F.FusedConsts(**FLAGSHIP_CONSTS)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        st, sqd = kernel_layout(add_square_draws((b, h, w, c), gen), k.eps)
-
-        def work(x):
-            y, edge = F.ee_fused_fwd(x, st, sqd, k)
-            return mesh._sum_over([y * 2.0, edge], None)
-
-        inputs = [_patched_input(torch, dev, shape)]
-        inputs.append(inputs[0].flip(-1).contiguous())
-        eager = [[t.clone() for t in work(x)] for x in inputs]   # creates the communicator
-        torch.cuda.synchronize()
-        static = inputs[0].clone()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            outs = work(static)
-        capture = time.perf_counter() - t0
-        same = []
-        for x, want in zip(inputs, eager):
-            static.copy_(x)
-            graph.replay()
-            torch.cuda.synchronize()
-            same.append(all(torch.equal(a, b_) for a, b_ in zip(outs, want)))
-    finally:
-        mesh.shutdown()
-    print(f"[ranks r2'] a world-1 NCCL group on cuda:0: K1 (100x3x64x64) and the flat "
-          f"all-reduce of mesh._sum_over captured in a CUDA graph in {capture:.3f} s; "
-          f"replays equal to the eager calls bit for bit on 2 inputs: {same}; on "
-          f"{device_line}", flush=True)
-    if same != [True, True]:
-        fail("r2': the replayed NCCL all-reduce differs from the eager one")
-    shutil.rmtree(out)
 
 
 def chained_ranks_phase(torch, kernels, device_line) -> None:
     """r1. The flagship's chained step on M_WORLD gloo ranks on cuda:0 (the
     loop form) against eager steps; r2 the same on NCCL ranks (the graph
-    form), or r2' where NCCL refuses."""
-    for tag, form in (("r1", "loop"), ("r2", "graph")):
+    form)."""
+    for tag, form, path in (("r1", "loop", "chained_ranks_gloo"),
+                            ("r2", "graph", "chained_ranks_nccl")):
         out = _out_dir(f"mesh/{tag}")
         os.makedirs(out)
         rank_env, timeout = None, M_TIMEOUT
         if tag == "r2":
             timeout = R2_TIMEOUT
             if torch.cuda.device_count() < M_WORLD:
-                # two hosts to NCCL: its socket transport on the loopback
-                rank_env = lambda r: {"NCCL_HOSTID": f"chip-smoke-rank{r}",
-                                      "NCCL_SOCKET_IFNAME": "lo", "NCCL_DEBUG": "WARN"}
+                rank_env = _nccl_hosts_env
         t0 = time.perf_counter()
         ranks = _spawn_ranks(tag, out, timeout, rank_env)
-        refused = [res["refused"] for res in ranks if "refused" in res]
-        if refused:
-            print(f"[ranks {tag}] NCCL refused {M_WORLD} ranks on "
-                  f"{min(torch.cuda.device_count(), M_WORLD)} card(s) "
-                  f"(NCCL_HOSTID set apart: {rank_env is not None}): {refused[0]}; "
-                  f"r2' runs instead, and two-rank NCCL capture stays open", flush=True)
-            _nccl_one_rank_capture(torch, device_line)
-        else:
-            _r_check(torch, tag, ranks, form, kernels, device_line)
+        _r_check(torch, tag, ranks, form, kernels, device_line, path)
         print(f"[ranks {tag}] {time.perf_counter() - t0:.1f} s wall", flush=True)
         shutil.rmtree(out)
 
@@ -3095,6 +3110,138 @@ def twin_loop_phase(torch, family: str, device_line) -> None:
         fail(f"s: {family}: accuracies not finite: {run['clean']}, {run['adv']}")
 
 
+def _global_batches(world: int, n: int):
+    """m1's config, its first n global train batches and its validation
+    batch, joined from the rows of `world` data ranks."""
+    import torch
+    parts = [_m1_batches(r, world, n=n) for r in range(world)]
+    train = [tuple(torch.cat([p[1][i][j] for p in parts]) for j in range(2))
+             for i in range(n)]
+    return parts[0][0], train, tuple(torch.cat([p[2][j] for p in parts]) for j in range(2))
+
+
+def _joined(torch, ranks: list, key: str) -> list:
+    """Each eager step's kept tensors (x_adv, first attack gradient) of
+    the data ranks, model rank 0 of each, joined over the global batch."""
+    heads = ranks[::ranks[0]["n_model"]]
+    return [torch.cat([h["kept"][key][i] for h in heads])
+            for i in range(len(heads[0]["kept"][key]))]
+
+
+def mesh4_flagship_phase(torch, kernels, device_line, rank_env) -> None:
+    """t1. The flagship at data T_WORLD over NCCL as r2 runs it (R_STEPS
+    eager steps against one chained dispatch, the graph form); then its
+    first step again in one process, twice, from the ranks' state on the
+    same global batch and draws, trained on the ranks' x_adv: the first
+    attack gradient, the loss and the update held to M1_* (measured at
+    m1's two-way BatchNorm split) and printed beside the one process's own
+    run-to-run spread."""
+    out = _out_dir("mesh/t1")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("t1", out, T_TIMEOUT, rank_env, T_WORLD)
+    _r_check(torch, "t1", ranks, "graph", kernels, device_line, "mesh4_flagship_nccl")
+    if any(res["kept"]["losses"] != ranks[0]["kept"]["losses"] for res in ranks):
+        fail("t1: the ranks' losses differ")
+    cfg, train, val = _global_batches(T_WORLD, 1)
+    kept = ranks[0]["kept"]
+    merged = dict(kept, grads=_joined(torch, ranks, "grads")[:1],
+                  x_adv=_joined(torch, ranks, "x_adv")[:1])
+    given = {"starts": kept["starts"][:1], "x_adv": merged["x_adv"]}
+    one = _m1_run(torch, cfg, train, val, given)
+    again = _m1_run(torch, cfg, train, val, given)
+    got = [v[0] for v in _against_one_process(torch, cfg, merged, one)]
+    spread = [v[0] for v in _against_one_process(torch, cfg, dict(again, starts=given["starts"]),
+                                                 one)]
+    limits = (M1_GRAD_TOL, M1_LOSS_RTOL, M1_UPDATE_TOL)
+    print(f"[mesh t1] {cfg['arch']} bs{cfg['batch_size']} ({int(cfg['batch_size']) // T_WORLD} "
+          f"a rank) f32 PGD-{cfg['num_steps_1']}, data {T_WORLD} over "
+          f"{ranks[0]['backend']}: the first step against one process from the ranks' state "
+          f"on the same global batch and draws (the one process trained on the ranks' "
+          f"x_adv): first attack gradient |diff| / |g|, loss rel, update |diff| / |update| "
+          f"{[f'{v:.3e}' for v in got]} (limits {list(limits)}); the one process against "
+          f"itself {[f'{v:.3e}' for v in spread]}; on {device_line}", flush=True)
+    if any(v > lim for v, lim in zip(got, limits)):
+        fail("t1: the ranks' first step disagrees with the one process's")
+    print(f"[mesh t1] {time.perf_counter() - t0:.1f} s wall", flush=True)
+    shutil.rmtree(out)
+
+
+def mesh22_flagship_phase(torch, kernels, device_line, rank_env) -> None:
+    """t2. The flagship on data T_WORLD // P1_MODEL x model P1_MODEL over
+    NCCL as r2 runs it (R_STEPS eager steps against one chained dispatch,
+    the graph form, the model axis's gathers and sums captured), the model
+    ranks of a data row alike; each eager step against one process from
+    the ranks' gathered state on the same global batches and x_adv (M1_*:
+    the data axis splits BatchNorm's sums as m1's does; p1's P1_* hold
+    only with one data rank, and are printed beside); rank 0's checkpoint
+    of the chained run the one-process file of the ranks' gathered state."""
+    from edge_enhancement_tpu_torch.train import checkpoint
+    out = _out_dir("mesh/t2")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("t2", out, T_TIMEOUT, rank_env, T_WORLD)
+    _r_check(torch, "t2", ranks, "graph", kernels, device_line, "mesh22_flagship_nccl")
+    n_model = ranks[0]["n_model"]
+    n_data = T_WORLD // n_model
+    for r, res in enumerate(ranks):
+        head = ranks[r - r % n_model]["kept"]
+        if (res["kept"]["losses"] != ranks[0]["kept"]["losses"]
+                or any(not torch.equal(a, b) for a, b in zip(res["kept"]["x_adv"], head["x_adv"]))
+                or any(not torch.equal(a, b) for a, b in zip(res["kept"]["grads"], head["grads"]))):
+            fail("t2: the model ranks of a data row differ in losses, x_adv or attack "
+                 "gradients")
+    cfg, train, val = _global_batches(n_data, R_STEPS)
+    merged = dict(ranks[0]["kept"], grads=_joined(torch, ranks, "grads"),
+                  x_adv=_joined(torch, ranks, "x_adv"))
+    one = _m1_run(torch, cfg, train, val, {"starts": merged["starts"], "x_adv": merged["x_adv"]})
+    grad_rel, loss_rel, update_rel = _against_one_process(torch, cfg, merged, one)
+    payload = checkpoint.load_checkpoint(os.path.join(out, "ckpt"))
+    chained = ranks[0]["chained"]["tensors"]
+    names = [n for n, _ in _param_names(cfg)]
+    ckpt_ok = (sorted(payload["state_dict"]) == sorted(one["after"][-1][0])
+               and all(torch.equal(v, chained[n]) for n, v in payload["state_dict"].items())
+               and all(torch.equal(payload["optimizer"]["state"][i]["momentum_buffer"],
+                                   chained[f"momentum {n}"]) for i, n in enumerate(names)))
+    print(f"[mesh t2] {cfg['arch']} bs{cfg['batch_size']} f32 PGD-{cfg['num_steps_1']} on "
+          f"synthetic-hard, {T_WORLD} ranks of data {n_data} x model {n_model} "
+          f"({ranks[0]['backend']}); each eager step against one process from the ranks' "
+          f"gathered state on the same global batch and x_adv: first attack gradient "
+          f"|diff| / |g| {[f'{v:.3e}' for v in grad_rel]}, loss rel "
+          f"{[f'{v:.3e}' for v in loss_rel]}, update |diff| / |update| "
+          f"{[f'{v:.3e}' for v in update_rel]} (limits M1_* "
+          f"{[M1_GRAD_TOL, M1_LOSS_RTOL, M1_UPDATE_TOL]}, the data axis's BatchNorm split; "
+          f"p1's P1_* {[P1_GRAD_TOL, P1_LOSS_RTOL, P1_UPDATE_TOL]}); rank 0's checkpoint of "
+          f"the chained run = the one-process format and the ranks' gathered state: "
+          f"{ckpt_ok}; on {device_line}", flush=True)
+    if len(grad_rel) != R_STEPS or not all(math.isfinite(v) for v in one["losses"]):
+        fail("t2: the one process did not run the ranks' steps")
+    if (max(grad_rel) > M1_GRAD_TOL or max(loss_rel) > M1_LOSS_RTOL
+            or max(update_rel) > M1_UPDATE_TOL):
+        fail("t2: the mesh's run disagrees with the one process's")
+    if not ckpt_ok:
+        fail("t2: rank 0's checkpoint is not the one-process file of the ranks' state")
+    print(f"[mesh t2] {time.perf_counter() - t0:.1f} s wall", flush=True)
+    shutil.rmtree(out)
+
+
+def mesh4_phase(torch, kernels, device_line) -> None:
+    """t. The mesh at T_WORLD ranks over NCCL: t1 (data T_WORLD, the
+    flagship), t2 (data x model, the flagship), t3 (data T_WORLD, free-AT);
+    a card a rank where the machine has T_WORLD cards, else all on the one
+    card as NCCL hosts of their own."""
+    torch.cuda.empty_cache()            # the ranks may share the card
+    cards = torch.cuda.device_count()
+    rank_env = None if cards >= T_WORLD else _nccl_hosts_env
+    print(f"[mesh t] {T_WORLD} NCCL ranks on {min(cards, T_WORLD)} card(s)", flush=True)
+    mesh4_flagship_phase(torch, kernels, device_line, rank_env)
+    mesh22_flagship_phase(torch, kernels, device_line, rank_env)
+    t0 = time.perf_counter()
+    free_at_mesh_phase(torch, kernels, device_line, "t3", T_WORLD, rank_env, T_TIMEOUT,
+                       "mesh4_free_at_nccl")
+    print(f"[mesh t3] {time.perf_counter() - t0:.1f} s wall", flush=True)
+
+
 def main():
     import torch
 
@@ -3136,6 +3283,7 @@ def main():
     chained_phase(torch, kernels, smi, eager_ms[False])
     ranks_phase(torch, kernels, smi)
     twin_phase(torch, kernels, smi)
+    mesh4_phase(torch, kernels, smi)
     for kern in kernels:
         kern["launches"] = sum(kern.get("launches_by_path", {}).values())
     if any(k["launches"] < 1 for k in kernels):
@@ -3146,13 +3294,13 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
-PHASES = {"r": ranks_phase, "s": twin_phase}
+PHASES = {"r": ranks_phase, "s": twin_phase, "t": mesh4_phase}
 
 
 def phase_main(letter: str) -> None:
-    """`--phase r` or `--phase s`: the device, the build and that phase
-    alone (r on a machine with one card, or with a card a rank for r2); no
-    kernels line and no final line."""
+    """`--phase r`, `--phase s` or `--phase t`: the device, the build and
+    that phase alone (r and t on a machine with one card, or with a card a
+    rank for r2 and t); no kernels line and no final line."""
     import torch
 
     name, smi = device_phase(torch)

@@ -153,7 +153,7 @@ def test_awp_on_a_model_axis_matches_jax_mesh_step(tmp_path):
     n_model=2), both gates from one compile: the PGD start replayed and
     JAX's x_adv given (each rank its data rows); F64_TOL, as on one
     process."""
-    from test_torch_tensor_parallel import run_mesh
+    from test_torch_parallel import run_ranks
     cfg = load_config(os.path.join(CONFIGS, "awp_cifar100", "at_awp.yml"), dict(
         num_steps_1=PGD_STEPS, epsilon=EPS, step_size_1=STEP_SIZE, device="cpu"))
     _, _, _, model = helpers.jax_and_port_models(SHAPE, arch=ARCH, ee_args=ARGS,
@@ -164,11 +164,11 @@ def test_awp_on_a_model_axis_matches_jax_mesh_step(tmp_path):
     jax_side = [run(awp_on) for awp_on in gates]
     gen.close()
     t = torch.from_numpy
-    ranks = run_mesh(tmp_path, "awp", dict(
+    ranks = run_ranks(tmp_path, "awp", dict(
         cfg=dict(cfg), num_classes=N, x=t(x), y=t(y).long(),
         variants=[(awp_on, 0.0) for awp_on in gates], weights=model.state_dict(),
         noise=t(noise), x_adv=[t(x_adv_j) for _, _, x_adv_j in jax_side], lr=LR,
-        momentum=MOMENTUM, weight_decay=WD, gamma=GAMMA, proxy_lr=PROXY_LR), 4, 2)
+        momentum=MOMENTUM, weight_decay=WD, gamma=GAMMA, proxy_lr=PROXY_LR), world=4, n_model=2)
     for i, (state_j, m_j, x_adv_j) in enumerate(jax_side):
         got = ranks[0]["variants"][i]
         for r in ranks[1:]:

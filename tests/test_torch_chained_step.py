@@ -2,17 +2,19 @@
 on the CPU: the port's chained dispatch against the JAX package's
 build_chained_train_step (a lax.scan over the batch stack) on carried
 weights and replayed draws, and against the port's own K single steps,
-bit for bit; the learning rate as a float and as a 0-dim tensor. Under 2
+bit for bit; the learning rate as a float and as a 0-dim tensor. Under
 gloo ranks (tests/torch_parallel_worker.py, as tests/test_torch_parallel.py
-starts them): the chained step against one process on the global batch
-in float64 and against 2 single steps on the same ranks bit for bit, and
-against JAX's chained step on a 2-device mesh."""
+starts them): on data 2 and on data 2 x model 2 the chained step against
+one process on the global batch in float64 and against 2 single steps on
+the same ranks bit for bit; on data 2, data 4 and data 2 x model 2 against
+JAX's chained step on the same mesh of host devices."""
 
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 
 import types
 
 import numpy as np
+import pytest
 import torch
 
 import torch_port_helpers as helpers
@@ -122,18 +124,17 @@ def test_float_and_tensor_lr_give_the_same_bits():
 
 
 
-# ---- under 2 ranks ------------------------------------------------------------
+# ---- under several ranks -------------------------------------------------------
 
-RANK_SHAPE = (8, 32, 32, 3)              # 4 images a rank
+RANK_SHAPE = (8, 32, 32, 3)              # the global batch: 4 images a data rank of 2
 
 
-def test_two_rank_chained_step_equals_one_process_and_single_steps(tmp_path):
-    """The flagship's chained step (K = 2, PGD-1, its draws from the run's
-    generator at the global batch's shape) on 2 gloo ranks, the loop form:
-    on each rank bit for bit the same 2 batches as 2 single steps
-    (parameters, BatchNorm statistics, momentum, step, last metrics), the
-    replicas bitwise equal; against one process's chained step on the
-    global batch, float64: 1e-10."""
+def _chain_on_ranks(tmp_path, n_data: int, n_model: int):
+    """The flagship's chained step (K = 2, PGD-1, float64, its draws from
+    the run's generator at the global batch's shape) and 2 single steps on
+    n_data x n_model gloo ranks (the loop form), then one process's chained
+    step on the global batch: (the ranks' results, the one process's
+    metrics and state)."""
     cfg = load_config(CONFIG, dict(num_steps_1=1, seed=3, device="cpu"))
     rng = np.random.default_rng(6)
     xs = torch.from_numpy(rng.random((2,) + RANK_SHAPE).astype(np.float32))
@@ -141,7 +142,21 @@ def test_two_rank_chained_step_equals_one_process_and_single_steps(tmp_path):
     lr, opt = 0.1, trainer.OptimConfig(0.9, 2e-4)
     ranks = run_ranks(tmp_path, "chain", dict(
         cfg=dict(cfg), num_classes=200, xs=xs, ys=ys, dtype=torch.float64, lr=lr,
-        momentum=opt.momentum, weight_decay=opt.weight_decay))
+        momentum=opt.momentum, weight_decay=opt.weight_decay),
+        world=n_data * n_model, n_model=n_model)
+    ops, state, gen = driver.build(cfg, 200, torch.device("cpu"))
+    state.model.double()
+    state.momentum_buf = [b.double() for b in state.momentum_buf]
+    m = trainer.build_chained_train_step(ops, driver.make_method_config(cfg, 200), opt,
+                                         gen)(state, xs.double(), ys, lr)
+    return ranks, m, state
+
+
+def _assert_chain_on_ranks(ranks, m, state):
+    """On each rank the chained dispatch equals the 2 single steps bit for
+    bit (parameters, BatchNorm statistics, momentum, step, last metrics),
+    the replicas (gathered over the model axis) bitwise equal; against the
+    one process: 1e-10."""
     for r in ranks:
         single, chained = r["single"], r["chained"]
         assert single["step"] == chained["step"] == 2
@@ -152,12 +167,6 @@ def test_two_rank_chained_step_equals_one_process_and_single_steps(tmp_path):
         assert r["chained"]["metrics"] == ranks[0]["chained"]["metrics"]
         assert all(torch.equal(v, r["chained"]["state"][k])
                    for k, v in ranks[0]["chained"]["state"].items())
-
-    ops, state, gen = driver.build(cfg, 200, torch.device("cpu"))
-    state.model.double()
-    state.momentum_buf = [b.double() for b in state.momentum_buf]
-    m = trainer.build_chained_train_step(ops, driver.make_method_config(cfg, 200), opt,
-                                         gen)(state, xs.double(), ys, lr)
     got = ranks[0]["chained"]
     for k, v in state.model.state_dict().items():
         torch.testing.assert_close(got["state"][k], v, rtol=1e-10, atol=1e-10, msg=k)
@@ -168,13 +177,36 @@ def test_two_rank_chained_step_equals_one_process_and_single_steps(tmp_path):
     assert got["metrics"]["top1"] == float(m["top1"])
 
 
-def test_two_rank_chained_step_agrees_with_jax_mesh(monkeypatch, tmp_path):
-    """The chained step (K = 2, PGD-1, float64) on 2 gloo ranks against
-    JAX's build_chained_train_step jitted over make_mesh(n_data=2), its
-    stacks sharded by shard_batch_stacked, on the draws replayed from JAX
-    (each rank its rows) and JAX's x_adv for each update: the replicas
-    bitwise equal, then CHAIN_TOL as on one process."""
-    port, jax_side = helpers.chained_step_jax(monkeypatch, k=2, pgd_steps=1, n_data=2)
+def test_two_rank_chained_step_equals_one_process_and_single_steps(tmp_path):
+    """The flagship's chained step on 2 gloo ranks (data 2): on each rank
+    bit for bit the same 2 batches as 2 single steps, the replicas bitwise
+    equal; against one process's chained step on the global batch,
+    float64: 1e-10."""
+    _assert_chain_on_ranks(*_chain_on_ranks(tmp_path, 2, 1))
+
+
+def test_model_axis_chained_step_equals_one_process_and_single_steps(tmp_path):
+    """The same on 4 gloo ranks of data 2 x model 2 (every convolution and
+    the head cut on their output channels, parallel/sharding.py): on each
+    rank the chained dispatch equals 2 single steps bit for bit, the
+    gathered replicas are bitwise equal, and one process agrees to 1e-10
+    in float64."""
+    ranks, m, state = _chain_on_ranks(tmp_path, 2, 2)
+    assert [r["world"] for r in ranks] == [4] * 4
+    _assert_chain_on_ranks(ranks, m, state)
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 1), (4, 1), (2, 2)])
+def test_chained_step_on_ranks_agrees_with_jax_mesh(monkeypatch, tmp_path, n_data, n_model):
+    """The chained step (K = 2, PGD-1, float64) on n_data x n_model gloo
+    ranks against JAX's build_chained_train_step jitted over
+    make_mesh(n_data, n_model), its state laid out by JAX's sharding.py
+    (state_sharding) and its stacks sharded by shard_batch_stacked, on the
+    draws replayed from JAX (each data rank its rows) and JAX's x_adv for
+    each update: the replicas (gathered over the model axis) bitwise
+    equal, then CHAIN_TOL as on one process."""
+    port, jax_side = helpers.chained_step_jax(monkeypatch, k=2, pgd_steps=1, n_data=n_data,
+                                              n_model=n_model)
     t = torch.from_numpy
     ranks = run_ranks(tmp_path, "chain_replay", dict(
         arch="resnet18_EE_square", ee_args=helpers.EE_ARGS, num_classes=200,
@@ -182,12 +214,15 @@ def test_two_rank_chained_step_agrees_with_jax_mesh(monkeypatch, tmp_path):
         noise=[t(n) for n in port["noise"]], x_adv=[t(a.copy()) for a in jax_side[2]],
         xs=t(port["xs"]), ys=t(port["ys"]).long(), method="EE_BPDA3_AT_square",
         fields=port["fields"], lr=helpers.LR, momentum=helpers.MOMENTUM,
-        weight_decay=helpers.WD))
-    assert ranks[0]["metrics"] == ranks[1]["metrics"]
-    assert all(torch.equal(v, ranks[1]["state"][k]) for k, v in ranks[0]["state"].items())
+        weight_decay=helpers.WD), world=n_data * n_model, n_model=n_model)
+    for r in ranks[1:]:
+        assert r["metrics"] == ranks[0]["metrics"]
+        assert all(torch.equal(v, r["state"][k]) for k, v in ranks[0]["state"].items())
+        assert all(torch.equal(a, b) for a, b in zip(ranks[0]["momentum"], r["momentum"]))
     model = port["model"].double()
     model.load_state_dict(ranks[0]["state"])
     state = types.SimpleNamespace(step=ranks[0]["step"], momentum_buf=ranks[0]["momentum"])
-    x_adv = [torch.cat([r["x_adv"][i] for r in ranks]).numpy() for i in range(2)]
+    heads = ranks[::n_model]                  # model rank 0 of each data row
+    x_adv = [torch.cat([r["x_adv"][i] for r in heads]).numpy() for i in range(2)]
     helpers.assert_chained_steps_agree((ranks[0]["metrics"], state, model, x_adv),
                                        jax_side, CHAIN_TOL)

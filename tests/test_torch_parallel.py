@@ -80,20 +80,23 @@ def _wait(procs, logs, timeout: float) -> None:
         pytest.fail(f"exit codes {[p.returncode for p in procs]}\n{out}")
 
 
-def run_ranks(tmp_path, task: str, inputs: dict, timeout: float = 240) -> list:
-    """`task` of the worker on WORLD ranks; their results. The task's
-    directory (inputs.pt, rank{r}.pt, the logs: up to 345 MB for the step
-    tests) goes once the results are loaded."""
+def run_ranks(tmp_path, task: str, inputs: dict, timeout: float = 240,
+              world: int = WORLD, n_model: int = 1) -> list:
+    """`task` of the worker on `world` ranks of a mesh with a `model` axis
+    of `n_model`; their results. The task's directory (inputs.pt,
+    rank{r}.pt, the logs: up to 345 MB for the step tests) goes once the
+    results are loaded."""
     d = tmp_path / task
     d.mkdir()
     torch.save(inputs, d / "inputs.pt")
-    logs = [str(d / f"log{r}.txt") for r in range(WORLD)]
+    logs = [str(d / f"log{r}.txt") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, WORKER, task, str(r), str(WORLD), f"file://{d / 'store'}", str(d)],
+        [sys.executable, WORKER, task, str(r), str(world), f"file://{d / 'store'}", str(d),
+         str(n_model)],
         cwd=REPO, env=_env(), stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
-        for r in range(WORLD)]
+        for r in range(world)]
     _wait(procs, logs, timeout)
-    results = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    results = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(world)]
     shutil.rmtree(d)
     return results
 
@@ -295,15 +298,17 @@ def test_process_shards_match_jax(kind, n):
 
 # ---- (e) ---------------------------------------------------------------------
 
-def test_free_at_noise_shards_round_trip(tmp_path):
-    """Each rank writes its rows to noise_p{rank}.pt and reads them back
-    bit for bit; a shard of another batch size is refused with JAX's
-    warning; one process resuming a 2-rank run finds rank 0's shard of
+@pytest.mark.parametrize("world", [2, 4])
+def test_free_at_noise_shards_round_trip(tmp_path, world):
+    """Each of `world` ranks writes its rows to noise_p{rank}.pt and reads
+    them back bit for bit; a shard of another batch size is refused with
+    JAX's warning; one process resuming the run finds rank 0's shard of
     the wrong shape and starts from zeros with the same warning."""
+    n = 3 * world
     noise = torch.from_numpy(np.random.default_rng(2).uniform(
-        -0.01, 0.01, (6, 8, 8, 3)).astype(np.float32))
+        -0.01, 0.01, (n, 8, 8, 3)).astype(np.float32))
     ckpt = tmp_path / "ckpt"
-    ranks = run_ranks(tmp_path, "noise", {"noise": noise, "dir": str(ckpt)})
+    ranks = run_ranks(tmp_path, "noise", {"noise": noise, "dir": str(ckpt)}, world=world)
     for r, res in enumerate(ranks):
         assert res["path"] == f"noise_p{r}.pt"
         assert torch.equal(res["back"], noise[3 * r:3 * (r + 1)])
@@ -311,11 +316,11 @@ def test_free_at_noise_shards_round_trip(tmp_path):
         assert res["log"] == [f"WARNING: free-AT noise in {ckpt} has shard (3, 8, 8, 3), "
                               "expected (4, 8, 8, 3) (process count / batch size "
                               "changed?); replay noise resets to zeros"]
-    assert sorted(os.listdir(ckpt)) == ["noise_p0.pt", "noise_p1.pt"]
+    assert sorted(os.listdir(ckpt)) == [f"noise_p{r}.pt" for r in range(world)]
     log = []
-    fresh = driver._load_noise({"resume": str(ckpt)}, torch.zeros(6, 8, 8, 3), log.append)
-    assert torch.equal(fresh, torch.zeros(6, 8, 8, 3))
-    assert log and "has shard (3, 8, 8, 3), expected (6, 8, 8, 3)" in log[0]
+    fresh = driver._load_noise({"resume": str(ckpt)}, torch.zeros(n, 8, 8, 3), log.append)
+    assert torch.equal(fresh, torch.zeros(n, 8, 8, 3))
+    assert log and f"has shard (3, 8, 8, 3), expected ({n}, 8, 8, 3)" in log[0]
 
 
 # ---- (f) ---------------------------------------------------------------------

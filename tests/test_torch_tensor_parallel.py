@@ -26,9 +26,6 @@ OpenMP thread, as tests/test_torch_parallel.py runs the `data` axis
 
 import torch_threads  # noqa: F401  (first: CPU torch on one thread)
 import os
-import shutil
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -37,7 +34,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_port_helpers as helpers
-from test_torch_parallel import CONFIG, REPO, WORKER, _env, _wait
+from test_torch_parallel import CONFIG, REPO, run_ranks
 from torch_checkpoints import drop_written_checkpoints  # noqa: F401
 from edge_enhancement_tpu.attacks import pgd as jpgd
 from edge_enhancement_tpu.models.cnn_mnist import net2
@@ -63,25 +60,6 @@ NET2_OVER = dict(num_steps_1=2, epsilon=0.3, step_size_1=0.1, seed=3, device="cp
 FLAGSHIP_OVER = dict(num_steps_1=2, seed=3, device="cpu")
 LR, MOMENTUM, WD = 0.1, 0.9, 1e-4
 F64_TOL = dict(rtol=1e-10, atol=1e-10)
-
-
-def run_mesh(tmp_path, task: str, inputs: dict, world: int, n_model: int,
-             timeout: float = 240) -> list:
-    """`task` of the worker on `world` ranks of a mesh with a `model` axis
-    of `n_model`; their results (the task's directory goes afterwards)."""
-    d = tmp_path / task
-    d.mkdir()
-    torch.save(inputs, d / "inputs.pt")
-    logs = [str(d / f"log{r}.txt") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, WORKER, task, str(r), str(world), f"file://{d / 'store'}",
-         str(d), str(n_model)],
-        cwd=REPO, env=_env(), stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
-        for r in range(world)]
-    _wait(procs, logs, timeout)
-    results = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(world)]
-    shutil.rmtree(d)
-    return results
 
 
 def _model_rows(sd, m, n_model):
@@ -155,9 +133,9 @@ def _mesh_against_one_process(tmp_path, monkeypatch, cfg, n, shape, world, n_mod
     resume = checkpoint.save_checkpoint(str(tmp_path / "one"), state, 7, cfg["arch"],
                                         0.0, False, opt, LR)
     ckpt = tmp_path / "mesh"
-    ranks = run_mesh(tmp_path, "tp_step", dict(
+    ranks = run_ranks(tmp_path, "tp_step", dict(
         cfg=dict(cfg), num_classes=n, x=x, y=y, vx=vx, vy=vy, lr=LR, momentum=MOMENTUM,
-        weight_decay=WD, dir=str(ckpt), resume=resume), world, n_model)
+        weight_decay=WD, dir=str(ckpt), resume=resume), world=world, n_model=n_model)
     sd = state.model.state_dict()
     names = [k for k, _ in state.model.named_parameters()]
     _check_rows_and_replicas(ranks, n_model, {k: tuple(v.shape) for k, v in sd.items()})
@@ -297,12 +275,12 @@ def test_net2_data2_model2_step_agrees_with_jax_mesh_step(monkeypatch, tmp_path)
     m_j, state_j, x_adv_j, masks, params0 = _jax_net2_mesh_step(monkeypatch, x, y, noise)
     assert len(masks) == 3                       # 2 attack forwards, the trained one
     t = torch.from_numpy
-    ranks = run_mesh(tmp_path, "tp_replay", dict(
+    ranks = run_ranks(tmp_path, "tp_replay", dict(
         arch="Net2", num_classes=10, state=arch_state_dict_from_jax("Net2", params0, {}),
         masks=[t(mk) for mk in masks], noise=t(noise), x_adv=t(np.array(x_adv_j)),
         x=t(x), y=t(y).long(), method="AT",
         fields=dict(epsilon=0.3, num_steps=2, step_size=0.1, num_classes=10),
-        lr=LR, momentum=MOMENTUM, weight_decay=WD), 4, 2)
+        lr=LR, momentum=MOMENTUM, weight_decay=WD), world=4, n_model=2)
     names = list(ranks[0]["state"])
     for r in (2, 3):
         assert all(torch.equal(ranks[r - 2]["state"][k], ranks[r]["state"][k]) for k in names)
@@ -354,7 +332,7 @@ def test_replicated_gradients_are_averaged_over_the_model_group(tmp_path):
     sum. Gradients alike on a data row's model ranks: a replicated one is
     the data group's sum bit for bit ((g + g) / 2 == g)."""
     world, n_model = 4, 2
-    ranks = run_mesh(tmp_path, "tp_sum", {}, world, n_model)
+    ranks = run_ranks(tmp_path, "tp_sum", {}, world=world, n_model=n_model)
     names = ranks[0]["names"]
     assert any(sharding.param_spec(n, g) is None for n, g in zip(names, ranks[0]["apart"]))
     for r, res in enumerate(ranks):
@@ -405,9 +383,9 @@ def test_awp_on_a_model_axis_equals_one_process_in_float64(tmp_path, world, n_mo
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.random(AWP_SHAPE).astype(np.float32))
     y = torch.from_numpy(rng.integers(0, 100, AWP_SHAPE[0]).astype(np.int64))
-    ranks = run_mesh(tmp_path, "awp", dict(
+    ranks = run_ranks(tmp_path, "awp", dict(
         cfg=dict(cfg), num_classes=100, x=x, y=y, variants=AWP_VARIANTS, lr=LR,
-        momentum=MOMENTUM, weight_decay=WD, **AWP_PARAMS), world, n_model)
+        momentum=MOMENTUM, weight_decay=WD, **AWP_PARAMS), world=world, n_model=n_model)
     for i, (awp_on, l1) in enumerate(AWP_VARIANTS):
         got = ranks[0]["variants"][i]
         for r in ranks[1:]:

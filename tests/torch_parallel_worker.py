@@ -31,10 +31,13 @@ saved in <dir>/inputs.pt and saves this rank's results in
   ranks of a data row, beside the data group's own sum of the latter.
 * chain: the flagship's chained step (build_chained_train_step, the
   loop form under gloo) from the driver's own `build`, and the same K
-  batches as K single steps from a fresh build, optionally in float64.
+  batches as K single steps from a fresh build, optionally in float64;
+  the model cut over the `model` axis where the mesh has one, the state
+  gathered into the one-process layout.
 * chain_replay: the chained step on replayed global draws (this rank's
   rows of each step's square stripes and PGD start), each step's own
-  x_adv kept and the given one (JAX's) used for its update.
+  x_adv kept and the given one (JAX's) used for its update; cut and
+  gathered as in chain.
 * awp: AWP steps (objectives/awp.py) of the driver's build of an AWP
   config in float64, with the model cut over the `model` axis, each
   variant (awp_on, l1) from a fresh build; the state gathered into the
@@ -237,7 +240,15 @@ def _stack_rows(ts):
     return torch.stack([_rows(t) for t in ts])
 
 
+def _gathered_result(state, metrics):
+    """_step_result with the state gathered over the model group."""
+    from edge_enhancement_tpu_torch.parallel import sharding
+    sd, mom = sharding.gather_state(state)
+    return {**_step_result(state, metrics), "state": sd, "momentum": mom}
+
+
 def chain(inp):
+    from edge_enhancement_tpu_torch.parallel import sharding
     from edge_enhancement_tpu_torch.train import driver
     from edge_enhancement_tpu_torch.train.trainer import (OptimConfig,
                                                           build_chained_train_step,
@@ -250,6 +261,7 @@ def chain(inp):
         state.model.to(dtype)
         state.momentum_buf = [b.to(dtype) for b in state.momentum_buf]
         mesh.replicate(state.model)
+        sharding.shard_state(state)
         parts = (ops, driver.make_method_config(cfg, n),
                  OptimConfig(inp["momentum"], inp["weight_decay"]), gen)
         if form == "single":
@@ -260,7 +272,7 @@ def chain(inp):
             step = build_chained_train_step(*parts)
             m = step(state, xs, ys, inp["lr"])
             assert step.capture_seconds is None           # the loop form
-        out[form] = _step_result(state, m)
+        out[form] = _gathered_result(state, m)
     return out
 
 
@@ -268,6 +280,7 @@ def chain_replay(inp):
     from edge_enhancement_tpu_torch.attacks import pgd as tpgd
     from edge_enhancement_tpu_torch.models.registry import build_model
     from edge_enhancement_tpu_torch.objectives import methods as tmethods
+    from edge_enhancement_tpu_torch.parallel import sharding
     from edge_enhancement_tpu_torch.train import trainer
     from edge_enhancement_tpu_torch.train.modelops import ModelOps
     model = build_model(inp["arch"], inp["ee_args"], inp["num_classes"])
@@ -282,13 +295,13 @@ def chain_replay(inp):
         kept.append(real(*args, **kwargs))
         return _rows(next(given)).to(args[1].dtype)
     tmethods.pgd_linf = spy
-    state = trainer.create_train_state(model)
+    state = sharding.shard_state(trainer.create_train_state(model))
     step = trainer.build_chained_train_step(
         ModelOps(model), tmethods.MethodConfig(inp["method"], **inp["fields"]),
         trainer.OptimConfig(inp["momentum"], inp["weight_decay"]))
     m = step(state, _stack_rows(inp["xs"]).double(), _stack_rows(inp["ys"]), inp["lr"])
     assert source.calls == len(inp["draws"]) and len(kept) == len(inp["xs"])
-    return {**_step_result(state, m), "x_adv": kept}
+    return {**_gathered_result(state, m), "x_adv": kept}
 
 
 def awp(inp):

@@ -501,19 +501,23 @@ class _JaxStream:
                            ordered=False)
 
 
-def chained_step_jax(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1, n_data=None):
+def chained_step_jax(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1, n_data=None,
+                     n_model=1):
     """JAX's half of `chained_step_pair`: K flagship steps
     (EE_BPDA3_AT_square) as one chained dispatch of the JAX package
     (build_chained_train_step: a lax.scan over the batch stack, its keys
     split as the JAX driver splits a chain's) on float64 carried weights,
     each step's square draws and PGD start made with numpy and replayed.
-    With `n_data` the step is jitted over meshlib.make_mesh(n_data=n_data),
-    the stacks sharded P(None, 'data') by shard_batch_stacked, as the JAX
-    driver's chains under several devices. Returns (the port's inputs: its
-    model on the same weights, xs, ys, the draws in the port's order, the
-    PGD starts, the fields of the method), and JAX's (metrics, state,
-    [x_adv a step])."""
+    With `n_data` the step is jitted over meshlib.make_mesh(n_data,
+    n_model), the state laid out by the JAX package's sharding.py
+    (shard_state, state_sharding: conv and dense kernels cut on the
+    `model` axis) and the stacks sharded P(None, 'data') by
+    shard_batch_stacked, as the JAX driver's chains under several devices.
+    Returns (the port's inputs: its model on the same weights, xs, ys, the
+    draws in the port's order, the PGD starts, the fields of the method),
+    and JAX's (metrics, state, [x_adv a step])."""
     from edge_enhancement_tpu.parallel import mesh as meshlib
+    from edge_enhancement_tpu.parallel import sharding as jsharding
     ops_j, params, bs, model = jax_and_port_models(shape)
     wide = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)
     rng = np.random.default_rng(0)
@@ -556,19 +560,25 @@ def chained_step_jax(monkeypatch, k=2, shape=STEP_SHAPE, pgd_steps=1, n_data=Non
     monkeypatch.setattr(jpgd, "_init_perturbation", init)
     monkeypatch.setattr(jmethods, "pgd_linf", spy)
     common = dict(epsilon=EPS, num_steps=pgd_steps, step_size=STEP_SIZE, num_classes=200)
-    mesh = meshlib.make_mesh(n_data=n_data) if n_data else None
-    step_j = jtrainer.build_chained_train_step(
-        ops_j, jmethods.MethodConfig("EE_BPDA3_AT_square", **common),
-        jtrainer.OptimConfig(MOMENTUM, WD), mesh=mesh)
+    mesh = meshlib.make_mesh(n_data=n_data, n_model=n_model) if n_data else None
+    method_j = jmethods.MethodConfig("EE_BPDA3_AT_square", **common)
     with jax.enable_x64(True):
         state_j = jtrainer.TrainState(params=wide(params), batch_stats=wide(bs),
                                       momentum_buf=init_momentum(wide(params)),
                                       step=jnp.zeros((), jnp.int32))
         keys = jax.random.split(jax.random.split(jax.random.PRNGKey(0))[1], k)
         xb, yb, lr = jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(LR)
+        state_sharding = None
         if mesh is not None:
-            state_j, keys, lr = meshlib.replicate(mesh, (state_j, keys, lr))
+            state_j = jsharding.shard_state(mesh, state_j)
+            kernel = state_j.params["Conv_0"]["kernel"]
+            assert kernel.sharding.shard_shape(kernel.shape)[-1] * n_model == kernel.shape[-1]
+            state_sharding = jsharding.state_shardings(mesh, state_j)
+            keys, lr = meshlib.replicate(mesh, (keys, lr))
             xb, yb = meshlib.shard_batch_stacked(mesh, (xb, yb))
+        step_j = jtrainer.build_chained_train_step(
+            ops_j, method_j, jtrainer.OptimConfig(MOMENTUM, WD), mesh=mesh,
+            state_sharding=state_sharding)
         state_j, m_j = step_j(state_j, xb, yb, keys, lr)
         jax.block_until_ready(state_j)
         jax.effects_barrier()                   # the x_adv callbacks have run
