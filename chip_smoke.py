@@ -145,17 +145,25 @@
       for bit, the ranks' rows different, the weights and momentum the
       file's, K1/K2 16 and 14 a run, ms/step and peak memory a rank.
    n. real folders (before m): the port's JPEG decoder (data/native.py:
-      csrc/eedata.cpp with g++, libjpeg where the machine has it, else
-      PIL) built and its decode path printed; an ImageNet-layout folder of
-      512 train and 256 validation JPEGs (2 classes, 500 x 375, 375 x 500,
-      333 x 500 and 640 x 480, quality 92; written with PIL, or copied
-      from tests/data/jpeg/ without it) read by fast-AT phase 1 through
-      the driver, 2 train steps at bs256 on 128 px RandomResizedCrops and
-      1 validation batch (K1/K2 bfloat16 exact, path folder_fast_at);
-      then the flagship from a Tiny-ImageNet-layout JPEG folder (with
-      val_annotations.txt), 1 step and 1 validation batch (path
-      folder_flagship); the host's decode ms per batch, ms/step, and the
-      seconds each step waited for its batch.
+      csrc/eedata.cpp with g++, linked against the system's libjpeg, else
+      against the ABI-62 libjpeg PIL bundles, with the headers vendored in
+      csrc/third_party/libjpeg62) built, its decode path, libjpeg, the
+      candidates it rejected, the OpenMP threads and the host's cores
+      printed; the phase fails unless the path is libjpeg (not PIL). The
+      fixtures of tests/data/jpeg/ decoded in modes 0, 1 and 2, uint8 and
+      float32, with flips, each image's SHA-256 against
+      decoded_sha256.json (the JAX package's decoder's bytes). An
+      ImageNet-layout folder of 512 train and 256 validation JPEGs (2
+      classes, 500 x 375, 375 x 500, 333 x 500 and 640 x 480, quality 92;
+      written with PIL, or copied from tests/data/jpeg/ without it) read
+      by fast-AT phase 1 through the driver, 2 train steps at bs256 on 128
+      px RandomResizedCrops and 1 validation batch (K1/K2 bfloat16 exact,
+      path folder_fast_at); then the flagship from a Tiny-ImageNet-layout
+      JPEG folder (with val_annotations.txt), 1 step and 1 validation
+      batch (path folder_flagship); the host's decode ms per batch of 256
+      at 128 and 224 px (one batch loaded alone, 3 times), ms/step, and
+      the seconds each step waited for its batch. `python3 chip_smoke.py
+      --phase n` runs the device, the build, the K1/K2 phases and n alone.
    o. the serving export (utils/export.py) through tools/export_model on
       the card from slice a's checkpoint, the batch symbolic: the graph
       holds K1's operator once; the artifact at 100 and 37 images, draws
@@ -261,6 +269,7 @@ CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import itertools
 import json
 import math
@@ -492,6 +501,8 @@ M3_ARGS = dict(data="synthetic", synthetic_size=512, epochs=1, limit_batches=1,
 # Tiny-ImageNet's layout, 64 x 64, for the flagship (1 step, 1 batch of 100)
 FOLDER_TRAIN, FOLDER_VAL = 512, 256
 FOLDER_SIZES = ((375, 500), (500, 375), (500, 333), (480, 640))
+# n: the second decode timing, at free-AT's crop
+FOLDER_FREE_AT_SIZE = 224
 TINY_CLASSES, TINY_PER_CLASS = 10, 10
 # one JPEG of each of those shapes, copied where PIL is not installed
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
@@ -2524,14 +2535,20 @@ def write_tiny_imagenet_folder(root: str) -> None:
 
 
 def folder_phase(torch, kernels, device_line) -> None:
-    """n. Real folders: the port's decoder built, its path printed; fast-AT
-    phase 1 through the driver from an ImageNet-layout JPEG folder (2 train
-    steps at bs256 on 128 px RandomResizedCrops, 1 validation batch, K1/K2
-    bf16 counts exact, path folder_fast_at), then the flagship for 1 step
-    and 1 validation batch from a Tiny-ImageNet-layout JPEG folder (path
-    folder_flagship). Prints the host's decode ms per batch (one batch
-    loaded alone), the step's ms and how long each step waited for its
-    batch (the lookahead thread decodes batch i + 1 during step i)."""
+    """n. Real folders: the port's decoder built, its path and libjpeg
+    printed, and the phase fails unless it decodes with libjpeg (the
+    system's, else the one PIL bundles: data/native.py), not PIL; the
+    fixtures of tests/data/jpeg/ decoded in modes 0, 1, 2, uint8 and
+    float32, with flips, against decoded_sha256.json (the JAX package's
+    decoder's bytes); fast-AT phase 1 through the driver from an
+    ImageNet-layout JPEG folder (2 train steps at bs256 on 128 px
+    RandomResizedCrops, 1 validation batch, K1/K2 bf16 counts exact, path
+    folder_fast_at), then the flagship for 1 step and 1 validation batch
+    from a Tiny-ImageNet-layout JPEG folder (path folder_flagship). Prints
+    the host's decode ms per batch (one batch loaded alone, 3 times) at
+    128 and 224 px with the decoder's threads and the host's cores, each
+    step's ms and how long it waited for its batch (the lookahead thread
+    decodes batch i + 1 during step i)."""
     from edge_enhancement_tpu_torch.data import native
     from edge_enhancement_tpu_torch.data.datasets import StreamingImageFolder, get_dataset
     from edge_enhancement_tpu_torch.train.driver import run
@@ -2540,8 +2557,21 @@ def folder_phase(torch, kernels, device_line) -> None:
     t0 = time.time()
     lib = native.build()
     path = native.decode_path()          # raises where neither libjpeg nor PIL is present
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} runs {native._pil_libjpeg()}"
+    except ImportError:
+        pil = "no PIL"
+    rejected = "; ".join(native.rejected_libjpeg()) or "none"
     print(f"[folder] decoder {os.path.relpath(lib, ROOT)} built in {time.time() - t0:.1f} s; "
-          f"decode path {path}", flush=True)
+          f"decode path {path}; libjpeg linked {native.jpeg_library()}; candidates "
+          f"rejected before it: {rejected}; {pil}; {native.num_threads()} OpenMP threads a "
+          f"decode, host cores {os.cpu_count()} ({len(os.sched_getaffinity(0))} in this "
+          f"process's affinity)", flush=True)
+    if path != "libjpeg":
+        fail(f"the JPEG decoder found no libjpeg (rejected: {rejected}): PIL would decode "
+             f"every folder batch")
+    _check_fixture_digests(native)
     root = _out_dir("folders")
     t0 = time.time()
     write_imagenet_folder(os.path.join(root, "imagenet"))
@@ -2556,16 +2586,20 @@ def folder_phase(torch, kernels, device_line) -> None:
         torch, kernels, device_line, "folder_fast_at", fast_path, fwd, bwd, per_step,
         dict(FOLDER_ARGS, data=os.path.join(root, "imagenet")))
     size, bs = int(cfg["cize"]), int(cfg["batch_size"])
-    train_ds, _ = get_dataset("imagenet", os.path.join(root, "imagenet"), train=True,
-                              image_size=size)
-    if not isinstance(train_ds, StreamingImageFolder) or len(train_ds) != FOLDER_TRAIN:
-        fail(f"the ImageNet folder loaded as {type(train_ds).__name__} of {len(train_ds)}")
-    t0 = time.time()
-    x, _ = next(train_ds.batches(bs, shuffle=True, seed=1, as_uint8=True))
-    decode_ms = 1e3 * (time.time() - t0)
-    if x.shape != (bs, size, size, 3):
-        fail(f"a folder batch has shape {x.shape}")
-    _report_folder_steps("folder_fast_at", summary, decode_ms, bs, size, path, device_line)
+    decode_ms = {}
+    for px in (size, FOLDER_FREE_AT_SIZE):
+        train_ds, _ = get_dataset("imagenet", os.path.join(root, "imagenet"), train=True,
+                                  image_size=px)
+        if not isinstance(train_ds, StreamingImageFolder) or len(train_ds) != FOLDER_TRAIN:
+            fail(f"the ImageNet folder loaded as {type(train_ds).__name__} of "
+                 f"{len(train_ds)}")
+        decode_ms[px] = _decode_ms(train_ds, bs)
+    print(f"[folder] host decode ms a batch of {bs} RandomResizedCrops, one batch loaded "
+          f"alone, 3 times: {', '.join(f'{px} px {v}' for px, v in decode_ms.items())} "
+          f"({path}, {native.num_threads()} OpenMP threads, host cores {os.cpu_count()}); "
+          f"on {device_line}", flush=True)
+    _report_folder_steps("folder_fast_at", summary, min(decode_ms[size]), bs, size, path,
+                         device_line)
 
     cfg = load_config(CONFIG, dict(FOLDER_ARGS, data=os.path.join(root, "tiny"),
                                    limit_batches=1, output=_out_dir("folder_flagship")))
@@ -2588,11 +2622,49 @@ def folder_phase(torch, kernels, device_line) -> None:
     if not logged or not logged[0].endswith(f"decoded by {path}"):
         fail(f"folder_flagship: the driver logged {logged}")
     tiny = get_dataset("tiny_imagenet", os.path.join(root, "tiny"), train=True)[0]
-    t0 = time.time()
-    next(tiny.batches(int(cfg["batch_size"]), shuffle=True, seed=1, as_uint8=True))
-    _report_folder_steps("folder_flagship", summary, 1e3 * (time.time() - t0),
-                         int(cfg["batch_size"]), 64, path, device_line)
+    bs = int(cfg["batch_size"])
+    _report_folder_steps("folder_flagship", summary, min(_decode_ms(tiny, bs)), bs, 64,
+                         path, device_line)
     shutil.rmtree(root)
+
+
+def _check_fixture_digests(native) -> None:
+    """The fixtures of tests/data/jpeg/ through the port's decoder in every
+    case of decoded_sha256.py (modes 0, 1, 2; uint8 and float32; flips):
+    each image's SHA-256 must be decoded_sha256.json's, which the JAX
+    package's decoder wrote."""
+    spec = importlib.util.spec_from_file_location(
+        "decoded_sha256", os.path.join(JPEG_FIXTURES, "decoded_sha256.py"))
+    digests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(digests)
+    with open(digests.DIGESTS) as f:
+        want = json.load(f)
+    try:
+        got = digests.digests(native.stream_decode_files)
+    except RuntimeError as e:
+        fail(f"the fixtures: {e}")
+    bad = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+    print(f"[folder] {len(want) - len(bad)} of {len(want)} decoded fixture digests "
+          f"({len(digests.fixtures())} JPEGs: 4:2:0, 4:4:4, 4:2:2, progressive, grayscale; "
+          f"modes 0, 1, 2; uint8 and float32; flips) equal the JAX decoder's", flush=True)
+    if bad:
+        fail(f"the port's decode differs from the JAX package's on {bad}")
+
+
+def _decode_ms(ds, bs: int, repeats: int = 3) -> list:
+    """ms to load one batch of `bs` alone, `repeats` times (other images
+    and draws each time): ds._load_batch, the lookahead thread's call
+    (draws, read, decode, crop, resize, flips), uint8 as the driver asks."""
+    import numpy as np
+    out = []
+    for r in range(repeats):
+        take = (np.arange(bs) + r * bs) % len(ds)
+        t0 = time.perf_counter()
+        x, _ = ds._load_batch(take, np.random.default_rng(r), as_uint8=True)
+        out.append(round(1e3 * (time.perf_counter() - t0), 1))
+        if x.shape != (bs, ds.image_size, ds.image_size, 3):
+            fail(f"a folder batch has shape {x.shape}")
+    return out
 
 
 def _report_folder_steps(tag, summary, decode_ms, bs, size, path, device_line) -> None:
@@ -3294,13 +3366,20 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
-PHASES = {"r": ranks_phase, "s": twin_phase, "t": mesh4_phase}
+def folder_alone_phase(torch, kernels, device_line) -> None:
+    """n alone: the float32 and bfloat16 K1/K2 phases first (the folder
+    slices read their device ms), then n."""
+    kernels += kernel_phase(torch) + bf16_kernel_phase(torch)
+    folder_phase(torch, kernels, device_line)
+
+
+PHASES = {"n": folder_alone_phase, "r": ranks_phase, "s": twin_phase, "t": mesh4_phase}
 
 
 def phase_main(letter: str) -> None:
-    """`--phase r`, `--phase s` or `--phase t`: the device, the build and
-    that phase alone (r and t on a machine with one card, or with a card a
-    rank for r2 and t); no kernels line and no final line."""
+    """`--phase n`, `--phase r`, `--phase s` or `--phase t`: the device,
+    the build and that phase alone (r and t on a machine with one card, or
+    with a card a rank for r2 and t); no kernels line and no final line."""
     import torch
 
     name, smi = device_phase(torch)

@@ -57,6 +57,9 @@ extern "C" {
 
 void ee_set_num_threads(int32_t n) { g_threads = n > 0 ? n : 0; }
 
+// The OpenMP team size of an ee_stream_decode_files call (1 without OpenMP).
+int ee_num_threads() { return team_size(); }
+
 #ifdef EE_HAVE_JPEG
 
 namespace {

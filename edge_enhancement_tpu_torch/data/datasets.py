@@ -9,8 +9,8 @@ trains without augmentation; CIFAR-100 with the pad-4 random crop, hflip
 and a random rotation of up to 15 degrees (`cifar_augment`, in numpy, in
 the arithmetic of the JAX package's native runtime). The image folders
 stream from disk (`StreamingImageFolder`), their JPEGs decoded by the
-port's copy of that runtime's decoder (data/native.py, libjpeg), else by
-PIL: Tiny-ImageNet with hflip only, its validation split read either as
+port's copy of that runtime's decoder (data/native.py: the system's
+libjpeg, else the one PIL bundles), else by PIL: Tiny-ImageNet with hflip only, its validation split read either as
 class folders or in the raw val/images + val_annotations.txt layout;
 ImageNet with RandomResizedCrop + hflip in training and the centre box of
 Resize(256) + CenterCrop(224), scaled with the image size, in evaluation.
@@ -246,7 +246,8 @@ def _pil_decode(path: str, size: int) -> np.ndarray:
 def _decode_files_to_array(paths: list, image_size: int) -> np.ndarray:
     """Image files as one (N, S, S, 3) uint8 array: chunks of 8192 JPEGs
     through the native decoder; a chunk it cannot take (a PNG, a file that
-    fails, no libjpeg) through PIL, file by file."""
+    fails, no libjpeg: neither the system's nor PIL's) through PIL, file by
+    file."""
     out = np.empty((len(paths), image_size, image_size, 3), np.uint8)
     chunk = 8192
     for lo in range(0, len(paths), chunk):
@@ -329,8 +330,10 @@ class StreamingImageFolder:
     else the full image resized. Every draw of a batch is made up front
     from its own generator, seeded (seed, epoch, 17, batch start): the 40
     RRC uniforms of each image, then the flips. Where the native decoder
-    cannot take a batch (no libjpeg, a PNG, a file that fails), PIL decodes
-    the whole batch from the same draws."""
+    cannot take a batch (a CMYK JPEG, a PNG, a file that fails; no
+    libjpeg, neither the system's nor the one PIL bundles, which
+    native.find_libjpeg tries in that order), PIL decodes the whole batch
+    from the same draws."""
 
     def __init__(self, root: str, image_size: int, train: bool,
                  class_to_idx: Optional[dict] = None,

@@ -454,6 +454,7 @@ def _run(cfg, device) -> dict:
            if spd > 1 else ""))
     if any(isinstance(ds, StreamingImageFolder) for ds in (train_ds, val_ds)):
         log(f"=> image folder {cfg['data']}: JPEGs decoded by {native.decode_path()}")
+        log(f"=> libjpeg linked: {native.jpeg_library() or 'none'}")
     if cfg.get("pretrained"):
         # torchvision-format warm start; --resume below still wins
         n_loaded, skipped = load_pretrained(state.model, cfg["pretrained"])
